@@ -1,0 +1,1 @@
+"""control layer of the PyTorch/CUDA port (see the package docstring)."""

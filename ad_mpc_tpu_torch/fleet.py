@@ -1,0 +1,189 @@
+"""The closed-loop fleet control tick of bench config c2, on the port.
+
+Port of ``bench.py:70-202, 210-213, 303-379``. Every tick is the full unit
+of work: project each vehicle onto its arc and build its reference window,
+run one batched SQP-RTI solve (two kernel launches per Gauss-Newton
+iteration on a CUDA device), apply u0 to the plant and shift the warm start.
+
+Scenario draws use ``numpy.random.default_rng(seed)`` exactly as the JAX
+package's bench does, so both packages drive the same fleet.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ad_mpc_tpu_torch.control.mpc import bicycle_spec
+from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
+from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver, SolverState
+
+# Quality gates of config c2 (``bench.py:473-476, 493-495``): they describe
+# the solution, not the chip, and hold for the port unchanged.
+GATES = {"kkt_mean": 5e-6, "kkt_max": 3e-5, "lat_err_mean_m": 0.4}
+RTI_GATE = 5e-4  # max |u0_RTI - u0_converged|
+WHEELBASE = 2.7  # of the reference arcs' steering feed-forward [m]
+
+# c2's dynamics: the linear-tire bicycle with the dynamic branch driven
+# explicitly by p[0] = 1 (``bench.py:210-213``).
+dynamic_bicycle = BicycleDynamics()
+
+
+def switch_on(v, kappa, extra):
+    """c2's per-scenario parameter: the blend switch at 1."""
+    return np.array([1.0], np.float32)
+
+
+def make_scenarios(batch, seed=0):
+    """Per-scenario (speed, curvature) as float32 numpy arrays: arcs the
+    vehicle can track (|v^2 kappa| <= 6 m/s^2, |kappa| <= 0.05 1/m)."""
+    rng = np.random.default_rng(seed)
+    v = rng.uniform(5.0, 15.0, batch).astype(np.float32)
+    kmax = np.minimum(0.05, 6.0 / v**2)
+    kappa = rng.uniform(-1.0, 1.0, batch).astype(np.float32) * kmax
+    return v, kappa.astype(np.float32)
+
+
+def arc_reference(v, kappa, s0, N, dt, wheelbase):
+    """(B, N+1, 7) state references along constant-curvature arcs starting
+    at arc length s0; v, kappa, s0 are (B,)."""
+    ar = torch.arange(N + 1, dtype=torch.float32, device=v.device)
+    s = s0[:, None] + v[:, None] * ar * dt
+    kap = kappa[:, None]
+    straight = kap.abs() < 1e-6
+    k = torch.where(straight, torch.full_like(kap, 1e-6), kap)
+    psi = k * s
+    x = torch.where(straight, s, torch.sin(psi) / k)
+    y = torch.where(straight, torch.zeros_like(s), (1.0 - torch.cos(psi)) / k)
+    delta = torch.atan(kappa * wheelbase)
+    ones = torch.ones_like(s)
+    return torch.stack(
+        [x, y, psi, v[:, None] * ones, torch.zeros_like(s),
+         (kappa * v)[:, None] * ones, delta[:, None] * ones],
+        dim=-1,
+    )
+
+
+def _project_arc(x0, s0, kappa):
+    """Arc length of the point on each arc closest to its vehicle,
+    unwrapped near the previous anchor s0. x0 (B, nx); s0, kappa (B,)."""
+    px, py, k = x0[:, 0], x0[:, 1], kappa
+    ang = torch.atan2(k * px, 1.0 - k * py)
+    ks0 = k * s0
+    ang = ks0 + torch.atan2(torch.sin(ang - ks0), torch.cos(ang - ks0))
+    straight = k.abs() < 1e-6
+    s_arc = ang / torch.where(straight, torch.full_like(k, 1e-6), k)
+    return torch.where(straight, px, s_arc)
+
+
+def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
+                sqp_iters=1, device="cuda"):
+    """Closed-loop fleet over :class:`BatchedSQPSolver`.
+
+    dynamics(x, u, p): continuous model with a per-scenario parameter
+    vector; p_of_scenario(v, kappa, extra) builds that vector.
+    Returns (tick, init, solver, spec): tick(carry) -> (carry, (kkt, lat)).
+    """
+    spec = bicycle_spec(t_horizon=n_nodes * 0.05, n_nodes=n_nodes,
+                        qp_iters=qp_iters, sqp_iters=sqp_iters)
+    p_dim = int(np.asarray(p_of_scenario(5.0, 0.0, np.zeros(8))).shape[0])
+    solver = BatchedSQPSolver(spec, dynamics, p_dim=p_dim, device=device)
+    N, dt = spec.n_nodes, spec.dt
+
+    def tick(carry):
+        x0, s0, v, kappa, p, states = carry
+        s0 = _project_arc(x0, s0, kappa)
+        yref_x = arc_reference(v, kappa, s0, N, dt, WHEELBASE)
+        yref_u = x0.new_zeros((x0.shape[0], N, 2))
+        res = solver.solve(x0, yref_x, yref_u, p, states)
+        with torch.no_grad():
+            x_next = solver.F(x0, res.us[:, 0], p)
+        states = solver.shift(res.state)
+        lat = torch.sqrt((x_next[:, 0] - yref_x[:, 1, 0]) ** 2
+                         + (x_next[:, 1] - yref_x[:, 1, 1]) ** 2)
+        return (x_next, s0, v, kappa, p, states), (res.kkt_residual, lat.mean())
+
+    def init(batch, seed=0):
+        v, kappa = make_scenarios(batch, seed)
+        extras = np.random.default_rng(1).uniform(0.0, 1.0, (batch, 8)).astype(
+            np.float32)
+        p_np = np.stack([np.asarray(p_of_scenario(float(vv), float(kk), ee))
+                         for vv, kk, ee in zip(v, kappa, extras)]
+                        ).astype(np.float32)
+        dev = solver.Q.device
+        v = torch.as_tensor(v, device=dev)
+        x0 = torch.zeros((batch, 7), dtype=torch.float32, device=dev)
+        x0[:, 3] = v
+        states = SolverState(
+            xs=x0[:, None].expand(-1, N + 1, -1).contiguous(),
+            us=x0.new_zeros((batch, N, 2)),
+        )
+        return (x0, torch.zeros_like(v), v, torch.as_tensor(kappa, device=dev),
+                torch.as_tensor(p_np, device=dev), states)
+
+    return tick, init, solver, spec
+
+
+def run_config(tick, init, batch, ticks=20, warmup=5):
+    """One measured row on the card: ``warmup`` ticks, then ``ticks`` ticks
+    timed with CUDA events around the window and a ``synchronize``."""
+    carry = init(batch)
+    if carry[0].device.type != "cuda":
+        raise RuntimeError("run_config times a CUDA device; the fleet is on "
+                           f"{carry[0].device}")
+    tic0 = time.perf_counter()
+    carry, (kkt, lat) = tick(carry)
+    torch.cuda.synchronize()
+    first_call_s = time.perf_counter() - tic0
+    for _ in range(warmup - 1):
+        carry, (kkt, lat) = tick(carry)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(ticks):
+        carry, (kkt, lat) = tick(carry)
+    end.record()
+    torch.cuda.synchronize()
+    window_s = start.elapsed_time(end) / 1e3
+    row = {
+        "solves_per_s": batch * ticks / window_s,
+        "tick_ms": 1e3 * window_s / ticks,
+        "kkt_mean": float(kkt.mean()),
+        "kkt_p99": float(torch.quantile(kkt, 0.99)),
+        "kkt_max": float(kkt.max()),
+        "lat_err_mean_m": float(lat),
+        "batch": batch,
+        "warmup_ticks": warmup,
+        "measured_ticks": ticks,
+        "first_call_s": first_call_s,
+    }
+    return row, carry
+
+
+def gate_failures(row):
+    """Names of the c2 quality gates that ``row`` exceeds."""
+    return [k for k, lim in GATES.items() if not row[k] <= lim]
+
+
+def rti_vs_converged(dynamics, p_of, carry):
+    """Quality gate: max |u0| difference, over the first 64 scenarios,
+    between the deployed RTI tick and a converged SQP solve (6 Gauss-Newton
+    iterations, 20 IPM iterations) from the same state and warm start."""
+    x0, s0, v, kappa, p, states = carry
+    m = min(64, x0.shape[0])
+    dev = x0.device
+    _, _, solver1, spec = build_fleet(dynamics, p_of, qp_iters=12,
+                                      sqp_iters=1, device=dev)
+    _, _, solver8, _ = build_fleet(dynamics, p_of, qp_iters=20, sqp_iters=6,
+                                   device=dev)
+    N, dt = spec.n_nodes, spec.dt
+    st = SolverState(states.xs[:m].contiguous(), states.us[:m].contiguous())
+    s0p = _project_arc(x0[:m], s0[:m], kappa[:m])
+    yref_x = arc_reference(v[:m], kappa[:m], s0p, N, dt, WHEELBASE)
+    yref_u = x0.new_zeros((m, N, 2))
+    u_rti = solver1.solve(x0[:m], yref_x, yref_u, p[:m], st).us[:, 0]
+    u_cvg = solver8.solve(x0[:m], yref_x, yref_u, p[:m], st).us[:, 0]
+    return float((u_rti - u_cvg).abs().max())

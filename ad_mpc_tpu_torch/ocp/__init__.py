@@ -1,0 +1,1 @@
+"""ocp layer of the PyTorch/CUDA port (see the package docstring)."""

@@ -1,0 +1,153 @@
+"""Batched SQP-RTI nonlinear MPC solver (port of ``ad_mpc_tpu/ocp/solver.py``).
+
+Each solve runs ``spec.sqp_iters`` Gauss-Newton iterations over the whole
+fleet. One iteration is two kernel launches on a CUDA device:
+
+- the fused RK4 + forward-sensitivity sweep (``ops/cuda_vde.py``);
+- the fused fixed-iteration interior-point QP (``ops/cuda_lq.py``).
+
+On CPU tensors both wrappers run their plain PyTorch versions. The device of
+the tensors decides; there is no backend knob. The RTI warm start is an
+explicit :class:`SolverState` threaded through solves and shifted.
+
+Not in this slice: the single-vehicle ``SQPSolver`` (line search), the
+associative-scan Riccati and the multi-device ``mesh``.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from ad_mpc_tpu_torch.ocp.spec import OCPSpec
+from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
+from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
+from ad_mpc_tpu_torch.ops.integrators import discretize
+from ad_mpc_tpu_torch.utils.math import yaw_wrap_reference
+
+
+class SolverState(NamedTuple):
+    """RTI warm-start iterate: xs (B, N+1, nx), us (B, N, nu)."""
+
+    xs: torch.Tensor
+    us: torch.Tensor
+
+
+class SolveResult(NamedTuple):
+    us: torch.Tensor  # (B, N, nu) optimized controls
+    xs: torch.Tensor  # (B, N+1, nx) optimized states
+    state: SolverState  # warm start for the next solve
+    kkt_residual: torch.Tensor  # (B,) RMS dynamics defect of the iterate
+    alpha: torch.Tensor  # (B,) last-QP step sizes (diagnostics)
+
+
+def save_iterate(path: str, state: SolverState) -> str:
+    """Persist a warm-start iterate as npz (the JAX package's format)."""
+    np.savez(path, xs=state.xs.detach().cpu().numpy(),
+             us=state.us.detach().cpu().numpy())
+    return path
+
+
+def load_iterate(path: str, device="cuda") -> SolverState:
+    """Restore an iterate written by either package's ``save_iterate``."""
+    with np.load(path) as z:
+        return SolverState(xs=torch.as_tensor(z["xs"], device=device),
+                           us=torch.as_tensor(z["us"], device=device))
+
+
+def discrete_step(f, dt, rk4_steps, x, u, p):
+    """RK4 map of ``f(x, u, p)`` on batch-first tensors: x (..., nx),
+    u (..., nu), p (..., pd), broadcastable leading axes -> (..., nx)."""
+    F = discretize(lambda xx, uu: f(xx, uu, p.movedim(-1, 0)), dt, rk4_steps)
+    return F(x.movedim(-1, 0), u.movedim(-1, 0)).movedim(0, -1)
+
+
+class BatchedSQPSolver(nn.Module):
+    """Fleet-scale SQP-RTI solver.
+
+    :param dynamics: continuous ``f(x, u, p) -> x_dot`` on entries-leading
+        tensors (``x[i]`` is one state entry) with a per-scenario parameter
+        vector of ``p_dim >= 1`` entries, e.g.
+        :class:`ad_mpc_tpu_torch.models.bicycle.BicycleDynamics`.
+    """
+
+    def __init__(self, spec: OCPSpec, dynamics: Callable, p_dim: int,
+                 device="cuda"):
+        super().__init__()
+        if spec.assoc_riccati:
+            raise NotImplementedError("associative-scan Riccati is not ported")
+        if p_dim < 1:
+            raise NotImplementedError("dynamics without parameters (p_dim=0) "
+                                      "are not ported")
+        self.spec, self.p_dim = spec, p_dim
+        self.f = dynamics
+        N, nx, nu = spec.n_nodes, spec.nx, spec.nu
+        Q, R, QN = spec.weight_arrays()
+        u_bounds, x_bounds = spec.bound_dicts()
+        self.register_buffer("Q", torch.as_tensor(Q, dtype=torch.float32))
+        self.register_buffer("R", torch.as_tensor(R, dtype=torch.float32))
+        self.register_buffer("QN", torch.as_tensor(QN, dtype=torch.float32))
+        self.vde = make_vde(dynamics, spec.dt, N, nx, nu, p_dim,
+                            rk4_steps=spec.rk4_steps, device=device)
+        self.qp = make_lq_solver(N, nx, nu, Q, R, QN, u_bounds, x_bounds,
+                                 iters=spec.qp_iters, reg=spec.levenberg,
+                                 device=device)
+        self.to(device)
+
+    def F(self, x, u, p):
+        """Discrete dynamics on batch-first tensors (see :func:`discrete_step`)."""
+        return discrete_step(self.f, self.spec.dt, self.spec.rk4_steps, x, u, p)
+
+    @torch.no_grad()
+    def solve(self, x0, yref_x, yref_u, params, state: SolverState) -> SolveResult:
+        """Batched solve. x0 (B,nx), yref_x (B,N+1,nx), yref_u (B,N,nu),
+        params (B,p_dim), state batched likewise."""
+        spec = self.spec
+        if (x0.device.type == "cuda" and spec.matmul_precision == "highest"
+                and torch.backends.cuda.matmul.allow_tf32):
+            raise RuntimeError("matmul_precision='highest' needs "
+                               "torch.backends.cuda.matmul.allow_tf32 = False")
+        f32 = torch.float32
+        x0, yref_x, yref_u = x0.to(f32), yref_x.to(f32), yref_u.to(f32)
+        params = params.to(f32).contiguous()
+        xs, us = state.xs.to(f32), state.us.to(f32)
+        if spec.yaw_wrap_idx is not None:
+            i = spec.yaw_wrap_idx
+            yref_x = yref_x.clone()
+            yref_x[:, :, i] = yaw_wrap_reference(yref_x[:, :, i], x0[:, i, None])
+
+        alpha = None
+        for _ in range(spec.sqp_iters):
+            xs = xs.clone()
+            xs[:, 0] = x0
+            us = us.contiguous()
+            A, Bm, c = self.vde(xs, us, params)
+            q_lin = torch.einsum("ij,bkj->bki", self.Q, xs[:, :-1] - yref_x[:, :-1])
+            q_term = torch.einsum("ij,bj->bi", self.QN, xs[:, -1] - yref_x[:, -1])
+            q = torch.cat([q_lin, q_term[:, None]], dim=1).contiguous()
+            r = torch.einsum("ij,bkj->bki", self.R, us - yref_u).contiguous()
+            dx, du, alpha = self.qp(A, Bm, c, q, r, us, xs)
+            xs, us = xs + dx, us + du
+
+        defect = self.F(xs[:, :-1], us, params[:, None]) - xs[:, 1:]
+        kkt = torch.sqrt(torch.mean(defect**2, dim=(1, 2)))
+        return SolveResult(us=us, xs=xs, state=SolverState(xs, us),
+                           kkt_residual=kkt, alpha=alpha)
+
+    @staticmethod
+    def shift(state: SolverState) -> SolverState:
+        """RTI shift: advance the warm start one stage."""
+        xs = torch.cat([state.xs[:, 1:], state.xs[:, -1:]], dim=1)
+        us = torch.cat([state.us[:, 1:], state.us[:, -1:]], dim=1)
+        return SolverState(xs=xs, us=us)
+
+    def init_state(self, x0s) -> SolverState:
+        """Cold start for a (B, nx) batch: constant-state warm start."""
+        x0s = torch.as_tensor(x0s, dtype=torch.float32, device=self.Q.device)
+        N = self.spec.n_nodes
+        xs = x0s[:, None].expand(-1, N + 1, -1).contiguous()
+        us = x0s.new_zeros((x0s.shape[0], N, self.spec.nu))
+        return SolverState(xs=xs, us=us)

@@ -1,0 +1,103 @@
+"""Build the CUDA sources of ``csrc/`` and load them with ctypes.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds):
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+         -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
+
+The library name carries a hash of the source, so an edited source builds
+anew and an unchanged one is reused. ``-Xptxas -v`` (registers, spills) is
+kept beside the library as ``<name>-<hash>.ptxas.txt``. No
+``--use_fast_math``: the parity tolerances assume IEEE ``sinf``/``cosf``
+and division. Nothing is built at import; :func:`load` builds on first use
+and :func:`build_all` builds every source at once, one ``nvcc`` each.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+SOURCES = ("vde", "lq_ipm")
+
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _target(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build_all(names=SOURCES) -> dict:
+    """Compile every source that has no up-to-date library, all ``nvcc``
+    processes started together. Returns {name: library path}."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    targets = {n: _target(n) for n in names}
+    procs = {}
+    for n, so in targets.items():
+        if so.exists():
+            continue
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True),
+                    tmp, so)
+    failed = []
+    for n, (proc, tmp, so) in procs.items():
+        out, _ = proc.communicate()
+        so.with_suffix(".ptxas.txt").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu:\n{out}")
+            continue
+        tmp.replace(so)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return targets
+
+
+def ptxas_report(name: str) -> str:
+    """The ``-Xptxas -v`` lines (registers, spills) of the last build."""
+    path = _target(name).with_suffix(".ptxas.txt")
+    if not path.exists():
+        return "(built earlier; no ptxas report)"
+    keep = ("Compiling entry", "registers", "spill", "stack frame")
+    return "\n".join(line for line in path.read_text().splitlines()
+                     if any(k in line for k in keep))
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    if name not in _LIBS:
+        so = build_all((name,))[name]
+        _LIBS[name] = ctypes.CDLL(str(so))
+    return _LIBS[name]
+
+
+def require_card(device) -> None:
+    """Raise when ``device`` is a CUDA device and this machine has none:
+    the entry points never fall back to the CPU."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device!r} but no CUDA device is "
+                           "available; pass device='cpu' for the plain path")

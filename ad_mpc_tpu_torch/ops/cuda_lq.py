@@ -1,0 +1,184 @@
+"""Fused interior-point LQ-QP solve: CUDA kernel wrapper and plain version.
+
+Replaces ``ad_mpc_tpu/ops/pallas_lq.py:_lq_kernel_rolled`` and its
+stage-unrolled twin ``_lq_kernel`` (built by ``make_lq_solver``). The kernel
+is ``csrc/lq_ipm.cu``: one thread per scenario runs every IPM iteration,
+with per-stage state in a batch-innermost scratch buffer allocated here.
+
+Pallas baked the bounds into the trace as Python constants; here they are a
+by-value list of the active (finite) cone entries, and buffers of the module
+for the plain version. The plain version, :func:`lq_plain`, is the batched
+:func:`ad_mpc_tpu_torch.ops.qp_ipm.solve_lq_ocp`. The wrapper runs it only
+for CPU tensors; for CUDA tensors it launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch import nn
+
+from ad_mpc_tpu_torch.ops import _build
+from ad_mpc_tpu_torch.ops.qp_ipm import BoundSpec, solve_lq_ocp
+
+MAX_CONES = 32  # LQ_MAX_CONES in csrc/lq_ipm.cu
+
+
+class _LqCone(ctypes.Structure):
+    _fields_ = [("is_x", ctypes.c_int), ("j", ctypes.c_int),
+                ("lo", ctypes.c_int), ("soft", ctypes.c_int),
+                ("b", ctypes.c_float), ("z", ctypes.c_float),
+                ("Z", ctypes.c_float)]
+
+
+class _LqBounds(ctypes.Structure):
+    _fields_ = [("n", ctypes.c_int), ("e", _LqCone * MAX_CONES)]
+
+
+def _lib():
+    lib = _build.load("lq_ipm")
+    if not getattr(lib, "_typed", False):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.lq_ipm.argtypes = [P] * 14 + [I] * 5 + [F, F, _LqBounds, P]
+        lib.lq_ipm.restype = I
+        lib.lq_ipm_scratch_floats.argtypes = [I, I, I, I]
+        lib.lq_ipm_scratch_floats.restype = ctypes.c_longlong
+        lib.error_string.argtypes = [I]
+        lib.error_string.restype = ctypes.c_char_p
+        lib._typed = True
+    return lib
+
+
+def cone_entries(u_bounds, x_bounds):
+    """Active cone entries (is_x, j, lo, soft, b, z, Z) in the order u_lo,
+    u_hi, x_lo, x_hi, each by ascending index — the order of the Pallas
+    kernel's sides. Only finite bounds get an entry."""
+    out = []
+    for is_x, bd in ((0, u_bounds), (1, x_bounds)):
+        for lo in (True, False):
+            b = np.asarray(bd["lb"] if lo else bd["ub"], np.float64)
+            z = np.asarray(bd["zl"] if lo else bd["zu"], np.float64)
+            Z = np.asarray(bd["Zl"] if lo else bd["Zu"], np.float64)
+            soft = np.asarray(bd["soft"], bool)
+            for j in np.flatnonzero(np.isfinite(b)):
+                out.append((is_x, int(j), int(lo), int(soft[j]),
+                            float(b[j]), float(z[j]), float(Z[j])))
+    return out
+
+
+def lq_plain(A, Bm, c, q, r, u_ref, x_ref, Q, R, QN, u_spec, x_spec,
+             iters, reg=1e-8, tau_min=1e-8):
+    """Plain PyTorch version: the batched IPM with the same stage weights
+    and bounds (:class:`BoundSpec`). Returns (dx (B,N+1,nx), du (B,N,nu),
+    alpha (B,))."""
+    N, nx, nu = A.shape[1], A.shape[-1], Bm.shape[-1]
+    Qs = torch.cat([Q.expand(N, nx, nx), QN[None]], dim=0)
+    Rs = R.expand(N, nu, nu)
+    dx, du, stats = solve_lq_ocp(
+        A, Bm, c, Qs, q, Rs, r, A.new_zeros((A.shape[0], nx)),
+        u_spec, x_spec, u_ref=u_ref, x_ref=x_ref,
+        iters=iters, reg=reg, tau_min=tau_min,
+    )
+    alpha = stats["alpha"][-1] if iters else A.new_ones(A.shape[0])
+    return dx, du, alpha
+
+
+class LQSolver(nn.Module):
+    """Batched box-constrained LQ OCP solver with fixed IPM iterations.
+
+    ``forward(A, Bm, c, q, r, u_ref, x_ref)`` takes batch-first float32
+    tensors (B,N,nx,nx), (B,N,nx,nu), (B,N,nx), (B,N+1,nx), (B,N,nu),
+    (B,N,nu), (B,N+1,nx) and returns (dx (B,N+1,nx), du (B,N,nu),
+    alpha (B,)). ``launches`` counts kernel launches.
+    """
+
+    def __init__(self, N, nx, nu, Q, R, QN, u_bounds, x_bounds, iters=12,
+                 reg=1e-8, tau_min=1e-8):
+        super().__init__()
+        self.N, self.nx, self.nu = N, nx, nu
+        self.iters, self.reg, self.tau_min = iters, float(reg), float(tau_min)
+        f32 = lambda m: torch.as_tensor(np.asarray(m, np.float32))
+        self.register_buffer("Q", f32(Q))
+        self.register_buffer("R", f32(R))
+        self.register_buffer("QN", f32(QN))
+        for g, bd in (("u", u_bounds), ("x", x_bounds)):
+            for k in BoundSpec._fields:
+                self.register_buffer(f"{g}_{k}", torch.as_tensor(
+                    np.asarray(bd[k], bool if k == "soft" else np.float32)))
+        cones = cone_entries(u_bounds, x_bounds)
+        if len(cones) > MAX_CONES:
+            raise ValueError(f"{len(cones)} bound entries > {MAX_CONES}")
+        self._bounds = _LqBounds(len(cones), (_LqCone * MAX_CONES)(
+            *(_LqCone(*e) for e in cones)))
+        self.launches = 0
+
+    def plain(self, A, Bm, c, q, r, u_ref, x_ref):
+        """:func:`lq_plain` with this solver's weights and bounds, in the
+        inputs' dtype and on their device."""
+        f = lambda t: t.to(A.device, t.dtype if t.dtype == torch.bool else A.dtype)
+        spec = lambda g: BoundSpec(*(f(getattr(self, f"{g}_{k}"))
+                                     for k in BoundSpec._fields))
+        return lq_plain(A, Bm, c, q, r, u_ref, x_ref, f(self.Q), f(self.R),
+                        f(self.QN), spec("u"), spec("x"), self.iters,
+                        self.reg, self.tau_min)
+
+    def forward(self, A, Bm, c, q, r, u_ref, x_ref):
+        if A.device.type == "cpu":
+            return self.plain(A, Bm, c, q, r, u_ref, x_ref)
+        if A.device.type != "cuda":
+            raise ValueError(f"LQSolver: unsupported device {A.device}")
+        return self._launch(A, Bm, c, q, r, u_ref, x_ref)
+
+    def _launch(self, A, Bm, c, q, r, u_ref, x_ref):
+        B, N, nx, nu = A.shape[0], self.N, self.nx, self.nu
+        if (nx, nu) != (7, 2):
+            raise NotImplementedError(f"LQ kernel: nx={nx}, nu={nu}")
+        args = (("A", A, (B, N, nx, nx)), ("Bm", Bm, (B, N, nx, nu)),
+                ("c", c, (B, N, nx)), ("q", q, (B, N + 1, nx)),
+                ("r", r, (B, N, nu)), ("u_ref", u_ref, (B, N, nu)),
+                ("x_ref", x_ref, (B, N + 1, nx)))
+        for name, t, shape in args:
+            if t.dtype != torch.float32 or not t.is_contiguous():
+                raise ValueError(f"LQSolver: {name} must be contiguous float32")
+            if t.device != A.device or tuple(t.shape) != shape:
+                raise ValueError(f"LQSolver: {name} {tuple(t.shape)} on "
+                                 f"{t.device}, expected {shape} on {A.device}")
+        if self.Q.device != A.device:
+            raise ValueError(f"LQSolver weights on {self.Q.device}, "
+                             f"inputs on {A.device}")
+        lib = _lib()
+        per = lib.lq_ipm_scratch_floats(N, nx, nu, self._bounds.n)
+        dev = A.device
+        scratch = torch.empty(B * per, dtype=torch.float32, device=dev)
+        dx = torch.empty((B, N + 1, nx), dtype=torch.float32, device=dev)
+        du = torch.empty((B, N, nu), dtype=torch.float32, device=dev)
+        alpha = torch.empty((B,), dtype=torch.float32, device=dev)
+        err = lib.lq_ipm(
+            A.data_ptr(), Bm.data_ptr(), c.data_ptr(), q.data_ptr(),
+            r.data_ptr(), u_ref.data_ptr(), x_ref.data_ptr(),
+            self.Q.data_ptr(), self.R.data_ptr(), self.QN.data_ptr(),
+            dx.data_ptr(), du.data_ptr(), alpha.data_ptr(), scratch.data_ptr(),
+            B, N, nx, nu, self.iters, self.reg, self.tau_min, self._bounds,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        if err:
+            raise RuntimeError(f"lq_ipm: {lib.error_string(err).decode()}")
+        self.launches += 1
+        return dx, du, alpha
+
+
+def make_lq_solver(N, nx, nu, Q, R, QN, u_bounds, x_bounds, iters=12,
+                   reg=1e-8, tau_min=1e-8, device="cuda"):
+    """Build the batched QP solver for ``device``.
+
+    Q/R/QN: (nx,nx)/(nu,nu)/(nx,nx) stage weights; u_bounds/x_bounds: numpy
+    dicts with the fields of :class:`BoundSpec`. On a CUDA
+    device the kernel is built now.
+    """
+    if torch.device(device).type == "cuda":
+        _build.require_card(device)
+        _lib()
+    return LQSolver(N, nx, nu, Q, R, QN, u_bounds, x_bounds, iters=iters,
+                    reg=reg, tau_min=tau_min).to(device)

@@ -1,0 +1,112 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
+
+(``--noconftest``: the repository's conftest configures JAX, which the
+machine with the card need not have; nothing here imports JAX.) On a
+machine without a CUDA device every test skips with its reason; the
+decision is taken inside the ``cuda`` fixture, never at import.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ad_mpc_tpu_torch import fleet
+from ad_mpc_tpu_torch.control.mpc import bicycle_spec
+from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
+from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
+from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
+from ad_mpc_tpu_torch.testing import BOUNDS, LQ_WEIGHTS, random_lq, random_traj
+
+pytestmark = pytest.mark.gpu
+
+RAGGED_B = 37  # not a multiple of any block size
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run python -m pytest --noconftest "
+                    "-m gpu tests/test_torch_gpu.py on the GPU machine")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("switch", [1.0, 0.3])
+def test_vde_kernel_matches_plain(cuda, switch):
+    N = 30
+    xs, us = (torch.as_tensor(a, device=cuda) for a in
+              random_traj(np.random.default_rng(3), RAGGED_B, N, 7, 2))
+    ps = torch.full((RAGGED_B, 1), switch, device=cuda)
+    vde = make_vde(fleet.dynamic_bicycle, 0.05, N, 7, 2, 1, device=cuda)
+    got = vde(xs, us, ps)
+    want = vde_plain(fleet.dynamic_bicycle, 0.05, 1, xs, us, ps)
+    assert vde.launches == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("N", [30, 10])
+@pytest.mark.parametrize("bounds_kind", ["bicycle", "unit"])
+def test_lq_kernel_matches_plain(cuda, bounds_kind, N):
+    Q, R = LQ_WEIGHTS
+    ub, xb = BOUNDS[bounds_kind](7, 2)
+    qp = make_lq_solver(N, 7, 2, Q, R, 1e-3 * Q, ub, xb, iters=12, device=cuda)
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(5), RAGGED_B, N, 7, 2)]
+    dx, du, alpha = qp(*args)
+    dx_w, du_w, _ = qp.plain(*args)
+    assert qp.launches == 1
+    torch.testing.assert_close(du, du_w, atol=3e-4, rtol=1e-3)
+    torch.testing.assert_close(dx, dx_w, atol=3e-4, rtol=1e-3)
+    assert bool(((alpha >= 0) & (alpha <= 1)).all())
+
+
+def test_lq_kernel_rejects_bad_input(cuda):
+    Q, R = LQ_WEIGHTS
+    ub, xb = BOUNDS["unit"](7, 2)
+    qp = make_lq_solver(6, 7, 2, Q, R, Q, ub, xb, iters=2, device=cuda)
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(0), 4, 6, 7, 2)]
+    with pytest.raises(ValueError):
+        qp(args[0].double(), *args[1:])
+    with pytest.raises(ValueError):
+        qp(args[0][:, :5].contiguous(), *args[1:])
+    assert qp.launches == 0
+
+
+def test_fleet_tick_on_card_matches_plain(cuda):
+    """Three c2 ticks at N=30 through both kernels agree with the plain
+    path on the CPU, and each kernel launches once per tick."""
+    runs = {}
+    for dev in ("cpu", cuda):
+        tick, init, solver, _ = fleet.build_fleet(
+            fleet.dynamic_bicycle, fleet.switch_on, device=dev)
+        carry = init(RAGGED_B)
+        for _ in range(3):
+            carry, (kkt, lat) = tick(carry)
+        runs[str(dev)] = (carry[0].cpu(), kkt.cpu(), float(lat), solver)
+    (x_c, kkt_c, lat_c, _), (x_g, kkt_g, lat_g, solver) = runs.values()
+    assert solver.vde.launches == 3 and solver.qp.launches == 3
+    torch.testing.assert_close(x_g, x_c, atol=1e-4, rtol=1e-5)
+    assert abs(lat_g - lat_c) < 1e-4
+    assert float(kkt_g.max()) < 3e-5
+
+
+def test_solver_checks_tf32(cuda):
+    spec = bicycle_spec(t_horizon=0.5, n_nodes=10, qp_iters=4)
+    solver = BatchedSQPSolver(spec, fleet.dynamic_bicycle, p_dim=1,
+                              device=cuda)
+    x0 = torch.zeros((2, 7), device=cuda)
+    x0[:, 3] = 8.0
+    st = solver.init_state(x0)
+    args = (x0, st.xs.clone(), torch.zeros((2, 10, 2), device=cuda),
+            torch.ones((2, 1), device=cuda), st)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError):
+            solver.solve(*args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert solver.solve(*args).us.shape == (2, 10, 2)

@@ -1,0 +1,59 @@
+"""The port stands alone: no JAX and nothing of ``ad_mpc_tpu`` inside it,
+and no silent CPU path when the card is missing."""
+
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from ad_mpc_tpu_torch import fleet
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import pkgutil, sys
+import ad_mpc_tpu_torch
+for m in pkgutil.walk_packages(ad_mpc_tpu_torch.__path__, "ad_mpc_tpu_torch."):
+    __import__(m.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "ad_mpc_tpu" or m.startswith("ad_mpc_tpu."))
+print(len([m for m in sys.modules if m.startswith("ad_mpc_tpu_torch")]), bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def _run(args, cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_port_imports_no_jax():
+    res = _run(["-c", _PROBE], REPO)
+    assert res.returncode == 0, res.stdout + res.stderr
+    n_modules = int(res.stdout.split()[0])
+    assert n_modules >= 15  # every module of the port was imported
+
+
+def test_build_fleet_refuses_a_missing_card():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.build_fleet(fleet.dynamic_bicycle, fleet.switch_on, n_nodes=4)
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_card_or_repo(where, tmp_path):
+    if where == "repo" and torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device")
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    res = _run(["chip_smoke.py"], cwd)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

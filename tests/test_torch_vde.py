@@ -1,0 +1,94 @@
+"""Port parity: the fused linearization sweep (kernel 1's plain version).
+
+The port's ``make_vde(..., device="cpu")`` runs the plain PyTorch version
+that ``csrc/vde.cu`` is held against on the card. Here it is held against
+the JAX package's Pallas kernel (interpret mode) and its vmapped
+``integrators.linearize``, at the tolerance of ``tests/test_pallas_vde.py``.
+"""
+
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ad_mpc_tpu.models.bicycle import BicycleParams, bicycle_dynamics
+from ad_mpc_tpu.ops.integrators import discretize, linearize, rollout
+from ad_mpc_tpu.ops.pallas_vde import make_vde as jax_make_vde
+from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
+from ad_mpc_tpu_torch.ops import integrators
+from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
+from ad_mpc_tpu_torch.testing import random_traj
+
+_BP = BicycleParams()
+DT = 0.05
+
+
+def _jax_bicycle(x, u, p):
+    return bicycle_dynamics(x, u, _BP, switch=p[0])
+
+
+def _jax_xla_linearize(xs, us, ps):
+    F = lambda p: discretize(lambda xx, uu: _jax_bicycle(xx, uu, p), DT, 1)
+    return jax.vmap(lambda a, b, p: linearize(F(p), a, b))(xs, us, ps)
+
+
+@pytest.mark.parametrize("switch", [1.0, 0.3], ids=["dynamic", "blend"])
+def test_vde_matches_jax(switch):
+    B, N = 5, 6  # B=5 with block_b=8: a ragged batch on the JAX side
+    xs, us = random_traj(np.random.default_rng(3), B, N, 7, 2)
+    ps = np.full((B, 1), switch, np.float32)
+
+    lin = make_vde(BicycleDynamics(), DT, N, 7, 2, 1, device="cpu")
+    A, Bm, c = lin(*(torch.as_tensor(a) for a in (xs, us, ps)))
+    assert A.shape == (B, N, 7, 7) and Bm.shape == (B, N, 7, 2)
+    assert c.shape == (B, N, 7) and A.dtype == torch.float32
+    assert lin.launches == 0  # the plain version is not a kernel launch
+
+    pallas = jax_make_vde(_jax_bicycle, DT, N, 7, 2, 1, block_b=8,
+                          interpret=True)
+    args = [jnp.asarray(a) for a in (xs, us, ps)]
+    for ref in (pallas(*args), _jax_xla_linearize(*args)):
+        for got, want in zip((A, Bm, c), ref):
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=2e-5)
+
+
+def test_cuda_needs_a_functor():
+    """A dynamics with no CUDA functor is refused for the card up front."""
+    with pytest.raises(NotImplementedError):
+        make_vde(lambda x, u, p: x, DT, 4, 7, 2, 1, device="cuda")
+
+
+def test_bicycle_functor_params():
+    """The bicycle names its C entry, and the struct it passes by value has
+    the fields of ``BicycleParamsC`` in ``csrc/vde.cu``, in that order."""
+    src = (Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
+           / "vde.cu").read_text()
+    assert re.search(r"\bint vde_bicycle\(", src)
+    c_fields = re.search(r"struct BicycleParamsC \{.*?float ([^;]+);", src,
+                         re.S)
+    names = [n.strip() for n in c_fields.group(1).split(",")]
+    f = BicycleDynamics()
+    assert f.cuda_entry == "vde_bicycle"
+    params = f.cuda_params()
+    assert [n for n, _ in params._fields_] == names
+    want = [_BP.mass, _BP.l_f, _BP.l_r, _BP.iz, _BP.cf, _BP.cr,
+            _BP.l_f + _BP.l_r]
+    np.testing.assert_allclose([getattr(params, n) for n in names], want,
+                               rtol=1e-7)
+
+
+def test_rollout_matches_jax():
+    xs, us = random_traj(np.random.default_rng(4), 1, 8, 7, 2)
+    F_j = discretize(lambda x, u: _jax_bicycle(x, u, jnp.ones(1, jnp.float32)), DT, 2)
+    want = rollout(F_j, jnp.asarray(xs[0, 0]), jnp.asarray(us[0]))
+    F = integrators.discretize(
+        lambda x, u: BicycleDynamics()(x, u, torch.ones(1)), DT, 2)
+    got = integrators.rollout(F, torch.as_tensor(xs[0, 0]),
+                              torch.as_tensor(us[0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-5)
