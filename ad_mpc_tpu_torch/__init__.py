@@ -1,28 +1,37 @@
 """PyTorch/CUDA port of :mod:`ad_mpc_tpu` for NVIDIA Hopper (H100).
 
 The port runs the batched SQP-RTI fleet control tick (bench config c2:
-dynamic bicycle, N=30, nx=7, nu=2) through two CUDA C++ kernels written by
+dynamic bicycle, N=30 and the reference's N=40, nx=7, nu=2) and the
+bench's Riccati-algebra rows through three CUDA C++ kernels written by
 hand for ``sm_90a``:
 
 - ``csrc/vde.cu``: the fused RK4 + forward-sensitivity sweep
   (replaces ``ad_mpc_tpu/ops/pallas_vde.py:_vde_kernel``);
 - ``csrc/lq_ipm.cu``: the fused fixed-iteration interior-point QP with its
   Riccati recursion (replaces ``ad_mpc_tpu/ops/pallas_lq.py:_lq_kernel_rolled``
-  and the stage-unrolled ``_lq_kernel``).
+  and the stage-unrolled ``_lq_kernel``);
+- ``csrc/lane_chain.cu``: the chained batched 7x7 product of the MXU
+  micro (replaces ``ad_mpc_tpu/experiments/mxu_riccati.py:kernel``).
+
+``bench.py`` runs the ported rows of the JAX package's bench; the
+associative-scan Riccati is ``ops/assoc_riccati.py``.
 
 Ground rules:
 
 - The JAX package ``ad_mpc_tpu`` is the unchanged reference. Parity tests
   (``tests/test_torch_*.py``) hand the same numpy inputs to both packages.
-- No JAX here: this package imports ``torch`` and numpy, never ``jax`` and
-  nothing of ``ad_mpc_tpu`` (it keeps its own copies of the numpy-only
-  modules it needs).
+- No JAX here: this package imports ``torch`` and numpy, never ``jax``,
+  nothing of ``ad_mpc_tpu`` and not the root ``bench.py`` (it keeps its own
+  copies of the numpy-only code it needs).
 - The card by default: every entry point (``BatchedSQPSolver``,
-  ``fleet.build_fleet``, ``make_vde``, ``make_lq_solver``) takes
-  ``device="cuda"``; the tests pass ``device="cpu"``.
+  ``fleet.build_fleet``, ``make_vde``, ``make_lq_solver``,
+  ``make_lane_chain``, the experiments) takes ``device="cuda"``; the tests
+  pass ``device="cpu"``.
 - No fallbacks: a kernel wrapper launches its kernel for a CUDA tensor or
   raises. It runs the plain PyTorch version only for a CPU tensor. The
-  tensor's device decides; there is no backend knob.
+  solver's ``backend`` (``"auto"``, ``"cuda"``, ``"plain"``) chooses the
+  kernels or their plain versions; ``"auto"`` never picks the plain path on
+  a CUDA device.
 - Models and the solver are ``nn.Module``s with weights and bounds as
   buffers; everything else is plain functions on tensors.
 """

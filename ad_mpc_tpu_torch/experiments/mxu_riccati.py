@@ -1,0 +1,179 @@
+"""Tensor cores against one scenario per thread, for batched 7x7 Riccati
+algebra on the H100 (port of ``ad_mpc_tpu/experiments/mxu_riccati.py``).
+
+The LQ kernel keeps one scenario per thread and writes the 7x7 stage
+algebra out entry by entry on the CUDA cores. This experiment measures
+that layout against batched products that may use the tensor cores, on
+the same math:
+
+1. **micro**: the Riccati inner op, a chained batched product
+   ``X <- A @ X`` (12 links, nx=7) over B=16384 scenarios, in three arms:
+   ``bmm_tf32`` (12 chained ``torch.bmm`` with TF32 on, the tensor cores at
+   about three decimal digits; not solver-grade, the counterpart of XLA's
+   ``"default"`` precision), ``bmm_f32`` (TF32 off, the counterpart of
+   ``"highest"``) and ``cuda_lane`` (the lane-layout kernel
+   ``csrc/lane_chain.cu``, transposes around it included, as in
+   ``lane_chain_build``). The bmm arms are yardsticks, not a port.
+2. **macro**: the c2 tick at B=4096 with ``backend="cuda"`` (the two
+   kernels) against ``backend="plain"`` (their plain PyTorch versions).
+
+Timing (:func:`_time`): ``inner`` = 50 chained, data-dependent
+applications with a per-scenario renormalisation between them form one
+block; the number of blocks per round is calibrated to about ``target_s``
+of device time; each round is timed by CUDA events; the minimum over
+``rounds`` rounds and the spread max/min are reported.
+
+    python -m ad_mpc_tpu_torch.experiments.mxu_riccati [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from ad_mpc_tpu_torch import fleet
+from ad_mpc_tpu_torch.experiments import DeviceWindow, card, require_cuda, tf32
+from ad_mpc_tpu_torch.ops.cuda_chain import make_lane_chain
+
+H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
+
+
+def _renorm(x):
+    """Rescale each scenario (B, nx, nx) to unit max-abs, so the contractive
+    chain stays in float32 range over many applications."""
+    m = x.abs().amax(dim=(-2, -1), keepdim=True)
+    return x / torch.clamp(m, min=1e-30)
+
+
+INNER = 50  # chained applications per timed block
+
+
+def _block(fn, a, x, inner=INNER):
+    """``inner`` data-dependent applications of ``fn(a, x)``, renormalised."""
+    for _ in range(inner):
+        x = _renorm(fn(a, x))
+    return x
+
+
+def _time(fn, a, x0, *, inner=INNER, rounds=5, target_s=0.6):
+    """Device time of one application of ``fn(a, x)``.
+
+    Returns (seconds per application [min over rounds], spread max/min over
+    rounds, output of the first block of ``inner`` applications from x0,
+    number of applications made)."""
+    block = lambda x: _block(fn, a, x, inner)
+    ref = block(x0)  # warm-up and accuracy probe
+    torch.cuda.synchronize()
+
+    def round_time(n, x):
+        with DeviceWindow() as w:
+            for _ in range(n):
+                x = block(x)
+        return w.s, x
+
+    t_cal, x = round_time(2, ref)
+    n = max(int(target_s / max(t_cal / 2, 1e-5)), 2)
+    ts = []
+    for _ in range(rounds):
+        t, x = round_time(n, x)
+        ts.append(t / (n * inner))
+    return min(ts), max(ts) / min(ts), ref, inner * (3 + rounds * n)
+
+
+def bmm_chain(a, x, chain):
+    """``chain`` chained ``torch.bmm`` on batch-first (B, nx, nx) tensors."""
+    for _ in range(chain):
+        x = torch.bmm(a, x)
+    return x
+
+
+def inputs(batch, nx, seed, device):
+    """A (contractive, spectral norm about 0.5) and X, as the JAX micro
+    draws them (``mxu_riccati.py:115-118``), batch-first float32."""
+    rng = np.random.default_rng(seed)
+    A = 0.18 * rng.normal(0, 1, (batch, nx, nx)).astype(np.float32)
+    X = rng.normal(0, 1, (batch, nx, nx)).astype(np.float32)
+    return (torch.as_tensor(A, device=device), torch.as_tensor(X, device=device))
+
+
+def micro(batch=16384, nx=7, chain=12, seed=0, device="cuda", lane=None):
+    """The three arms of the chained product. ``lane`` is the lane-chain
+    wrapper to launch (default: a new one); its ``launches`` count this
+    run's launches when the caller zeroes it first.
+
+    ``max_rel_diff_vs_f32`` compares the lane and fp32 arms after the
+    first block of ``INNER`` applications, as the JAX micro does. Over 600
+    renormalised links two correct float32 products drift apart far beyond
+    one application's rounding, so ``*_rel_err_vs_f64`` also give each
+    arm's distance from the same block run in float64."""
+    device = require_cuda(device)
+    A, X = inputs(batch, nx, seed, device)
+    flops = 2 * batch * nx**3 * chain
+    if lane is None:
+        lane = make_lane_chain(nx, chain, device)
+    arm = lambda a, x: bmm_chain(a, x, chain)
+    with tf32(True):
+        t_tf32, sp_tf32, o_tf32, _ = _time(arm, A, X)
+    with tf32(False):
+        t_f32, sp_f32, o1, _ = _time(arm, A, X)
+        t_lane, sp_lane, o2, n_lane = _time(lane, A, X)
+    scale = float(o1.abs().max()) + 1e-12
+    o64 = _block(arm, A.double(), X.double())
+    vs64 = lambda o: float((o.double() - o64).abs().max() / o64.abs().max())
+    return {
+        "device": card(),
+        "spread_max_over_min": {"bmm_tf32": sp_tf32, "bmm_f32": sp_f32,
+                                "lane": sp_lane},
+        "batch": batch, "nx": nx, "chain": chain, "flops": flops,
+        "bmm_tf32_ms": 1e3 * t_tf32,
+        "bmm_tf32_gflops": flops / t_tf32 / 1e9,
+        "bmm_f32_ms": 1e3 * t_f32,
+        "bmm_f32_gflops": flops / t_f32 / 1e9,
+        "cuda_lane_ms": 1e3 * t_lane,
+        "cuda_lane_gflops": flops / t_lane / 1e9,
+        "cuda_lane_pct_fp32_peak": 100 * flops / t_lane / H100_FP32_FLOP_PER_S,
+        "cuda_lane_applications": n_lane,
+        "max_rel_diff_vs_f32": float((o1 - o2).abs().max()) / scale,
+        "tf32_max_rel_diff_vs_f32": float((o1 - o_tf32).abs().max()) / scale,
+        "cuda_lane_rel_err_vs_f64": vs64(o2),
+        "bmm_f32_rel_err_vs_f64": vs64(o1),
+        "bmm_tf32_rel_err_vs_f64": vs64(o_tf32),
+    }
+
+
+def macro(batch=4096, device="cuda"):
+    """The c2 tick through the two kernels against their plain versions.
+    Each arm reports solves/s, kkt_max and its kernel launches."""
+    require_cuda(device)
+    out = {}
+    for backend in ("cuda", "plain"):
+        tick, init, solver, _ = fleet.build_fleet(
+            fleet.dynamic_bicycle, fleet.switch_on, device=device,
+            backend=backend)
+        r, _ = fleet.run_config(tick, init, batch, ticks=10, warmup=5)
+        out[backend] = {
+            "solves_per_s": r["solves_per_s"], "kkt_max": r["kkt_max"],
+            "launches": {"vde": solver.vde.launches,
+                         "lq_ipm": solver.qp.launches},
+        }
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the result to this JSON file")
+    args = ap.parse_args(argv)
+    with tf32(False):
+        res = {"device": card(), "micro": micro(), "macro_c2_b4096": macro()}
+    text = json.dumps(res, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text)
+
+
+if __name__ == "__main__":
+    main()

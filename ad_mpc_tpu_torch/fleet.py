@@ -1,6 +1,6 @@
 """The closed-loop fleet control tick of bench config c2, on the port.
 
-Port of ``bench.py:70-202, 210-213, 303-379``. Every tick is the full unit
+Port of ``bench.py:70-202, 210-213, 303-455``. Every tick is the full unit
 of work: project each vehicle onto its arc and build its reference window,
 run one batched SQP-RTI solve (two kernel launches per Gauss-Newton
 iteration on a CUDA device), apply u0 to the plant and shift the warm start.
@@ -79,17 +79,19 @@ def _project_arc(x0, s0, kappa):
 
 
 def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
-                sqp_iters=1, device="cuda"):
+                sqp_iters=1, device="cuda", backend="auto"):
     """Closed-loop fleet over :class:`BatchedSQPSolver`.
 
     dynamics(x, u, p): continuous model with a per-scenario parameter
-    vector; p_of_scenario(v, kappa, extra) builds that vector.
+    vector; p_of_scenario(v, kappa, extra) builds that vector. ``backend``
+    is the solver's (``"cuda"``, ``"plain"`` or ``"auto"``).
     Returns (tick, init, solver, spec): tick(carry) -> (carry, (kkt, lat)).
     """
     spec = bicycle_spec(t_horizon=n_nodes * 0.05, n_nodes=n_nodes,
                         qp_iters=qp_iters, sqp_iters=sqp_iters)
     p_dim = int(np.asarray(p_of_scenario(5.0, 0.0, np.zeros(8))).shape[0])
-    solver = BatchedSQPSolver(spec, dynamics, p_dim=p_dim, device=device)
+    solver = BatchedSQPSolver(spec, dynamics, p_dim=p_dim, device=device,
+                              backend=backend)
     N, dt = spec.n_nodes, spec.dt
 
     def tick(carry):
@@ -187,3 +189,73 @@ def rti_vs_converged(dynamics, p_of, carry):
     u_rti = solver1.solve(x0[:m], yref_x, yref_u, p[:m], st).us[:, 0]
     u_cvg = solver8.solve(x0[:m], yref_x, yref_u, p[:m], st).us[:, 0]
     return float((u_rti - u_cvg).abs().max())
+
+
+def bench_latency(dynamics, p_of, n_nodes=30, qp_iters=12, reps=30,
+                  k_ticks=50, device="cuda"):
+    """Single-solve closed-loop latency (batch 1) against the 20 ms budget,
+    on the card (port of ``bench.py:382-455``).
+
+    - ``p50_compute``/``p99_compute``: each of ``reps`` samples is
+      ``k_ticks`` chained ticks between two CUDA events, divided by K. The
+      state stays on the card; at batch 1 the window also holds the gaps
+      in which the device waits for the host's launches.
+    - ``p50_blocking``/``p99_blocking``: one tick plus a ``synchronize``,
+      on the host clock.
+    - ``host_link_floor_p50``: a trivial op plus a ``synchronize``.
+
+    ``launches`` counts each kernel's launches over the whole measurement.
+    """
+    tick, init, solver, _ = build_fleet(dynamics, p_of, n_nodes, qp_iters,
+                                        device=device)
+    carry = init(1)
+    if carry[0].device.type != "cuda":
+        raise RuntimeError("bench_latency times a CUDA device; the fleet is "
+                           f"on {carry[0].device}")
+
+    def k_tick(c):
+        for _ in range(k_ticks):
+            c, _aux = tick(c)
+        return c
+
+    carry_k = k_tick(carry)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    compute = []
+    for _ in range(reps):
+        start.record()
+        carry_k = k_tick(carry_k)
+        end.record()
+        end.synchronize()
+        compute.append(start.elapsed_time(end) / k_ticks)
+
+    blocking = []
+    for _ in range(reps):
+        tic = time.perf_counter()
+        carry, _aux = tick(carry)
+        torch.cuda.synchronize()
+        blocking.append(1e3 * (time.perf_counter() - tic))
+
+    x = torch.zeros((1, 8), device=carry[0].device)
+    floor = []
+    for _ in range(reps):
+        tic = time.perf_counter()
+        x = x + 1.0
+        torch.cuda.synchronize()
+        floor.append(1e3 * (time.perf_counter() - tic))
+
+    p50c, p99c = np.percentile(compute, [50, 99])
+    p50b, p99b = np.percentile(blocking, [50, 99])
+    return {
+        "p50_compute": float(p50c),
+        "p99_compute": float(p99c),
+        "compute_method": f"{k_ticks} chained ticks between CUDA events, "
+                          f"/{k_ticks}, {reps} samples",
+        "p50_blocking": float(p50b),
+        "p99_blocking": float(p99b),
+        "host_link_floor_p50": float(np.percentile(floor, 50)),
+        "budget": 20.0,
+        "launches": {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches},
+        "ticks": k_ticks * (reps + 1) + reps,
+    }

@@ -1,17 +1,20 @@
 """Batched SQP-RTI nonlinear MPC solver (port of ``ad_mpc_tpu/ocp/solver.py``).
 
 Each solve runs ``spec.sqp_iters`` Gauss-Newton iterations over the whole
-fleet. One iteration is two kernel launches on a CUDA device:
+fleet. With ``backend="cuda"`` one iteration is two kernel launches:
 
 - the fused RK4 + forward-sensitivity sweep (``ops/cuda_vde.py``);
 - the fused fixed-iteration interior-point QP (``ops/cuda_lq.py``).
 
-On CPU tensors both wrappers run their plain PyTorch versions. The device of
-the tensors decides; there is no backend knob. The RTI warm start is an
-explicit :class:`SolverState` threaded through solves and shifted.
+``backend="plain"`` runs their plain PyTorch versions instead, on any
+device; it is the counterpart of the JAX package's ``backend='xla'`` and
+the only backend that takes ``spec.assoc_riccati`` (the LQ kernel runs the
+sequential recursion). ``"auto"`` picks ``"cuda"`` on a CUDA device and
+``"plain"`` on the CPU. The RTI warm start is an explicit
+:class:`SolverState` threaded through solves and shifted.
 
-Not in this slice: the single-vehicle ``SQPSolver`` (line search), the
-associative-scan Riccati and the multi-device ``mesh``.
+Not in this slice: the single-vehicle ``SQPSolver`` (line search) and the
+multi-device ``mesh``.
 """
 
 from __future__ import annotations
@@ -23,10 +26,37 @@ import torch
 from torch import nn
 
 from ad_mpc_tpu_torch.ocp.spec import OCPSpec
+from ad_mpc_tpu_torch.ops import _build
+from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
 from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
 from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
 from ad_mpc_tpu_torch.ops.integrators import discretize
+from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.utils.math import yaw_wrap_reference
+
+BACKENDS = ("auto", "cuda", "plain")
+
+
+def resolve_backend(backend: str, device) -> str:
+    """``"auto"`` -> ``"cuda"`` on a CUDA device, ``"plain"`` on the CPU."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} not in {BACKENDS}")
+    if backend == "auto":
+        return "cuda" if torch.device(device).type == "cuda" else "plain"
+    return backend
+
+
+def _lqr_fn(spec: OCPSpec, backend: str):
+    """The IPM's Riccati solve: sequential, or the associative scan when
+    ``spec.assoc_riccati``. The LQ kernel has only the sequential one, so
+    the cuda backend refuses the associative scan rather than ignore it."""
+    if not spec.assoc_riccati:
+        return lqr_solve
+    if backend == "cuda":
+        raise NotImplementedError(
+            "assoc_riccati=True needs backend='plain': the LQ kernel runs the "
+            "sequential Riccati recursion")
+    return lqr_solve_assoc
 
 
 class SolverState(NamedTuple):
@@ -72,17 +102,23 @@ class BatchedSQPSolver(nn.Module):
         tensors (``x[i]`` is one state entry) with a per-scenario parameter
         vector of ``p_dim >= 1`` entries, e.g.
         :class:`ad_mpc_tpu_torch.models.bicycle.BicycleDynamics`.
+    :param backend: ``"cuda"`` (the two kernels), ``"plain"`` (their plain
+        versions) or ``"auto"`` (see :func:`resolve_backend`).
     """
 
     def __init__(self, spec: OCPSpec, dynamics: Callable, p_dim: int,
-                 device="cuda"):
+                 device="cuda", backend: str = "auto"):
         super().__init__()
-        if spec.assoc_riccati:
-            raise NotImplementedError("associative-scan Riccati is not ported")
+        backend = resolve_backend(backend, device)
+        self.lqr_fn = _lqr_fn(spec, backend)
+        if backend == "cuda" and torch.device(device).type != "cuda":
+            raise ValueError("backend='cuda' launches the CUDA kernels; "
+                             f"device={device!r} is not a CUDA device")
         if p_dim < 1:
             raise NotImplementedError("dynamics without parameters (p_dim=0) "
                                       "are not ported")
-        self.spec, self.p_dim = spec, p_dim
+        _build.require_card(device)
+        self.spec, self.p_dim, self.backend = spec, p_dim, backend
         self.f = dynamics
         N, nx, nu = spec.n_nodes, spec.nx, spec.nu
         Q, R, QN = spec.weight_arrays()
@@ -90,11 +126,14 @@ class BatchedSQPSolver(nn.Module):
         self.register_buffer("Q", torch.as_tensor(Q, dtype=torch.float32))
         self.register_buffer("R", torch.as_tensor(R, dtype=torch.float32))
         self.register_buffer("QN", torch.as_tensor(QN, dtype=torch.float32))
+        # The plain backend builds no kernel: the wrappers are made on the
+        # CPU and only their plain versions are called.
+        build_on = device if backend == "cuda" else "cpu"
         self.vde = make_vde(dynamics, spec.dt, N, nx, nu, p_dim,
-                            rk4_steps=spec.rk4_steps, device=device)
+                            rk4_steps=spec.rk4_steps, device=build_on)
         self.qp = make_lq_solver(N, nx, nu, Q, R, QN, u_bounds, x_bounds,
                                  iters=spec.qp_iters, reg=spec.levenberg,
-                                 device=device)
+                                 device=build_on)
         self.to(device)
 
     def F(self, x, u, p):
@@ -124,12 +163,19 @@ class BatchedSQPSolver(nn.Module):
             xs = xs.clone()
             xs[:, 0] = x0
             us = us.contiguous()
-            A, Bm, c = self.vde(xs, us, params)
+            if self.backend == "cuda":
+                A, Bm, c = self.vde(xs, us, params)
+            else:
+                A, Bm, c = self.vde.plain(xs, us, params)
             q_lin = torch.einsum("ij,bkj->bki", self.Q, xs[:, :-1] - yref_x[:, :-1])
             q_term = torch.einsum("ij,bj->bi", self.QN, xs[:, -1] - yref_x[:, -1])
             q = torch.cat([q_lin, q_term[:, None]], dim=1).contiguous()
             r = torch.einsum("ij,bkj->bki", self.R, us - yref_u).contiguous()
-            dx, du, alpha = self.qp(A, Bm, c, q, r, us, xs)
+            if self.backend == "cuda":
+                dx, du, alpha = self.qp(A, Bm, c, q, r, us, xs)
+            else:
+                dx, du, alpha = self.qp.plain(A, Bm, c, q, r, us, xs,
+                                              lqr_fn=self.lqr_fn)
             xs, us = xs + dx, us + du
 
         defect = self.F(xs[:, :-1], us, params[:, None]) - xs[:, 1:]

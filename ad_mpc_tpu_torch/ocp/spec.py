@@ -52,7 +52,7 @@ class OCPSpec:
     levenberg: float = 1e-8  # Riccati regularization
     ls_steps: int = 1  # line-search candidates (single-vehicle solver only)
     ls_penalty: float = 1e3
-    assoc_riccati: bool = False  # associative-scan Riccati (not ported yet)
+    assoc_riccati: bool = False  # associative-scan Riccati (plain backend)
     cost_scaling: str = "acados"  # 'acados' (dt-scaled stages) or 'unit'
     # 'highest' = true f32 matmuls; the port's solver checks that
     # torch.backends.cuda.matmul.allow_tf32 is False.

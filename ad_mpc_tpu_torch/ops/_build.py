@@ -31,7 +31,7 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("vde", "lq_ipm")
+SOURCES = ("vde", "lq_ipm", "lane_chain")
 
 _LIBS: dict = {}
 

@@ -22,6 +22,7 @@ from torch import nn
 
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.qp_ipm import BoundSpec, solve_lq_ocp
+from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 
 MAX_CONES = 32  # LQ_MAX_CONES in csrc/lq_ipm.cu
 
@@ -69,17 +70,18 @@ def cone_entries(u_bounds, x_bounds):
 
 
 def lq_plain(A, Bm, c, q, r, u_ref, x_ref, Q, R, QN, u_spec, x_spec,
-             iters, reg=1e-8, tau_min=1e-8):
+             iters, reg=1e-8, tau_min=1e-8, lqr_fn=lqr_solve):
     """Plain PyTorch version: the batched IPM with the same stage weights
     and bounds (:class:`BoundSpec`). Returns (dx (B,N+1,nx), du (B,N,nu),
-    alpha (B,))."""
+    alpha (B,)). ``lqr_fn`` is the IPM's Riccati solve (the kernel runs the
+    sequential one)."""
     N, nx, nu = A.shape[1], A.shape[-1], Bm.shape[-1]
     Qs = torch.cat([Q.expand(N, nx, nx), QN[None]], dim=0)
     Rs = R.expand(N, nu, nu)
     dx, du, stats = solve_lq_ocp(
         A, Bm, c, Qs, q, Rs, r, A.new_zeros((A.shape[0], nx)),
         u_spec, x_spec, u_ref=u_ref, x_ref=x_ref,
-        iters=iters, reg=reg, tau_min=tau_min,
+        iters=iters, reg=reg, tau_min=tau_min, lqr_fn=lqr_fn,
     )
     alpha = stats["alpha"][-1] if iters else A.new_ones(A.shape[0])
     return dx, du, alpha
@@ -114,7 +116,7 @@ class LQSolver(nn.Module):
             *(_LqCone(*e) for e in cones)))
         self.launches = 0
 
-    def plain(self, A, Bm, c, q, r, u_ref, x_ref):
+    def plain(self, A, Bm, c, q, r, u_ref, x_ref, lqr_fn=lqr_solve):
         """:func:`lq_plain` with this solver's weights and bounds, in the
         inputs' dtype and on their device."""
         f = lambda t: t.to(A.device, t.dtype if t.dtype == torch.bool else A.dtype)
@@ -122,7 +124,7 @@ class LQSolver(nn.Module):
                                      for k in BoundSpec._fields))
         return lq_plain(A, Bm, c, q, r, u_ref, x_ref, f(self.Q), f(self.R),
                         f(self.QN), spec("u"), spec("x"), self.iters,
-                        self.reg, self.tau_min)
+                        self.reg, self.tau_min, lqr_fn)
 
     def forward(self, A, Bm, c, q, r, u_ref, x_ref):
         if A.device.type == "cpu":

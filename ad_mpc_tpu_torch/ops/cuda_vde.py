@@ -74,9 +74,13 @@ class VDE(nn.Module):
         self.p_dim, self.rk4_steps = p_dim, rk4_steps
         self.launches = 0
 
+    def plain(self, xs, us, ps):
+        """:func:`vde_plain` with this sweep's dynamics and step."""
+        return vde_plain(self.f, self.dt, self.rk4_steps, xs, us, ps)
+
     def forward(self, xs, us, ps):
         if xs.device.type == "cpu":
-            return vde_plain(self.f, self.dt, self.rk4_steps, xs, us, ps)
+            return self.plain(xs, us, ps)
         if xs.device.type != "cuda":
             raise ValueError(f"VDE: unsupported device {xs.device}")
         return self._launch(xs, us, ps)

@@ -154,12 +154,15 @@ def solve_lq_ocp(
     iters: int = 18,
     tau_min: float = 1e-8,
     reg: float = 1e-8,
+    lqr_fn=lqr_solve,
 ):
     """Solve a batch of box-constrained LQ OCPs with a fixed-iteration
     primal-dual IPM.
 
     Bounds act on the absolute variables ``u_ref + du`` and ``x_ref + dx``;
-    state bounds apply to stages 1..N. Returns (dx (B,N+1,nx), du (B,N,nu),
+    state bounds apply to stages 1..N. ``lqr_fn`` solves the Newton step's
+    LQ problem: the sequential :func:`lqr_solve` or
+    :func:`ad_mpc_tpu_torch.ops.assoc_riccati.lqr_solve_assoc`. Returns (dx (B,N+1,nx), du (B,N,nu),
     stats) with ``stats["alpha"]`` of shape (iters, B).
     """
     N = A.shape[-3]
@@ -203,7 +206,7 @@ def solve_lq_ocp(
         q_mod = (Q @ dx.unsqueeze(-1)).squeeze(-1) + q + gx
 
         # Newton step: homogeneous dynamics (the iterate is feasible).
-        ddx, ddu = lqr_solve(A, B, zeros_c, Q_mod, q_mod, R_mod, r_mod,
+        ddx, ddu = lqr_fn(A, B, zeros_c, Q_mod, q_mod, R_mod, r_mod,
                           torch.zeros_like(dx0), reg=reg)
 
         dcones = [

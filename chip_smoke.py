@@ -17,11 +17,30 @@ Phases, each of which must pass:
    with an allowance from that scenario's own float32 spread (``lq_case``);
 4. slice phase: the c2 fleet tick (``fleet.build_fleet``) at B=1024 and
    16384, 5 warm-up and 20 timed ticks, with each kernel launched exactly
-   once per tick, the c2 quality gates, and RTI-vs-converged u0.
+   once per tick, the c2 quality gates, and RTI-vs-converged u0;
+5. kernel phase lane chain: the lane-layout chained product (B=16384,
+   nx=7, 12 links) held against its plain version and against 12 chained
+   fp32 ``torch.bmm`` at 1e-5 of max |out|; its device time and that of
+   the bmm chain (``library_ms``) by ``torch.profiler``;
+6. MXU micro and macro (``experiments.mxu_riccati``): every output finite,
+   the lane arm's output after 50 renormalised applications no further
+   from its float64 counterpart than SPREAD_FACTOR times the fp32 bmm
+   arm's (one application is held at 1e-5 in phase 5), the lane kernel
+   launched once per application, and the macro's kernel arm within the
+   c2 gates;
+7. long-horizon Riccati micro (``experiments.long_horizon``): the
+   associative scan within 2e-3 of the sequential recursion at N=30 and
+   128 (N=512 printed);
+8. c2-N40 at B=16384: 5 + 20 ticks, each kernel launched once per tick,
+   the c2 gates;
+9. the batch-1 latency row (``fleet.bench_latency``): printed; over the
+   20 ms budget is a warning, as in ``bench.py``.
 
-It then prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
-...}`` line. Any failure exits non-zero before the ``ok`` line. No JAX is
-imported. ``--out`` also writes every measurement as JSON.
+Each path of phases 4 and 6-9 starts with its kernels' launch counts at 0
+and reads them after. The script then prints a ``{"kernels": [...]}`` line
+and, last, the ``{"ok": true, ...}`` line. Any failure exits non-zero
+before the ``ok`` line. No JAX is imported. ``--out`` also writes every
+measurement as JSON.
 """
 
 from __future__ import annotations
@@ -38,7 +57,7 @@ H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, same sheet
 BICYCLE_DYN_FLOPS = 90  # hand count of the blended bicycle f(x, u, p)
 WARMUP, TICKS = 5, 20
 SPREAD_RUNS = 8  # perturbed float32 runs of the plain LQ version (lq_case)
-SPREAD_FACTOR = 4.0
+SPREAD_FACTOR = 4.0  # allowance over a correct float32 run (lq_case, phase_mxu)
 
 
 def vde_flops_per_stage(nx, nu, dyn_flops):
@@ -82,6 +101,27 @@ def time_ms(torch, fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps):
+    """Device time per call of ``fn``: the summed duration of the kernels
+    it launches, by ``torch.profiler``, over ``reps`` calls after one warm
+    call. Unlike CUDA events around back-to-back calls, it leaves out the
+    gaps in which the card waits for the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ad_mpc_tpu_torch.profile_tick import _device_us
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    check(us > 0, "the profiler recorded no device time")
+    return us / 1e3 / reps
 
 
 def max_err(got, want, atol, rtol=0.0):
@@ -295,6 +335,166 @@ def phase_slice(torch, out, card):
     return rows[16384]["launches"]
 
 
+def phase_lane_chain(torch, out):
+    from ad_mpc_tpu_torch.experiments.mxu_riccati import bmm_chain, inputs
+    from ad_mpc_tpu_torch.ops import _build
+    from ad_mpc_tpu_torch.ops.cuda_chain import (
+        from_lanes, lane_chain_plain, make_lane_chain, to_lanes)
+
+    B, nx, chain = 16384, 7, 12
+    lane = make_lane_chain(nx, chain, device="cuda")  # comparison instance
+    A, X = inputs(B, nx, 0, "cuda")
+    a, x = to_lanes(A), to_lanes(X)
+    got = lane(a, x)
+    want = lane_chain_plain(a, x, chain)
+    lib = bmm_chain(A, X, chain)  # TF32 is off
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    err_lib = float((from_lanes(got, nx) - lib).abs().max())
+    check(bool(got.isfinite().all()) and err <= 1e-5 * scale,
+          f"lane_chain disagrees with its plain version: max |err| {err:.3e} "
+          f"> 1e-5 x {scale:.3e}")
+    check(err_lib <= 1e-5 * scale,
+          f"lane_chain disagrees with the fp32 bmm chain: {err_lib:.3e}")
+    n_bytes = 3 * B * nx * nx * 4
+    n_flops = 2 * B * nx**3 * chain
+    bms, by = bound_ms(n_bytes, n_flops)
+    with_tf32 = lambda: bmm_chain(A, X, chain)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32_ms = device_ms(torch, with_tf32, 50)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    row = {
+        "max_abs_err": err, "max_rel_err": err / scale,
+        "max_rel_err_vs_bmm_f32": err_lib / scale,
+        "ms": device_ms(torch, lambda: lane(a, x), 50),
+        "events_ms": time_ms(torch, lambda: lane(a, x), 200),
+        "plain_ms": time_ms(torch, lambda: lane_chain_plain(a, x, chain), 3),
+        "library_ms": device_ms(torch, lambda: bmm_chain(A, X, chain), 50),
+        "library_tf32_ms": tf32_ms,
+        "bytes": n_bytes, "flops": n_flops, "bound_ms": bms, "bound_by": by,
+        "ptxas": _build.ptxas_report("lane_chain"),
+    }
+    print(f"lane_chain B={B} chain={chain}: max|err| {err:.3e} ({err / scale:.2e}"
+          f" of max|out|; vs fp32 bmm {err_lib / scale:.2e}); kernel "
+          f"{row['ms']:.5f} ms device ({row['events_ms']:.5f} ms by events, "
+          f"back to back), plain {row['plain_ms']:.3f} ms, 12 x torch.bmm fp32 "
+          f"{row['library_ms']:.5f} ms (TF32 {tf32_ms:.5f} ms), bound "
+          f"{bms:.5f} ms ({by}: {n_bytes / 1e6:.2f} MB, {n_flops / 1e6:.1f} MFLOP)")
+    out["lane_chain"] = row
+    return row
+
+
+def phase_mxu(torch, out):
+    from ad_mpc_tpu_torch import fleet
+    from ad_mpc_tpu_torch.experiments import mxu_riccati
+    from ad_mpc_tpu_torch.ops.cuda_chain import make_lane_chain
+
+    lane = make_lane_chain(device="cuda")
+    lane.launches = 0
+    micro = mxu_riccati.micro(lane=lane)
+    launches = lane.launches
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the micro left TF32 switched on")
+    numbers = [v for k, v in micro.items() if isinstance(v, float)]
+    check(all(v == v and abs(v) != float("inf") for v in numbers),
+          f"non-finite output of the MXU micro: {micro}")
+    lane64, bmm64 = micro["cuda_lane_rel_err_vs_f64"], micro["bmm_f32_rel_err_vs_f64"]
+    check(lane64 <= SPREAD_FACTOR * bmm64,
+          f"lane arm {lane64:.3e} from float64 > {SPREAD_FACTOR} x the fp32 "
+          f"bmm arm's {bmm64:.3e}")
+    check(launches == micro["cuda_lane_applications"],
+          f"lane_chain launched {launches} times for "
+          f"{micro['cuda_lane_applications']} applications")
+    print(f"MXU micro: per application bmm TF32 {micro['bmm_tf32_ms']:.5f} ms, "
+          f"bmm fp32 {micro['bmm_f32_ms']:.5f} ms, cuda_lane "
+          f"{micro['cuda_lane_ms']:.5f} ms ({micro['cuda_lane_gflops']:.1f} "
+          f"GFLOP/s, {micro['cuda_lane_pct_fp32_peak']:.2f}% of FP32 peak); "
+          f"lane vs fp32 {micro['max_rel_diff_vs_f32']:.2e}, TF32 vs fp32 "
+          f"{micro['tf32_max_rel_diff_vs_f32']:.2e}; from float64: lane "
+          f"{lane64:.2e}, bmm fp32 {bmm64:.2e}, bmm TF32 "
+          f"{micro['bmm_tf32_rel_err_vs_f64']:.2e}; spread "
+          f"{micro['spread_max_over_min']}; lane_chain launches {launches}")
+    macro = mxu_riccati.macro()
+    cuda_arm = macro["cuda"]
+    check(cuda_arm["kkt_max"] <= fleet.GATES["kkt_max"],
+          f"macro cuda arm kkt_max {cuda_arm['kkt_max']:.3e}")
+    check(cuda_arm["launches"] == {"vde": 15, "lq_ipm": 15}
+          and macro["plain"]["launches"] == {"vde": 0, "lq_ipm": 0},
+          f"macro launches {macro}")
+    print(f"MXU macro c2 B=4096: cuda {cuda_arm['solves_per_s']:.1f} solves/s "
+          f"(kkt_max {cuda_arm['kkt_max']:.3e}), plain "
+          f"{macro['plain']['solves_per_s']:.1f} solves/s (kkt_max "
+          f"{macro['plain']['kkt_max']:.3e}); launches {cuda_arm['launches']}")
+    out["mxu_micro"], out["mxu_macro"] = micro, macro
+    return launches
+
+
+def phase_long_horizon(out):
+    from ad_mpc_tpu_torch.experiments import long_horizon
+
+    res = long_horizon.micro()
+    for name, row in res["rows"].items():
+        print(f"long horizon {name}: seq {row['seq_ms']:.4f} ms, assoc "
+              f"{row['assoc_ms']:.4f} ms (assoc/seq {row['assoc_over_seq']:.3f}),"
+              f" rel diff {row['max_rel_diff']:.2e}, spread {row['spread']}")
+        check(all(v == v for v in (row["seq_ms"], row["assoc_ms"],
+                                   row["max_rel_diff"])),
+              f"non-finite long-horizon row {name}")
+    for name in ("N30", "N128"):
+        d = res["rows"][name]["max_rel_diff"]
+        check(d < 2e-3, f"assoc vs sequential at {name}: {d:.3e} >= 2e-3")
+    print(f"long horizon crossover_n: {res['crossover_n']}")
+    out["long_horizon"] = res
+
+
+def phase_c2_n40(torch, out, card):
+    from ad_mpc_tpu_torch import fleet
+
+    B = 16384
+    tick, init, solver, _ = fleet.build_fleet(
+        fleet.dynamic_bicycle, fleet.switch_on, n_nodes=40, qp_iters=12,
+        device="cuda")
+    solver.vde.launches = solver.qp.launches = 0
+    row, _ = fleet.run_config(tick, init, B, ticks=TICKS, warmup=WARMUP)
+    launches = {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches}
+    row["launches"] = launches
+    for k, n in launches.items():
+        check(n == WARMUP + TICKS,
+              f"{k} launched {n} times in {WARMUP + TICKS} ticks (c2-N40)")
+    bad = fleet.gate_failures(row)
+    check(not bad, "c2-N40 gates failed: "
+          + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
+    print(f"c2-N40 B={B}: {row['solves_per_s']:.1f} solves/s "
+          f"({row['tick_ms']:.3f} ms/tick) on {card}; kkt mean "
+          f"{row['kkt_mean']:.3e} max {row['kkt_max']:.3e}, lat_err "
+          f"{row['lat_err_mean_m']:.4f} m, launches {launches}")
+    out["c2_n40"] = row
+
+
+def phase_latency(out):
+    from ad_mpc_tpu_torch import fleet
+
+    lat = fleet.bench_latency(fleet.dynamic_bicycle, fleet.switch_on)
+    for k, n in lat["launches"].items():
+        check(n == lat["ticks"],
+              f"{k} launched {n} times in {lat['ticks']} latency ticks")
+    check(all(lat[k] == lat[k] and lat[k] > 0 for k in (
+        "p50_compute", "p99_compute", "p50_blocking", "p99_blocking",
+        "host_link_floor_p50")), f"latency row {lat}")
+    print(f"latency B=1: compute p50 {lat['p50_compute']:.3f} ms p99 "
+          f"{lat['p99_compute']:.3f} ms ({lat['compute_method']}); blocking "
+          f"p50 {lat['p50_blocking']:.3f} ms p99 {lat['p99_blocking']:.3f} ms; "
+          f"floor p50 {lat['host_link_floor_p50']:.3f} ms; budget "
+          f"{lat['budget']} ms; launches {lat['launches']}")
+    if lat["p99_compute"] > lat["budget"]:
+        print(f"WARNING: latency compute p99 {lat['p99_compute']:.2f} ms is "
+              f"over the {lat['budget']} ms budget")
+    out["latency"] = lat
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -328,6 +528,11 @@ def main(argv=None):
     vde = phase_vde(torch, np, out)
     lq = phase_lq(torch, np, out)
     launches = phase_slice(torch, out, card)
+    lane = phase_lane_chain(torch, out)
+    lane_launches = phase_mxu(torch, out)
+    phase_long_horizon(out)
+    phase_c2_n40(torch, out, card)
+    phase_latency(out)
 
     kernels = [
         {"name": "vde", "route": "cuda", "source": "ad_mpc_tpu_torch/csrc/vde.cu",
@@ -343,6 +548,13 @@ def main(argv=None):
          "ms": lq["ms"], "plain_ms": lq["plain_ms"],
          "bound_ms": lq["bound_ms"], "bound_by": lq["bound_by"],
          "library_ms": None},
+        {"name": "lane_chain", "route": "cuda",
+         "source": "ad_mpc_tpu_torch/csrc/lane_chain.cu",
+         "replaces": "ad_mpc_tpu/experiments/mxu_riccati.py:135",
+         "launches": lane_launches, "max_abs_err": lane["max_abs_err"],
+         "ms": lane["ms"], "plain_ms": lane["plain_ms"],
+         "bound_ms": lane["bound_ms"], "bound_by": lane["bound_by"],
+         "library_ms": lane["library_ms"]},
     ]
     out["kernels"] = kernels
     if args.out:

@@ -14,8 +14,13 @@ import torch
 
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
+from ad_mpc_tpu_torch.experiments import long_horizon, mxu_riccati
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
+from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
+from ad_mpc_tpu_torch.ops.cuda_chain import (
+    lane_chain_plain, make_lane_chain, to_lanes)
 from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
+from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
 from ad_mpc_tpu_torch.testing import BOUNDS, LQ_WEIGHTS, random_lq, random_traj
 
@@ -110,3 +115,27 @@ def test_solver_checks_tf32(cuda):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     assert solver.solve(*args).us.shape == (2, 10, 2)
+
+
+@pytest.mark.parametrize("B", [16384, 1000])
+def test_lane_chain_kernel_matches_plain(cuda, B):
+    """B=1000 leaves a ragged last block of 128 threads."""
+    A, X = mxu_riccati.inputs(B, 7, 0, cuda)
+    a, x = to_lanes(A), to_lanes(X)
+    lane = make_lane_chain(device=cuda)
+    got = lane(a, x)
+    want = lane_chain_plain(a, x, 12)
+    assert lane.launches == 1
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(lane(A, X), mxu_riccati.bmm_chain(A, X, 12),
+                               atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+def test_assoc_riccati_on_card_matches_sequential(cuda):
+    """As ``tests/test_tpu_lowering.py:217-235``: float32 on the device,
+    N=128, relative 2e-3 of max |du|."""
+    ops = long_horizon.random_lq(np.random.default_rng(0), 128, device=cuda)
+    _, du_s = lqr_solve(*ops)
+    _, du_a = lqr_solve_assoc(*ops)
+    err = float((du_s - du_a).abs().max()) / float(du_s.abs().max())
+    assert err < 2e-3
