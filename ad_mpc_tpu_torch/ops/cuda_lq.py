@@ -2,8 +2,10 @@
 
 Replaces ``ad_mpc_tpu/ops/pallas_lq.py:_lq_kernel_rolled`` and its
 stage-unrolled twin ``_lq_kernel`` (built by ``make_lq_solver``). The kernel
-is ``csrc/lq_ipm.cu``: one thread per scenario runs every IPM iteration,
-with per-stage state in a batch-innermost scratch buffer allocated here.
+is ``csrc/lq_ipm.cu``: a team of 8 lanes runs one scenario's IPM, S teams
+to a block, with the whole iterate in shared memory. :func:`lq_geometry`
+picks S and the shared bytes per scenario here, so that the CPU tests
+reach it; the kernel checks them against its own layout.
 
 Pallas baked the bounds into the trace as Python constants; here they are a
 by-value list of the active (finite) cone entries, and buffers of the module
@@ -15,6 +17,7 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -25,6 +28,63 @@ from ad_mpc_tpu_torch.ops.qp_ipm import BoundSpec, solve_lq_ocp
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 
 MAX_CONES = 32  # LQ_MAX_CONES in csrc/lq_ipm.cu
+TEAM = 8  # lanes per scenario (LQ_TEAM)
+MAX_TEAMS = 8  # scenarios per block at most (LQ_MAX_TEAMS)
+SMEM_BLOCK_MAX = 232448  # bytes of shared memory an H100 block may use
+SMEM_SM = 233472  # bytes of shared memory on one H100 SM
+SMEM_BLOCK_RESERVED = 1024  # bytes the system keeps for each resident block
+MAX_BLOCKS_SM = 32  # resident blocks on one SM at most
+
+
+def _align4(n):
+    return (n + 3) & ~3
+
+
+def header_floats(nx, nu):
+    """Shared floats of a block's header: Q, QN, R and the cone list."""
+    return (2 * nx * nx + nu * nu + 7 * MAX_CONES + 31) & ~31
+
+
+def scenario_floats(N, nx, nu, nc):
+    """Shared floats of one scenario (``Layout`` in csrc/lq_ipm.cu, which
+    rejects a smaller pitch): the iterate and the Newton step, the gains K
+    and kf of every stage, the cone variables and the references under the
+    cones, two stage buffers, the team's tile and a ring of 8 stages' cone
+    weights, padded to 8 mod 32 so that the 4 teams of a warp start on
+    different banks."""
+    nst = _align4((N + 1) * nx + N * nu)
+    gain = _align4(nu * nx + nu)
+    stage = _align4(nx * nx) + _align4(nx * nu) + 2 * _align4(nx) + _align4(nu)
+    tile = _align4(nx * nx) + _align4(nx * nu) + _align4(nx)
+    raw = (2 * nst + N * gain + _align4(4 * nc * N) + _align4(nc * N)
+           + 2 * stage + tile + 16 * max(nc, 1))
+    return raw + (8 - raw) % 32
+
+
+class Geometry(NamedTuple):
+    teams: int  # S, scenarios per block
+    threads: int  # per block
+    pitch: int  # shared floats per scenario
+    block_bytes: int  # shared bytes per block
+
+    def blocks(self, batch):
+        return -(-batch // self.teams)
+
+
+def lq_geometry(N, nx, nu, nc):
+    """The launch geometry: the number of scenarios per block, at most
+    ``MAX_TEAMS``, that keeps the most scenarios resident on an SM (the
+    kernel is latency-bound, so these set its rate), the larger on a tie."""
+    pitch = scenario_floats(N, nx, nu, nc)
+    nbytes = lambda s: 4 * (header_floats(nx, nu) + s * pitch)
+    fits = [s for s in range(1, MAX_TEAMS + 1) if nbytes(s) <= SMEM_BLOCK_MAX]
+    if not fits:
+        raise ValueError(f"LQ kernel: one scenario (N={N}, {nc} cones) needs "
+                         f"{nbytes(1)} bytes of shared memory")
+    resident = lambda s: s * min(MAX_BLOCKS_SM,
+                                 SMEM_SM // (nbytes(s) + SMEM_BLOCK_RESERVED))
+    teams = max(fits, key=lambda s: (resident(s), s))
+    return Geometry(teams, TEAM * teams, pitch, nbytes(teams))
 
 
 class _LqCone(ctypes.Structure):
@@ -42,10 +102,10 @@ def _lib():
     lib = _build.load("lq_ipm")
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.lq_ipm.argtypes = [P] * 14 + [I] * 5 + [F, F, _LqBounds, P]
+        lib.lq_ipm.argtypes = [P] * 13 + [I] * 5 + [F, F, _LqBounds, I, I, P]
         lib.lq_ipm.restype = I
-        lib.lq_ipm_scratch_floats.argtypes = [I, I, I, I]
-        lib.lq_ipm_scratch_floats.restype = ctypes.c_longlong
+        lib.lq_ipm_occupancy.argtypes = [I] * 6
+        lib.lq_ipm_occupancy.restype = I
         lib.error_string.argtypes = [I]
         lib.error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -93,7 +153,8 @@ class LQSolver(nn.Module):
     ``forward(A, Bm, c, q, r, u_ref, x_ref)`` takes batch-first float32
     tensors (B,N,nx,nx), (B,N,nx,nu), (B,N,nx), (B,N+1,nx), (B,N,nu),
     (B,N,nu), (B,N+1,nx) and returns (dx (B,N+1,nx), du (B,N,nu),
-    alpha (B,)). ``launches`` counts kernel launches.
+    alpha (B,)). ``launches`` counts kernel launches; ``geometry`` is
+    the kernel's launch geometry.
     """
 
     def __init__(self, N, nx, nu, Q, R, QN, u_bounds, x_bounds, iters=12,
@@ -126,6 +187,21 @@ class LQSolver(nn.Module):
                         f(self.QN), spec("u"), spec("x"), self.iters,
                         self.reg, self.tau_min, lqr_fn)
 
+    @property
+    def geometry(self):
+        """The kernel's launch geometry (:func:`lq_geometry`)."""
+        return lq_geometry(self.N, self.nx, self.nu, self._bounds.n)
+
+    def occupancy(self):
+        """Blocks of :attr:`geometry` resident on one SM of the card, by
+        ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+        lib, geo = _lib(), self.geometry
+        n = lib.lq_ipm_occupancy(self.N, self.nx, self.nu, self._bounds.n,
+                                 geo.teams, geo.pitch)
+        if n < 0:
+            raise RuntimeError(f"lq_ipm_occupancy: {lib.error_string(-n).decode()}")
+        return n
+
     def forward(self, A, Bm, c, q, r, u_ref, x_ref):
         if A.device.type == "cpu":
             return self.plain(A, Bm, c, q, r, u_ref, x_ref)
@@ -150,10 +226,7 @@ class LQSolver(nn.Module):
         if self.Q.device != A.device:
             raise ValueError(f"LQSolver weights on {self.Q.device}, "
                              f"inputs on {A.device}")
-        lib = _lib()
-        per = lib.lq_ipm_scratch_floats(N, nx, nu, self._bounds.n)
-        dev = A.device
-        scratch = torch.empty(B * per, dtype=torch.float32, device=dev)
+        lib, geo, dev = _lib(), self.geometry, A.device
         dx = torch.empty((B, N + 1, nx), dtype=torch.float32, device=dev)
         du = torch.empty((B, N, nu), dtype=torch.float32, device=dev)
         alpha = torch.empty((B,), dtype=torch.float32, device=dev)
@@ -161,9 +234,9 @@ class LQSolver(nn.Module):
             A.data_ptr(), Bm.data_ptr(), c.data_ptr(), q.data_ptr(),
             r.data_ptr(), u_ref.data_ptr(), x_ref.data_ptr(),
             self.Q.data_ptr(), self.R.data_ptr(), self.QN.data_ptr(),
-            dx.data_ptr(), du.data_ptr(), alpha.data_ptr(), scratch.data_ptr(),
+            dx.data_ptr(), du.data_ptr(), alpha.data_ptr(),
             B, N, nx, nu, self.iters, self.reg, self.tau_min, self._bounds,
-            torch.cuda.current_stream(dev).cuda_stream,
+            geo.teams, geo.pitch, torch.cuda.current_stream(dev).cuda_stream,
         )
         if err:
             raise RuntimeError(f"lq_ipm: {lib.error_string(err).decode()}")

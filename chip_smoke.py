@@ -9,12 +9,15 @@ Phases, each of which must pass:
 2. kernel phase VDE: the fused RK4 + sensitivity kernel at c2 shapes
    (B=16384, N=30) with the bicycle at switch 1 and 0.3, held against its
    plain PyTorch version on the card at atol 2e-5;
-3. kernel phase LQ: the fused interior-point QP kernel on the QPs of a c2
-   tick (B=16384, N=30, 12 iterations), held against the plain batched IPM
-   at atol 3e-4 / rtol 1e-3 on dx and du in every scenario; then on random
+3. kernel phase LQ: the fused interior-point QP kernel on the QPs of the
+   third c2 tick at B=16384 and at B=1024 (N=30, 12 iterations), held
+   against the plain batched IPM at atol 3e-4 / rtol 1e-3 on dx and du in
+   every scenario; then on the QPs of a c2-N40 tick (B=16384), random
    bicycle-bounded problems (B=16384, N=30) and a ragged unit-box case at
    N=10. In every case each scenario is held to the float64 plain solution
-   with an allowance from that scenario's own float32 spread (``lq_case``);
+   with an allowance from that scenario's own float32 spread (``lq_case``),
+   and the kernel's launch geometry is printed (scenarios and threads per
+   block, shared bytes per block, resident blocks per SM);
 4. slice phase: the c2 fleet tick (``fleet.build_fleet``) at B=1024 and
    16384, 5 warm-up and 20 timed ticks, with each kernel launched exactly
    once per tick, the c2 quality gates, and RTI-vs-converged u0;
@@ -248,25 +251,36 @@ def lq_case(torch, qp, args, strict):
     return row, ok, plain
 
 
+def tick_qps(fleet, batch, n_nodes):
+    """The c2 solver's QP module and the inputs of its QP at the third tick
+    of a fleet of ``batch`` vehicles."""
+    tick, init, solver, spec = fleet.build_fleet(
+        fleet.dynamic_bicycle, fleet.switch_on, n_nodes=n_nodes, device="cuda")
+    captured = []
+    solver.qp.register_forward_pre_hook(lambda mod, a: captured.append(a))
+    carry = init(batch)
+    for _ in range(3):
+        carry, _ = tick(carry)
+    return solver.qp, captured[-1], spec
+
+
 def phase_lq(torch, np, out):
     from ad_mpc_tpu_torch import fleet
     from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
     from ad_mpc_tpu_torch.testing import BOUNDS, LQ_WEIGHTS, random_lq
 
-    # The QPs of the main path: the inputs of the third c2 tick at B=16384.
-    tick, init, solver, spec = fleet.build_fleet(
-        fleet.dynamic_bicycle, fleet.switch_on, device="cuda")
-    captured = []
-    solver.qp.register_forward_pre_hook(lambda mod, a: captured.append(a))
-    carry = init(16384)
-    for _ in range(3):
-        carry, _ = tick(carry)
+    # The QPs of the main path: the inputs of the third c2 tick.
+    qp_c2, args_c2, spec = tick_qps(fleet, 16384, 30)
+    qp_1024, args_1024, _ = tick_qps(fleet, 1024, 30)
+    qp_n40, args_n40, _ = tick_qps(fleet, 16384, 40)
     Q, R = LQ_WEIGHTS
     rand = lambda B, N: [torch.as_tensor(a).cuda()
                          for a in random_lq(np.random.default_rng(5), B, N, 7, 2)]
     cases = {
         # name: (solver, inputs, strict)
-        "c2_tick": (solver.qp, captured[-1], True),
+        "c2_tick": (qp_c2, args_c2, True),
+        "c2_tick_B1024": (qp_1024, args_1024, True),
+        "c2_n40_tick": (qp_n40, args_n40, False),
         "random_N30": (make_lq_solver(30, 7, 2, Q, R, 1e-3 * Q,
                                       *spec.bound_dicts(), iters=12),
                        rand(16384, 30), False),
@@ -282,10 +296,18 @@ def phase_lq(torch, np, out):
         n_bytes = 4 * (sum(a.numel() for a in args) + B * ((N + 1) * 7 + N * 2 + 1))
         n_flops = B * N * qp.iters * lq_flops_per_stage_iter(7, 2)
         bms, by = bound_ms(n_bytes, n_flops)
+        geo = qp.geometry
         row |= {"N": N, "ms": time_ms(torch, lambda: qp(*args), 10),
                 "plain_ms": time_ms(torch, plain, 2), "bytes": n_bytes,
-                "flops": n_flops, "bound_ms": bms, "bound_by": by}
+                "flops": n_flops, "bound_ms": bms, "bound_by": by,
+                "geometry": geo._asdict() | {"blocks": geo.blocks(B)},
+                "blocks_per_sm": qp.occupancy()}
         rows[name] = row
+        print(f"LQ {name} geometry: {geo.teams} scenarios and {geo.threads} "
+              f"threads per block, {geo.block_bytes} shared bytes per block "
+              f"({4 * geo.pitch} per scenario), {geo.blocks(B)} blocks, "
+              f"{row['blocks_per_sm']} resident per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
         print(f"LQ {name} B={B} N={N}: {row['agree']}/{B} scenarios agree "
               f"(max|err| {row['max_abs_err']:.3e}); outside tolerance of the "
               f"float64 solution: kernel {row['kernel_misses_f64']}, plain "

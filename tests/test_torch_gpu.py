@@ -8,6 +8,10 @@ machine without a CUDA device every test skips with its reason; the
 decision is taken inside the ``cuda`` fixture, never at import.
 """
 
+import ctypes
+import re
+import subprocess
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +20,7 @@ from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
 from ad_mpc_tpu_torch.experiments import long_horizon, mxu_riccati
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
+from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
 from ad_mpc_tpu_torch.ops.cuda_chain import (
     lane_chain_plain, make_lane_chain, to_lanes)
@@ -52,12 +57,15 @@ def test_vde_kernel_matches_plain(cuda, switch):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
 
 
-@pytest.mark.parametrize("N", [30, 10])
+@pytest.mark.parametrize("N", [30, 10, 40])
 @pytest.mark.parametrize("bounds_kind", ["bicycle", "unit"])
 def test_lq_kernel_matches_plain(cuda, bounds_kind, N):
+    """RAGGED_B is no multiple of the scenarios per block: the last block
+    holds a partial team of scenarios."""
     Q, R = LQ_WEIGHTS
     ub, xb = BOUNDS[bounds_kind](7, 2)
     qp = make_lq_solver(N, 7, 2, Q, R, 1e-3 * Q, ub, xb, iters=12, device=cuda)
+    assert RAGGED_B % qp.geometry.teams and qp.occupancy() >= 1
     args = [torch.as_tensor(a, device=cuda)
             for a in random_lq(np.random.default_rng(5), RAGGED_B, N, 7, 2)]
     dx, du, alpha = qp(*args)
@@ -66,6 +74,70 @@ def test_lq_kernel_matches_plain(cuda, bounds_kind, N):
     torch.testing.assert_close(du, du_w, atol=3e-4, rtol=1e-3)
     torch.testing.assert_close(dx, dx_w, atol=3e-4, rtol=1e-3)
     assert bool(((alpha >= 0) & (alpha <= 1)).all())
+
+
+def test_lq_kernel_repeats_its_bits(cuda):
+    """Reductions run in a fixed order with no atomics: a second launch on
+    the same inputs returns the same bits."""
+    Q, R = LQ_WEIGHTS
+    qp = make_lq_solver(30, 7, 2, Q, R, 1e-3 * Q, *BOUNDS["bicycle"](7, 2),
+                        iters=12, device=cuda)
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(7), 1000, 30, 7, 2)]
+    first, second = qp(*args), qp(*args)
+    assert qp.launches == 2
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+DIV_CHECK = r"""
+__global__ void check(const float* a, const float* b, long long n,
+                      unsigned long long* bad) {
+  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n;
+       t += (long long)gridDim.x * blockDim.x) {
+    const float q = fdiv(a[t], b[t]), s = fsqrt(fabsf(a[t]));
+    if (__float_as_uint(q) != __float_as_uint(a[t] / b[t])) atomicAdd(bad, 1ULL);
+    if (__float_as_uint(s) != __float_as_uint(sqrtf(fabsf(a[t]))))
+      atomicAdd(bad + 1, 1ULL);
+  }
+}
+extern "C" int run(const float* a, const float* b, long long n,
+                   unsigned long long* bad) {
+  check<<<1024, 256>>>(a, b, n, bad);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+def test_lq_division_matches_ieee(cuda):
+    """The kernel's branch-free fdiv and fsqrt give the bits of IEEE '/' and
+    sqrtf for normal operands with exponents in [-60, 60], the range of
+    the solver's values (2**26 random pairs)."""
+    src = (_build.CSRC / "lq_ipm.cu").read_text()
+    funcs = re.search(r"__device__ __forceinline__ float fdiv.*?\n}\n\n"
+                      r"__device__ __forceinline__ float fsqrt.*?\n}\n", src, re.S)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = _build.BUILD_DIR / "lq_division_check.cu"
+    cu.write_text("#include <cuda_runtime.h>\n#include <math.h>\n"
+                  + funcs.group(0) + DIV_CHECK)
+    so = cu.with_suffix(".so")
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    lib.run.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_void_p]
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    n = 1 << 26
+
+    def normal_floats():
+        mant = torch.rand(n, device=cuda, generator=gen) + 1.0
+        ex = torch.randint(-60, 61, (n,), device=cuda, generator=gen).float()
+        sign = torch.where(torch.rand(n, device=cuda, generator=gen) < 0.5, -1.0, 1.0)
+        return sign * mant * torch.exp2(ex)
+
+    a, b = normal_floats(), normal_floats()
+    bad = torch.zeros(2, dtype=torch.int64, device=cuda)
+    assert lib.run(a.data_ptr(), b.data_ptr(), n, bad.data_ptr()) == 0
+    assert bad.tolist() == [0, 0]
 
 
 def test_lq_kernel_rejects_bad_input(cuda):

@@ -19,7 +19,9 @@ from ad_mpc_tpu.ops.pallas_lq import make_lq_solver as jax_make_lq_solver
 from ad_mpc_tpu.ops.qp_ipm import BoundSpec as JaxBoundSpec
 from ad_mpc_tpu.ops.qp_ipm import solve_lq_ocp as jax_solve_lq_ocp
 from ad_mpc_tpu.ops.riccati import lqr_solve as jax_lqr_solve
-from ad_mpc_tpu_torch.ops.cuda_lq import cone_entries, make_lq_solver
+from ad_mpc_tpu_torch import fleet
+from ad_mpc_tpu_torch.ops import cuda_lq
+from ad_mpc_tpu_torch.ops.cuda_lq import cone_entries, lq_geometry, make_lq_solver
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.testing import BOUNDS, LQ_WEIGHTS, random_lq
 
@@ -113,3 +115,66 @@ def test_cone_entries_match_pallas_sides(bounds_kind):
             want += [(is_x, j, int(lo), int(s), b, z, Z) for j, b, s, z, Z
                      in zip(side.idx, side.b, side.soft, side.z, side.Z)]
     assert cone_entries(ub, xb) == want
+
+
+@pytest.mark.parametrize("nc", [0, 6, 18, 32])
+@pytest.mark.parametrize("horizon", [10, 30, 40])
+def test_lq_geometry_fits_a_block(horizon, nc):
+    """Every horizon the port runs, with up to LQ_MAX_CONES bound entries,
+    gets at least one scenario per block within the H100's 232,448 bytes,
+    one team of 8 lanes per scenario, and a scenario region that starts on
+    16 bytes and 8 mod 32 floats (the 4 teams of a warp on 4 bank offsets)."""
+    geo = lq_geometry(horizon, NX, NU, nc)
+    assert 1 <= geo.teams <= cuda_lq.MAX_TEAMS
+    assert geo.threads == cuda_lq.TEAM * geo.teams
+    assert geo.block_bytes <= cuda_lq.SMEM_BLOCK_MAX
+    assert geo.block_bytes == 4 * (cuda_lq.header_floats(NX, NU)
+                                   + geo.teams * geo.pitch)
+    assert geo.pitch % 32 == 8
+    # the iterate, the step, the gains and the cone variables at least
+    assert geo.pitch >= (2 * ((horizon + 1) * NX + horizon * NU)
+                         + horizon * (NU * NX + NU) + 4 * nc * horizon)
+
+
+def test_lq_geometry_fills_the_card_at_c2():
+    """The c2 QP (N=30, 6 bound entries) runs 8 scenarios per block of 64
+    threads: 128 blocks at B=1024, one on nearly every SM of 132."""
+    _, _, solver, _ = fleet.build_fleet(fleet.dynamic_bicycle,
+                                        fleet.switch_on, device="cpu")
+    geo = solver.qp.geometry
+    assert solver.qp._bounds.n == 6
+    assert (geo.teams, geo.threads) == (8, 64)
+    assert geo.blocks(1024) == 128 and geo.blocks(16384) == 2048
+
+
+def test_lq_wrapper_allocates_no_scratch(monkeypatch):
+    """The launch allocates the outputs and nothing else, and hands the
+    kernel the geometry of :func:`lq_geometry`."""
+    Q, R = LQ_WEIGHTS
+    qp = make_lq_solver(N, NX, NU, Q, R, 1e-3 * Q, *BOUNDS["bicycle"](NX, NU),
+                        iters=ITERS, device="cpu")
+    args = [torch.as_tensor(a) for a in random_lq(np.random.default_rng(5),
+                                                  B, N, NX, NU)]
+    calls, sizes = [], []
+
+    class FakeLib:
+        def lq_ipm(self, *a):
+            calls.append(a)
+            return 0
+
+    empty = torch.empty
+
+    def counting_empty(*a, **k):
+        t = empty(*a, **k)
+        sizes.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(cuda_lq, "_lib", FakeLib)
+    monkeypatch.setattr(torch, "empty", counting_empty)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev=None: type("S", (), {"cuda_stream": 0}))
+    dx, du, alpha = qp._launch(*args)
+    assert sizes == [(B, N + 1, NX), (B, N, NU), (B,)]
+    assert len(calls) == 1 and qp.launches == 1
+    geo = qp.geometry
+    assert calls[0][-3:-1] == (geo.teams, geo.pitch)
