@@ -1,34 +1,59 @@
-// Fused RK4 + forward-sensitivity (VDE) sweep for Hopper (sm_90a).
+// Fused RK4 + forward-sensitivity (VDE) sweep for Hopper (sm_90a), and the
+// same RK4 map without tangents.
 //
 // Replaces: ad_mpc_tpu/ops/pallas_vde.py:_vde_kernel (built by make_vde).
-// For every (scenario b, stage k) it integrates one RK4 interval
+// For every (scenario b, stage k) vde_kernel integrates one RK4 interval
 // F(x_k, u_k; p_b), its exact forward sensitivities A_k = dF/dx and
 // B_k = dF/du, and the multiple-shooting defect c_k = F(x_k, u_k) - x_{k+1}.
+// rk4_kernel runs the same functor and RK4 map with T = float: the solver's
+// KKT defect (ad_mpc_tpu/ocp/solver.py:464) and the fleet's plant step
+// (bench.py:159), which XLA fuses into the jitted tick.
 //
-// What bounds it on the H100: at c2 (B=16384, N=30, nx=7, nu=2) the kernel
-// moves ~156 MB (xs, us in; A, Bm, c out: ~47 us at 3.35 TB/s) and does
-// ~4.3 GFLOP (primal RK4 plus nx+nu tangent sweeps: ~64 us at 67 TFLOP/s
-// FP32), so it sits near the ridge, slightly on the operations side.
+// What bounds it on the H100: at c2 (B=16384, N=30, nx=7, nu=2) the sweep
+// moves ~156 MB (A, Bm, c out: 137.6 MB; ~47 us at 3.35 TB/s) and does
+// ~4.3 GFLOP by the hand count (~64 us at 67 TFLOP/s FP32): near the ridge,
+// on the operations side. Measured on an H100 (PERF.md), the first
+// design lost most of its time elsewhere: its stores were strided (a
+// thread's 70 outputs lie 280 B from its neighbour's, so each warp store
+// touched 32 partly written sectors; 83% of the time once the compute was
+// lean), and each of its 336 IEEE divisions per thread called a slow-path
+// subroutine behind a branch.
 //
-// Design: one thread per (b, k), thread index b*N + k, reading and writing
-// the solver's batch-first layout directly (no transposes or padding around
-// the launch). A CUDA kernel has no AD, so derivatives are forward-mode dual
-// numbers: Dual<NT> carries a value and NT tangents, and x_j / u_j are
-// seeded with one-hot tangents. The nx+nu = 9 tangents run in passes of
-// TANGENTS_PER_PASS = 3, each recomputing the (cheap) primal: all 9 at once
-// need 255 registers and spill, one at a time triples the primal work, and
-// 3 was the fastest of the three on an H100 (PERF.md). The dynamics is a
-// __device__ functor templated on the scalar type, with one C entry per
-// functor (vde_<model>); this file has one, the blended bicycle.
+// Design:
+//   - One thread per (b, k), thread index b*N + k, reading and writing the
+//     solver's batch-first layout (no transposes or padding around the
+//     launch). The 32 rows of a warp own contiguous ranges of A, Bm and c:
+//     each thread writes its outputs into the warp's tile in shared memory
+//     (row strides 49, 14 and 7 words: 49 and 7 are odd, so those writes
+//     are free of bank conflicts), and after __syncwarp the warp copies the
+//     tile out with 16-byte stores. A ragged last warp computes a clamped
+//     duplicate of the last row and copies only its own rows.
+//   - Forward-mode duals: Dual<NT> carries a value and NT tangents, x_j and
+//     u_j are seeded with one-hot tangents. All nx+nu = 9 tangents run in
+//     one pass (TANGENTS_PER_PASS), so the primal is computed once: 255
+//     registers and no spill once the divisions are branch-free, 8 warps
+//     per SM. It was the fastest split on an H100: 3 passes of 3 and 2 of
+//     5 + 4 took 8% and 4% longer, and a warp per pass 60-80% (PERF.md).
+//   - A dual division computes its value once with the bits of IEEE '/'
+//     (fdiv_rcp of ieee_div.cuh, branch-free) and multiplies the tangents by
+//     the reciprocal it refined; one sincosf per angle. No --use_fast_math:
+//     the 2e-5 parity assumes IEEE-accurate sinf/cosf.
+// The dynamics is a __device__ functor templated on the scalar type, with
+// one C entry per functor and kernel (vde_<model>, rk4_<model>); this file
+// has one, the blended bicycle.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: IEEE sinf/cosf/division).
 
 #include <cuda_runtime.h>
 
+#include "ieee_div.cuh"
+
 #define DI __device__ __forceinline__
 
-constexpr int TANGENTS_PER_PASS = 3;
+constexpr int TANGENTS_PER_PASS = 9;
+constexpr int WARP = 32;
+constexpr int ROW_WARPS = 4;  // warps of rows per block
 
 template <int NT>
 struct Dual {
@@ -109,47 +134,42 @@ DI Dual<NT> operator*(float a, const Dual<NT>& b) {
   return r;
 }
 
+// Division and sin/cos for both scalar types. A functor writes divide(a, b)
+// and sin_cos(a, s, c) so that T = float takes them too.
+DI float divide(float a, float b) { return fdiv(a, b); }
 template <int NT>
-DI Dual<NT> operator/(const Dual<NT>& a, const Dual<NT>& b) {
+DI Dual<NT> divide(const Dual<NT>& a, const Dual<NT>& b) {
   Dual<NT> r;
-  r.v = a.v / b.v;
+  float rb;
+  r.v = fdiv_rcp(a.v, b.v, rb);
 #pragma unroll
-  for (int i = 0; i < NT; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) / b.v;
+  for (int i = 0; i < NT; ++i) r.d[i] = (a.d[i] - r.v * b.d[i]) * rb;
   return r;
 }
 template <int NT>
-DI Dual<NT> operator/(const Dual<NT>& a, float b) {
+DI Dual<NT> divide(const Dual<NT>& a, float b) {
   Dual<NT> r;
-  r.v = a.v / b;
+  float rb;
+  r.v = fdiv_rcp(a.v, b, rb);
 #pragma unroll
-  for (int i = 0; i < NT; ++i) r.d[i] = a.d[i] / b;
+  for (int i = 0; i < NT; ++i) r.d[i] = a.d[i] * rb;
   return r;
 }
 
+DI void sin_cos(float a, float& s, float& c) { sincosf(a, &s, &c); }
 template <int NT>
-DI Dual<NT> sin(const Dual<NT>& a) {
-  float s, c;
-  sincosf(a.v, &s, &c);
-  Dual<NT> r;
-  r.v = s;
+DI void sin_cos(const Dual<NT>& a, Dual<NT>& s, Dual<NT>& c) {
+  sincosf(a.v, &s.v, &c.v);
 #pragma unroll
-  for (int i = 0; i < NT; ++i) r.d[i] = c * a.d[i];
-  return r;
-}
-template <int NT>
-DI Dual<NT> cos(const Dual<NT>& a) {
-  float s, c;
-  sincosf(a.v, &s, &c);
-  Dual<NT> r;
-  r.v = c;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) r.d[i] = -s * a.d[i];
-  return r;
+  for (int i = 0; i < NT; ++i) {
+    s.d[i] = c.v * a.d[i];
+    c.d[i] = -s.v * a.d[i];
+  }
 }
 
 // ------------------------------------------------------------- dynamics
 // A functor evaluates x_dot = f(x, u; p) for any scalar type T with the
-// operators above. p is the scenario's parameter row (not differentiated).
+// operations above. p is the scenario's parameter row (not differentiated).
 
 struct BicycleParamsC {  // by value from the wrapper (models/bicycle.py)
   float mass, l_f, l_r, iz, cf, cr, wheelbase;
@@ -174,21 +194,23 @@ struct BicycleDyn {
     const T& delta_dot = u[1];
 
     const T v_x_safe = v_x + 1e-6f;
-    const T f_fy = (2.0f * P.cf) * (delta - (v_y + P.l_f * psi_dot) / v_x_safe);
-    const T f_ry = (2.0f * P.cr) * (P.l_r * psi_dot - v_y) / v_x_safe;
+    const T f_fy = (2.0f * P.cf) * (delta - divide(v_y + P.l_f * psi_dot, v_x_safe));
+    const T f_ry = divide((2.0f * P.cr) * (P.l_r * psi_dot - v_y), v_x_safe);
 
-    const T sps = sin(psi), cps = cos(psi);
+    T sps, cps;
+    sin_cos(psi, sps, cps);
     xd[0] = v_x * cps - v_y * sps;
     xd[1] = v_x * sps + v_y * cps;
     xd[2] = psi_dot;
 
-    const T sd = sin(delta), cd = cos(delta);
-    const T v_x_dyn = a - (f_fy * sd) / P.mass + v_y * psi_dot;
-    const T v_y_dyn = (f_ry + f_fy * cd) / P.mass - v_x * psi_dot;
+    T sd, cd;
+    sin_cos(delta, sd, cd);
+    const T v_x_dyn = a - divide(f_fy * sd, P.mass) + v_y * psi_dot;
+    const T v_y_dyn = divide(f_ry + f_fy * cd, P.mass) - v_x * psi_dot;
     const T kin = delta_dot * v_x + delta * a;
-    const T v_y_kin = kin * P.l_r / P.wheelbase;
-    const T psi_dd_dyn = (P.l_f * f_fy * cd - P.l_r * f_ry) / P.iz;
-    const T psi_dd_kin = kin / P.wheelbase;
+    const T v_y_kin = divide(kin * P.l_r, P.wheelbase);
+    const T psi_dd_dyn = divide(P.l_f * f_fy * cd - P.l_r * f_ry, P.iz);
+    const T psi_dd_kin = divide(kin, P.wheelbase);
 
     xd[3] = s * v_x_dyn + (1.0f - s) * a;
     xd[4] = s * v_y_dyn + (1.0f - s) * v_y_kin;
@@ -197,137 +219,253 @@ struct BicycleDyn {
   }
 };
 
-// ------------------------------------------------------------- kernel
+// ------------------------------------------------------------- kernels
+
+// RK4 sub-step sizes, rounded once from double on the host (the JAX map and
+// the plain version round them likewise).
+struct Steps {
+  int n;
+  float h, hh, h6;
+};
 
 // One RK4 map x <- F(x, u) in place, with the order of operations of
 // pallas_vde.py:128-135: x + (h/6) * (((k1 + 2 k2) + 2 k3) + k4).
 template <class T, class Dyn>
-DI void rk4_map(T* x, const T* u, const float* p, const Dyn& f, int steps,
-                float h, float hh, float h6) {
+DI void rk4_map(T* x, const T* u, const float* p, const Dyn& f, Steps st) {
   constexpr int NX = Dyn::NX;
-  for (int s = 0; s < steps; ++s) {
+  for (int s = 0; s < st.n; ++s) {
     T k[NX], xt[NX], acc[NX];
     f(x, u, p, k);  // k1
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = k[i];
-      xt[i] = x[i] + hh * k[i];
+      xt[i] = x[i] + st.hh * k[i];
     }
     f(xt, u, p, k);  // k2
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = acc[i] + 2.0f * k[i];
-      xt[i] = x[i] + hh * k[i];
+      xt[i] = x[i] + st.hh * k[i];
     }
     f(xt, u, p, k);  // k3
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
       acc[i] = acc[i] + 2.0f * k[i];
-      xt[i] = x[i] + h * k[i];
+      xt[i] = x[i] + st.h * k[i];
     }
     f(xt, u, p, k);  // k4
 #pragma unroll
-    for (int i = 0; i < NX; ++i) x[i] = x[i] + h6 * (acc[i] + k[i]);
+    for (int i = 0; i < NX; ++i) x[i] = x[i] + st.h6 * (acc[i] + k[i]);
   }
 }
 
+// The warp copies rows [row0, row0 + rows) of an output with w floats per
+// row from their tile in shared memory: 16-byte stores, then the ragged
+// tail. row0 is a multiple of 32 and dst 16-byte aligned, so the range
+// starts on 16 bytes; the tile does too.
+DI void store_rows(float* __restrict__ dst, const float* tile, int w,
+                   long long row0, int rows, int lane) {
+  float* out = dst + row0 * w;
+  const int len = rows * w, len4 = len / 4;
+  const float4* t4 = reinterpret_cast<const float4*>(tile);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  for (int i = lane; i < len4; i += WARP) o4[i] = t4[i];
+  for (int i = 4 * len4 + lane; i < len; i += WARP) out[i] = tile[i];
+}
+
+// One pass: tangent columns J0 .. J0+NT-1 of [A | Bm] of the thread's row,
+// into its rows of the tiles (and, on the first pass, c).
+template <int J0, int NT, class Dyn>
+DI void vde_pass(const float* x0, const float* u0, const float* xn,
+                 const float* p, const Dyn& f, Steps st, float* tA, float* tB,
+                 float* tc) {
+  constexpr int NX = Dyn::NX;
+  constexpr int NU = Dyn::NU;
+  Dual<NT> x[NX], u[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    x[i].v = x0[i];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) x[i].d[t] = (i == J0 + t) ? 1.0f : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    u[i].v = u0[i];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) u[i].d[t] = (NX + i == J0 + t) ? 1.0f : 0.0f;
+  }
+
+  rk4_map(x, u, p, f, st);
+
+  // a[i*nx + j] = dF_i/dx_j, b[i*nu + j] = dF_i/du_j.
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    const int col = J0 + t;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      if (col < NX) tA[i * NX + col] = x[i].d[t];
+      else tB[i * NU + (col - NX)] = x[i].d[t];
+    }
+  }
+  if constexpr (J0 == 0) {
+#pragma unroll
+    for (int i = 0; i < NX; ++i) tc[i] = x[i].v - xn[i];
+  }
+}
+
+// The passes from column J0 on.
+template <int J0, class Dyn>
+DI void vde_passes(const float* x0, const float* u0, const float* xn,
+                   const float* p, const Dyn& f, Steps st, float* tA,
+                   float* tB, float* tc) {
+  constexpr int NV = Dyn::NX + Dyn::NU;
+  constexpr int NT = TANGENTS_PER_PASS < NV - J0 ? TANGENTS_PER_PASS : NV - J0;
+  vde_pass<J0, NT>(x0, u0, xn, p, f, st, tA, tB, tc);
+  if constexpr (J0 + NT < NV)
+    vde_passes<J0 + NT>(x0, u0, xn, p, f, st, tA, tB, tc);
+}
+
 template <class Dyn>
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(ROW_WARPS * WARP)
 vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
            const float* __restrict__ ps, float* __restrict__ A,
            float* __restrict__ Bm, float* __restrict__ c, int batch, int N,
-           int pd, double dt, int steps, Dyn f) {
+           int pd, Steps st, Dyn f) {
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
-  constexpr int NV = NX + NU;
-  constexpr int NT = TANGENTS_PER_PASS;
-  constexpr int PASSES = (NV + NT - 1) / NT;
+  // A warp's tile: its 32 rows of A, then of Bm, then of c.
+  constexpr int TILE_B = WARP * NX * NX;
+  constexpr int TILE_C = TILE_B + WARP * NX * NU;
+  constexpr int TILE = TILE_C + WARP * NX;
+  __shared__ float4 smem[ROW_WARPS * TILE / 4];
 
-  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= (long long)batch * N) return;
-  const long long b = tid / N;
-  const long long k = tid - b * N;
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  float* tile = reinterpret_cast<float*>(smem) + warp * TILE;
+  const long long rows = (long long)batch * N;
+  const long long row0 = ((long long)blockIdx.x * ROW_WARPS + warp) * WARP;
+  const long long row = min(row0 + lane, rows - 1);
+  const long long b = row / N;
 
-  // Step sizes in double, rounded once (the JAX map rounds them likewise).
-  const double hd = dt / steps;
-  const float h = (float)hd, hh = (float)(0.5 * hd), h6 = (float)(hd / 6.0);
+  const float* xk = xs + (row + b) * NX;  // (b*(N+1) + k) * NX
+  float x0[NX], u0[NU], xn[NX];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) {
+    x0[i] = xk[i];
+    xn[i] = xk[NX + i];
+  }
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u0[i] = us[row * NU + i];
 
-  const float* xk = xs + (b * (N + 1) + k) * NX;
-  const float* uk = us + tid * NU;
-  const float* p = ps + b * pd;
-  float* Ak = A + tid * (NX * NX);
-  float* Bk = Bm + tid * (NX * NU);
-  float* ck = c + tid * NX;
+  vde_passes<0>(x0, u0, xn, ps + b * pd, f, st, tile + lane * NX * NX,
+                tile + TILE_B + lane * NX * NU, tile + TILE_C + lane * NX);
 
-  float x0[NX], u0[NU];
-#pragma unroll
-  for (int i = 0; i < NX; ++i) x0[i] = xk[i];
-#pragma unroll
-  for (int i = 0; i < NU; ++i) u0[i] = uk[i];
-
-#pragma unroll
-  for (int pass = 0; pass < PASSES; ++pass) {
-    const int j0 = pass * NT;  // first tangent column of this pass
-    Dual<NT> x[NX], u[NU];
-#pragma unroll
-    for (int i = 0; i < NX; ++i) {
-      x[i].v = x0[i];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) x[i].d[t] = (i == j0 + t) ? 1.0f : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < NU; ++i) {
-      u[i].v = u0[i];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) u[i].d[t] = (NX + i == j0 + t) ? 1.0f : 0.0f;
-    }
-
-    rk4_map(x, u, p, f, steps, h, hh, h6);
-
-    // a[i*nx + j] = dF_i/dx_j, b[i*nu + j] = dF_i/du_j.
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int col = j0 + t;
-      if (col < NX) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) Ak[i * NX + col] = x[i].d[t];
-      } else if (col < NV) {
-#pragma unroll
-        for (int i = 0; i < NX; ++i) Bk[i * NU + (col - NX)] = x[i].d[t];
-      }
-    }
-    if (pass == 0) {
-#pragma unroll
-      for (int i = 0; i < NX; ++i) ck[i] = x[i].v - xk[NX + i];
-    }
+  __syncwarp();
+  if (row0 < rows) {
+    const int n = (int)min((long long)WARP, rows - row0);
+    store_rows(A, tile, NX * NX, row0, n, lane);
+    store_rows(Bm, tile + TILE_B, NX * NU, row0, n, lane);
+    store_rows(c, tile + TILE_C, NX, row0, n, lane);
   }
 }
 
+// The RK4 map alone, row r = b*N + k: out[r] = F(x_{b,k}, u_{b,k}; p_b),
+// minus x_{b,k+1} when `defect`. x rows are NX apart within a scenario.
 template <class Dyn>
-static cudaError_t launch(const float* xs, const float* us, const float* ps,
-                          float* A, float* Bm, float* c, int batch, int N,
-                          int pd, double dt, int steps, Dyn f, void* stream) {
+__global__ void __launch_bounds__(ROW_WARPS * WARP)
+rk4_kernel(const float* __restrict__ xs, long long xs_b,
+           const float* __restrict__ us, long long us_b, long long us_k,
+           const float* __restrict__ ps, long long ps_b,
+           float* __restrict__ out, int batch, int N, int defect, Steps st,
+           Dyn f) {
+  constexpr int NX = Dyn::NX;
+  constexpr int NU = Dyn::NU;
+  __shared__ float4 smem[ROW_WARPS * WARP * NX / 4];
+
+  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+  float* tile = reinterpret_cast<float*>(smem) + warp * WARP * NX;
+  const long long rows = (long long)batch * N;
+  const long long row0 = ((long long)blockIdx.x * ROW_WARPS + warp) * WARP;
+  const long long row = min(row0 + lane, rows - 1);
+  const long long b = row / N;
+  const long long k = row - b * N;
+
+  const float* xk = xs + b * xs_b + k * NX;
+  const float* uk = us + b * us_b + k * us_k;
+  float x[NX], u[NU];
+#pragma unroll
+  for (int i = 0; i < NX; ++i) x[i] = xk[i];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) u[i] = uk[i];
+
+  rk4_map(x, u, ps + b * ps_b, f, st);
+
+#pragma unroll
+  for (int i = 0; i < NX; ++i) tile[lane * NX + i] = defect ? x[i] - xk[NX + i] : x[i];
+  __syncwarp();
+  if (row0 < rows)
+    store_rows(out, tile, NX, row0, (int)min((long long)WARP, rows - row0), lane);
+}
+
+static Steps steps_of(double dt, int n) {
+  const double hd = dt / n;
+  return Steps{n, (float)hd, (float)(0.5 * hd), (float)(hd / 6.0)};
+}
+
+template <class Dyn>
+static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
+                              float* A, float* Bm, float* c, int batch, int N,
+                              int pd, double dt, int steps, Dyn f, void* stream) {
   if (pd < 1 || steps < 1) return cudaErrorInvalidValue;
-  const long long n = (long long)batch * N;
-  if (n == 0) return cudaSuccess;
-  const int block = 128;
-  const long long grid = (n + block - 1) / block;
-  vde_kernel<Dyn><<<(unsigned)grid, block, 0, (cudaStream_t)stream>>>(
-      xs, us, ps, A, Bm, c, batch, N, pd, dt, steps, f);
+  const long long rows = (long long)batch * N;
+  if (rows == 0) return cudaSuccess;
+  const long long grid = (rows + ROW_WARPS * WARP - 1) / (ROW_WARPS * WARP);
+  vde_kernel<Dyn><<<(unsigned)grid, ROW_WARPS * WARP, 0, (cudaStream_t)stream>>>(
+      xs, us, ps, A, Bm, c, batch, N, pd, steps_of(dt, steps), f);
+  return cudaGetLastError();
+}
+
+template <class Dyn>
+static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
+                              long long us_b, long long us_k, const float* ps,
+                              long long ps_b, float* out, int batch, int N,
+                              int defect, double dt, int steps, Dyn f,
+                              void* stream) {
+  if (steps < 1) return cudaErrorInvalidValue;
+  const long long rows = (long long)batch * N;
+  if (rows == 0) return cudaSuccess;
+  const long long grid = (rows + ROW_WARPS * WARP - 1) / (ROW_WARPS * WARP);
+  rk4_kernel<Dyn><<<(unsigned)grid, ROW_WARPS * WARP, 0, (cudaStream_t)stream>>>(
+      xs, xs_b, us, us_b, us_k, ps, ps_b, out, batch, N, defect,
+      steps_of(dt, steps), f);
   return cudaGetLastError();
 }
 
 extern "C" {
 
-// One entry per dynamics functor, all with this signature apart from the
-// by-value parameter struct: xs (batch, N+1, 7), us (batch, N, 2),
-// ps (batch, pd) in; A (batch, N, 7, 7), Bm (batch, N, 7, 2), c (batch, N, 7)
-// out; all float32, contiguous, on the device. Returns a cudaError_t.
+// One pair of entries per dynamics functor, with these signatures apart
+// from the by-value parameter struct. All tensors float32 on the device;
+// outputs contiguous and 16-byte aligned. Each returns a cudaError_t.
+//
+// vde_<model>: xs (batch, N+1, 7), us (batch, N, 2), ps (batch, pd), all
+// contiguous, in; A (batch, N, 7, 7), Bm (batch, N, 7, 2), c (batch, N, 7)
+// out.
 int vde_bicycle(const float* xs, const float* us, const float* ps, float* A,
                 float* Bm, float* c, int batch, int N, int pd, double dt,
                 int rk4_steps, BicycleParamsC params, void* stream) {
-  return (int)launch(xs, us, ps, A, Bm, c, batch, N, pd, dt, rk4_steps,
-                     BicycleDyn{params}, stream);
+  return (int)launch_vde(xs, us, ps, A, Bm, c, batch, N, pd, dt, rk4_steps,
+                         BicycleDyn{params}, stream);
+}
+
+// rk4_<model>: out (batch, N, 7) = F(x_{b,k}, u_{b,k}; p_b), minus x_{b,k+1}
+// when defect != 0. Strides in floats: x_{b,k} at xs + b*xs_b + 7k, u_{b,k}
+// at us + b*us_b + k*us_k, p_b at ps + b*ps_b; each row's entries adjacent.
+// The step mode is N = 1.
+int rk4_bicycle(const float* xs, long long xs_b, const float* us,
+                long long us_b, long long us_k, const float* ps, long long ps_b,
+                float* out, int batch, int N, int defect, double dt,
+                int rk4_steps, BicycleParamsC params, void* stream) {
+  return (int)launch_rk4(xs, xs_b, us, us_b, us_k, ps, ps_b, out, batch, N,
+                         defect, dt, rk4_steps, BicycleDyn{params}, stream);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -14,7 +14,7 @@ the same math:
    ``"highest"``) and ``cuda_lane`` (the lane-layout kernel
    ``csrc/lane_chain.cu``, transposes around it included, as in
    ``lane_chain_build``). The bmm arms are yardsticks, not a port.
-2. **macro**: the c2 tick at B=4096 with ``backend="cuda"`` (the two
+2. **macro**: the c2 tick at B=4096 with ``backend="cuda"`` (the
    kernels) against ``backend="plain"`` (their plain PyTorch versions).
 
 Timing (:func:`_time`): ``inner`` = 50 chained, data-dependent
@@ -145,7 +145,7 @@ def micro(batch=16384, nx=7, chain=12, seed=0, device="cuda", lane=None):
 
 
 def macro(batch=4096, device="cuda"):
-    """The c2 tick through the two kernels against their plain versions.
+    """The c2 tick through the kernels against their plain versions.
     Each arm reports solves/s, kkt_max and its kernel launches."""
     require_cuda(device)
     out = {}
@@ -156,8 +156,7 @@ def macro(batch=4096, device="cuda"):
         r, _ = fleet.run_config(tick, init, batch, ticks=10, warmup=5)
         out[backend] = {
             "solves_per_s": r["solves_per_s"], "kkt_max": r["kkt_max"],
-            "launches": {"vde": solver.vde.launches,
-                         "lq_ipm": solver.qp.launches},
+            "launches": fleet.launches(solver),
         }
     return out
 

@@ -3,7 +3,8 @@
 Port of ``bench.py:70-202, 210-213, 303-455``. Every tick is the full unit
 of work: project each vehicle onto its arc and build its reference window,
 run one batched SQP-RTI solve (two kernel launches per Gauss-Newton
-iteration on a CUDA device), apply u0 to the plant and shift the warm start.
+iteration on a CUDA device, and one for the KKT defect), apply u0 to the
+plant (one launch) and shift the warm start.
 
 Scenario draws use ``numpy.random.default_rng(seed)`` exactly as the JAX
 package's bench does, so both packages drive the same fleet.
@@ -165,6 +166,17 @@ def run_config(tick, init, batch, ticks=20, warmup=5):
     return row, carry
 
 
+def launches(solver):
+    """Kernel launches of ``solver`` so far, by kernel."""
+    return {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches,
+            "rk4": solver.rk4.launches}
+
+
+# Launches of each kernel per tick on the cuda backend (one RTI iteration):
+# the sweep, the QP, and the RK4 map for the KKT defect and the plant step.
+LAUNCHES_PER_TICK = {"vde": 1, "lq_ipm": 1, "rk4": 2}
+
+
 def gate_failures(row):
     """Names of the c2 quality gates that ``row`` exceeds."""
     return [k for k, lim in GATES.items() if not row[k] <= lim]
@@ -256,6 +268,6 @@ def bench_latency(dynamics, p_of, n_nodes=30, qp_iters=12, reps=30,
         "p99_blocking": float(p99b),
         "host_link_floor_p50": float(np.percentile(floor, 50)),
         "budget": 20.0,
-        "launches": {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches},
+        "launches": launches(solver),
         "ticks": k_ticks * (reps + 1) + reps,
     }

@@ -115,12 +115,14 @@ class BicycleDynamics(nn.Module):
     """``f(x, u, p) = bicycle_dynamics(x, u, params, switch=p[0])``: the
     blend switch is the per-scenario stage parameter.
 
-    ``cuda_entry`` names the C entry of ``csrc/vde.cu`` that runs the VDE
-    kernel with this model's ``__device__`` functor, and ``cuda_params``
-    builds the parameter struct that entry takes by value.
+    ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
+    ``csrc/vde.cu`` that run the VDE kernel and its tangent-free RK4 kernel
+    with this model's ``__device__`` functor, and ``cuda_params`` builds
+    the parameter struct both take by value.
     """
 
     cuda_entry = "vde_bicycle"
+    cuda_rk4_entry = "rk4_bicycle"
 
     def __init__(self, params: BicycleParams = BicycleParams()):
         super().__init__()

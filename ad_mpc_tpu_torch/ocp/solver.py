@@ -3,8 +3,12 @@
 Each solve runs ``spec.sqp_iters`` Gauss-Newton iterations over the whole
 fleet. With ``backend="cuda"`` one iteration is two kernel launches:
 
-- the fused RK4 + forward-sensitivity sweep (``ops/cuda_vde.py``);
-- the fused fixed-iteration interior-point QP (``ops/cuda_lq.py``).
+- the fused RK4 + forward-sensitivity sweep (``ops/cuda_vde.py:VDE``);
+- the fused fixed-iteration interior-point QP (``ops/cuda_lq.py``);
+
+and the KKT defect of the returned iterate and :meth:`BatchedSQPSolver.F`
+(the fleet's plant step) are one launch each of the sweep's tangent-free
+RK4 kernel (``ops/cuda_vde.py:RK4``).
 
 ``backend="plain"`` runs their plain PyTorch versions instead, on any
 device; it is the counterpart of the JAX package's ``backend='xla'`` and
@@ -29,8 +33,7 @@ from ad_mpc_tpu_torch.ocp.spec import OCPSpec
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
 from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
-from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
-from ad_mpc_tpu_torch.ops.integrators import discretize
+from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.utils.math import yaw_wrap_reference
 
@@ -88,13 +91,6 @@ def load_iterate(path: str, device="cuda") -> SolverState:
                            us=torch.as_tensor(z["us"], device=device))
 
 
-def discrete_step(f, dt, rk4_steps, x, u, p):
-    """RK4 map of ``f(x, u, p)`` on batch-first tensors: x (..., nx),
-    u (..., nu), p (..., pd), broadcastable leading axes -> (..., nx)."""
-    F = discretize(lambda xx, uu: f(xx, uu, p.movedim(-1, 0)), dt, rk4_steps)
-    return F(x.movedim(-1, 0), u.movedim(-1, 0)).movedim(0, -1)
-
-
 class BatchedSQPSolver(nn.Module):
     """Fleet-scale SQP-RTI solver.
 
@@ -102,7 +98,7 @@ class BatchedSQPSolver(nn.Module):
         tensors (``x[i]`` is one state entry) with a per-scenario parameter
         vector of ``p_dim >= 1`` entries, e.g.
         :class:`ad_mpc_tpu_torch.models.bicycle.BicycleDynamics`.
-    :param backend: ``"cuda"`` (the two kernels), ``"plain"`` (their plain
+    :param backend: ``"cuda"`` (the kernels), ``"plain"`` (their plain
         versions) or ``"auto"`` (see :func:`resolve_backend`).
     """
 
@@ -131,14 +127,20 @@ class BatchedSQPSolver(nn.Module):
         build_on = device if backend == "cuda" else "cpu"
         self.vde = make_vde(dynamics, spec.dt, N, nx, nu, p_dim,
                             rk4_steps=spec.rk4_steps, device=build_on)
+        self.rk4 = make_rk4(dynamics, spec.dt, nx, nu, p_dim,
+                            rk4_steps=spec.rk4_steps, device=build_on)
         self.qp = make_lq_solver(N, nx, nu, Q, R, QN, u_bounds, x_bounds,
                                  iters=spec.qp_iters, reg=spec.levenberg,
                                  device=build_on)
         self.to(device)
 
     def F(self, x, u, p):
-        """Discrete dynamics on batch-first tensors (see :func:`discrete_step`)."""
-        return discrete_step(self.f, self.spec.dt, self.spec.rk4_steps, x, u, p)
+        """Discrete dynamics on batch-first tensors. The cuda backend takes
+        x (M, nx), u (M, nu), p (M, p_dim) (``ops/cuda_vde.py:RK4``); the plain
+        backend broadcasts leading axes (``integrators.discrete_step``)."""
+        if self.backend == "cuda":
+            return self.rk4(x, u, p)
+        return self.rk4.plain(x, u, p)
 
     @torch.no_grad()
     def solve(self, x0, yref_x, yref_u, params, state: SolverState) -> SolveResult:
@@ -178,7 +180,10 @@ class BatchedSQPSolver(nn.Module):
                                               lqr_fn=self.lqr_fn)
             xs, us = xs + dx, us + du
 
-        defect = self.F(xs[:, :-1], us, params[:, None]) - xs[:, 1:]
+        if self.backend == "cuda":
+            defect = self.rk4.defect(xs, us, params)
+        else:
+            defect = self.rk4.defect_plain(xs, us, params)
         kkt = torch.sqrt(torch.mean(defect**2, dim=(1, 2)))
         return SolveResult(us=us, xs=xs, state=SolverState(xs, us),
                            kkt_residual=kkt, alpha=alpha)

@@ -6,8 +6,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v -o build/kernels/<name>-<hash>.so <name>.cu
 
-The library name carries a hash of the source, so an edited source builds
-anew and an unchanged one is reused. ``-Xptxas -v`` (registers, spills) is
+The library name carries a hash of the source, of every header
+``csrc/*.cuh`` and of the flags, so an edited source or header builds anew
+and an unchanged one is reused. ``-Xptxas -v`` (registers, spills) is
 kept beside the library as ``<name>-<hash>.ptxas.txt``. No
 ``--use_fast_math``: the parity tolerances assume IEEE ``sinf``/``cosf``
 and division. Nothing is built at import; :func:`load` builds on first use
@@ -45,8 +46,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha1(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 

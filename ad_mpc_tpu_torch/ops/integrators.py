@@ -35,6 +35,13 @@ def discretize(f, dt, n_steps: int = 1):
     return F
 
 
+def discrete_step(f, dt, rk4_steps, x, u, p):
+    """RK4 map of ``f(x, u, p)`` on batch-first tensors: x (..., nx),
+    u (..., nu), p (..., pd), broadcastable leading axes -> (..., nx)."""
+    F = discretize(lambda xx, uu: f(xx, uu, p.movedim(-1, 0)), dt, rk4_steps)
+    return F(x.movedim(-1, 0), u.movedim(-1, 0)).movedim(0, -1)
+
+
 def rollout(F, x0, us):
     """Roll the discrete map over a control sequence: (nx,), (N, nu) ->
     states (N+1, nx)."""

@@ -8,7 +8,12 @@ Phases, each of which must pass:
    source, started together) and print the card and the build time;
 2. kernel phase VDE: the fused RK4 + sensitivity kernel at c2 shapes
    (B=16384, N=30) with the bicycle at switch 1 and 0.3, held against its
-   plain PyTorch version on the card at atol 2e-5;
+   plain PyTorch version on the card at atol 2e-5; its device time by
+   ``torch.profiler`` beside the CUDA-event time; then kernel phase RK4:
+   both modes of the sweep's tangent-free RK4 entry (the KKT defect over
+   B=16384, N=30, and the plant step over 16384 vehicles with u a strided
+   view) held against ``integrators.discrete_step`` at atol 2e-5, at
+   switch 1 and 0.3, with their device times;
 3. kernel phase LQ: the fused interior-point QP kernel on the QPs of the
    third c2 tick at B=16384 and at B=1024 (N=30, 12 iterations), held
    against the plain batched IPM at atol 3e-4 / rtol 1e-3 on dx and du in
@@ -19,8 +24,9 @@ Phases, each of which must pass:
    and the kernel's launch geometry is printed (scenarios and threads per
    block, shared bytes per block, resident blocks per SM);
 4. slice phase: the c2 fleet tick (``fleet.build_fleet``) at B=1024 and
-   16384, 5 warm-up and 20 timed ticks, with each kernel launched exactly
-   once per tick, the c2 quality gates, and RTI-vs-converged u0;
+   16384, 5 warm-up and 20 timed ticks, with the launches per tick of
+   ``fleet.LAUNCHES_PER_TICK`` (the sweep and the QP once, the RK4 map
+   twice), the c2 quality gates, and RTI-vs-converged u0;
 5. kernel phase lane chain: the lane-layout chained product (B=16384,
    nx=7, 12 links) held against its plain version and against 12 chained
    fp32 ``torch.bmm`` at 1e-5 of max |out|; its device time and that of
@@ -30,14 +36,14 @@ Phases, each of which must pass:
    from its float64 counterpart than SPREAD_FACTOR times the fp32 bmm
    arm's (one application is held at 1e-5 in phase 5), the lane kernel
    launched once per application, and the macro's kernel arm within the
-   c2 gates;
+   c2 gates with the tick's launches;
 7. long-horizon Riccati micro (``experiments.long_horizon``): the
    associative scan within 2e-3 of the sequential recursion at N=30 and
    128 (N=512 printed);
-8. c2-N40 at B=16384: 5 + 20 ticks, each kernel launched once per tick,
-   the c2 gates;
-9. the batch-1 latency row (``fleet.bench_latency``): printed; over the
-   20 ms budget is a warning, as in ``bench.py``.
+8. c2-N40 at B=16384: 5 + 20 ticks, the tick's launches, the c2 gates;
+9. the batch-1 latency row (``fleet.bench_latency``) with the tick's
+   launches: printed; over the 20 ms budget is a warning, as in
+   ``bench.py``.
 
 Each path of phases 4 and 6-9 starts with its kernels' launch counts at 0
 and reads them after. The script then prints a ``{"kernels": [...]}`` line
@@ -127,6 +133,18 @@ def device_ms(torch, fn, reps):
     return us / 1e3 / reps
 
 
+def zero_launches(solver):
+    """Set the launch counts of the solver's kernels to 0."""
+    solver.vde.launches = solver.qp.launches = solver.rk4.launches = 0
+
+
+def check_launches(fleet, launches, ticks, where):
+    """Each kernel launched ``fleet.LAUNCHES_PER_TICK`` times per tick."""
+    want = {k: n * ticks for k, n in fleet.LAUNCHES_PER_TICK.items()}
+    check(launches == want,
+          f"launches {launches} in {ticks} ticks {where}, expected {want}")
+
+
 def max_err(got, want, atol, rtol=0.0):
     """(max |got - want|, whether |got - want| <= atol + rtol |want| holds)."""
     d = (got - want).abs()
@@ -136,6 +154,7 @@ def max_err(got, want, atol, rtol=0.0):
 
 def phase_vde(torch, np, out):
     from ad_mpc_tpu_torch import fleet
+    from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
     from ad_mpc_tpu_torch.testing import random_traj
 
@@ -157,22 +176,74 @@ def phase_vde(torch, np, out):
               f"{switch}: max |err| {err:.3e} > 2e-5")
         rows[switch] = {
             "max_abs_err": err,
-            "ms": time_ms(torch, lambda: vde(xs, us, ps), 50),
+            "ms": device_ms(torch, lambda: vde(xs, us, ps), 50),
+            "events_ms": time_ms(torch, lambda: vde(xs, us, ps), 50),
             "plain_ms": time_ms(
                 torch, lambda: vde_plain(dyn, dt, 1, xs, us, ps), 3),
         }
         print(f"VDE switch={switch}: max|err| {err:.3e}, kernel "
-              f"{rows[switch]['ms']:.4f} ms, plain {rows[switch]['plain_ms']:.3f}"
-              f" ms, launches (comparison instance) {vde.launches}")
+              f"{rows[switch]['ms']:.5f} ms device ({rows[switch]['events_ms']:.5f}"
+              f" ms by events, back to back), plain "
+              f"{rows[switch]['plain_ms']:.3f} ms, launches (comparison "
+              f"instance) {vde.launches}")
     n_bytes = 4 * (xs.numel() + us.numel() + B + B * N * (nx * nx + nx * nu + nx))
     n_flops = B * N * vde_flops_per_stage(nx, nu, BICYCLE_DYN_FLOPS)
     bms, by = bound_ms(n_bytes, n_flops)
     print(f"VDE bound at B={B}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} "
           f"GFLOP -> {bms:.4f} ms ({by})")
     out["vde"] = {"cases": rows, "bytes": n_bytes, "flops": n_flops,
-                  "bound_ms": bms, "bound_by": by}
+                  "bound_ms": bms, "bound_by": by,
+                  "ptxas": _build.ptxas_report("vde")}
     return rows[1.0] | {"bound_ms": bms, "bound_by": by, "max_abs_err": max(
         rows[s]["max_abs_err"] for s in (1.0, 0.3))}
+
+
+def phase_rk4(torch, np, out):
+    from ad_mpc_tpu_torch import fleet
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.ops.integrators import discrete_step
+    from ad_mpc_tpu_torch.testing import random_traj
+
+    B, N, nx, nu, dt = 16384, 30, 7, 2, 0.05
+    dyn = fleet.dynamic_bicycle
+    rk4 = make_rk4(dyn, dt, nx, nu, 1, device="cuda")  # comparison instance
+    xs, us = random_traj(np.random.default_rng(4), B, N, nx, nu)
+    xs, us = torch.as_tensor(xs).cuda(), torch.as_tensor(us).cuda()
+    x, u = xs[:, 0].contiguous(), us[:, 0]  # u strided, as the plant step's
+    rows = {}
+    for switch in (1.0, 0.3):
+        ps = torch.full((B, 1), switch, device="cuda")
+        modes = {
+            "defect": (lambda: rk4.defect(xs, us, ps),
+                       lambda: discrete_step(dyn, dt, 1, xs[:, :-1], us,
+                                             ps[:, None]) - xs[:, 1:]),
+            "step": (lambda: rk4(x, u, ps),
+                     lambda: discrete_step(dyn, dt, 1, x, u, ps)),
+        }
+        for mode, (kernel, plain) in modes.items():
+            err, ok = max_err(kernel(), plain(), 2e-5)
+            check(ok, f"RK4 {mode} disagrees with discrete_step at switch "
+                  f"{switch}: max |err| {err:.3e} > 2e-5")
+            rows[mode, switch] = {
+                "max_abs_err": err, "ms": device_ms(torch, kernel, 50),
+                "plain_ms": time_ms(torch, plain, 5)}
+    bounds = {}
+    for mode, n_rows, n_in in (("defect", B * N, xs.numel() + us.numel()),
+                               ("step", B, B * (nx + nu))):
+        n_bytes = 4 * (n_in + B + n_rows * nx)
+        n_flops = n_rows * (4 * BICYCLE_DYN_FLOPS + 14 * nx)
+        bms, by = bound_ms(n_bytes, n_flops)
+        bounds[mode] = {"bytes": n_bytes, "flops": n_flops, "bound_ms": bms,
+                        "bound_by": by}
+        r = rows[mode, 1.0]
+        err = max(rows[mode, s]["max_abs_err"] for s in (1.0, 0.3))
+        print(f"RK4 {mode}: max|err| {err:.3e}, kernel {r['ms']:.5f} ms "
+              f"device, plain {r['plain_ms']:.3f} ms, bound {bms:.5f} ms "
+              f"({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP)")
+    out["rk4"] = {"cases": {f"{m}_{s}": r for (m, s), r in rows.items()},
+                  "bounds": bounds}
+    return rows["defect", 1.0] | bounds["defect"] | {"max_abs_err": max(
+        r["max_abs_err"] for r in rows.values())}
 
 
 def lq_case(torch, qp, args, strict):
@@ -330,13 +401,10 @@ def phase_slice(torch, out, card):
         tick, init, solver, _ = fleet.build_fleet(
             fleet.dynamic_bicycle, fleet.switch_on, n_nodes=30, qp_iters=12,
             sqp_iters=1, device="cuda")
-        solver.vde.launches = solver.qp.launches = 0
+        zero_launches(solver)
         row, carry = fleet.run_config(tick, init, B, ticks=TICKS, warmup=WARMUP)
-        launches = {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches}
-        row["launches"] = launches
-        for k, n in launches.items():
-            check(n == WARMUP + TICKS,
-                  f"{k} launched {n} times in {WARMUP + TICKS} ticks at B={B}")
+        launches = row["launches"] = fleet.launches(solver)
+        check_launches(fleet, launches, WARMUP + TICKS, f"at B={B}")
         bad = fleet.gate_failures(row)
         check(not bad, f"c2 gates failed at B={B}: "
               + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
@@ -443,8 +511,8 @@ def phase_mxu(torch, out):
     cuda_arm = macro["cuda"]
     check(cuda_arm["kkt_max"] <= fleet.GATES["kkt_max"],
           f"macro cuda arm kkt_max {cuda_arm['kkt_max']:.3e}")
-    check(cuda_arm["launches"] == {"vde": 15, "lq_ipm": 15}
-          and macro["plain"]["launches"] == {"vde": 0, "lq_ipm": 0},
+    check(cuda_arm["launches"] == {"vde": 15, "lq_ipm": 15, "rk4": 30}
+          and macro["plain"]["launches"] == {"vde": 0, "lq_ipm": 0, "rk4": 0},
           f"macro launches {macro}")
     print(f"MXU macro c2 B=4096: cuda {cuda_arm['solves_per_s']:.1f} solves/s "
           f"(kkt_max {cuda_arm['kkt_max']:.3e}), plain "
@@ -479,13 +547,10 @@ def phase_c2_n40(torch, out, card):
     tick, init, solver, _ = fleet.build_fleet(
         fleet.dynamic_bicycle, fleet.switch_on, n_nodes=40, qp_iters=12,
         device="cuda")
-    solver.vde.launches = solver.qp.launches = 0
+    zero_launches(solver)
     row, _ = fleet.run_config(tick, init, B, ticks=TICKS, warmup=WARMUP)
-    launches = {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches}
-    row["launches"] = launches
-    for k, n in launches.items():
-        check(n == WARMUP + TICKS,
-              f"{k} launched {n} times in {WARMUP + TICKS} ticks (c2-N40)")
+    launches = row["launches"] = fleet.launches(solver)
+    check_launches(fleet, launches, WARMUP + TICKS, "(c2-N40)")
     bad = fleet.gate_failures(row)
     check(not bad, "c2-N40 gates failed: "
           + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
@@ -500,9 +565,7 @@ def phase_latency(out):
     from ad_mpc_tpu_torch import fleet
 
     lat = fleet.bench_latency(fleet.dynamic_bicycle, fleet.switch_on)
-    for k, n in lat["launches"].items():
-        check(n == lat["ticks"],
-              f"{k} launched {n} times in {lat['ticks']} latency ticks")
+    check_launches(fleet, lat["launches"], lat["ticks"], "(latency)")
     check(all(lat[k] == lat[k] and lat[k] > 0 for k in (
         "p50_compute", "p99_compute", "p50_blocking", "p99_blocking",
         "host_link_floor_p50")), f"latency row {lat}")
@@ -548,6 +611,7 @@ def main(argv=None):
 
     out = {"card": card, "build_s": build_s}
     vde = phase_vde(torch, np, out)
+    rk4 = phase_rk4(torch, np, out)
     lq = phase_lq(torch, np, out)
     launches = phase_slice(torch, out, card)
     lane = phase_lane_chain(torch, out)
@@ -562,6 +626,14 @@ def main(argv=None):
          "launches": launches["vde"], "max_abs_err": vde["max_abs_err"],
          "ms": vde["ms"], "plain_ms": vde["plain_ms"],
          "bound_ms": vde["bound_ms"], "bound_by": vde["bound_by"],
+         "library_ms": None},
+        {"name": "rk4", "route": "cuda", "source": "ad_mpc_tpu_torch/csrc/vde.cu",
+         "replaces": "ad_mpc_tpu/ocp/solver.py:464 and bench.py:159 (the KKT "
+                     "defect and the plant step, which XLA fused in the "
+                     "jitted tick; no Pallas kernel)",
+         "launches": launches["rk4"], "max_abs_err": rk4["max_abs_err"],
+         "ms": rk4["ms"], "plain_ms": rk4["plain_ms"],
+         "bound_ms": rk4["bound_ms"], "bound_by": rk4["bound_by"],
          "library_ms": None},
         {"name": "lq_ipm", "route": "cuda",
          "source": "ad_mpc_tpu_torch/csrc/lq_ipm.cu",

@@ -9,7 +9,6 @@ decision is taken inside the ``cuda`` fixture, never at import.
 """
 
 import ctypes
-import re
 import subprocess
 
 import numpy as np
@@ -26,7 +25,8 @@ from ad_mpc_tpu_torch.ops.cuda_chain import (
     lane_chain_plain, make_lane_chain, to_lanes)
 from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
-from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
+from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde, vde_plain
+from ad_mpc_tpu_torch.ops.integrators import discrete_step
 from ad_mpc_tpu_torch.testing import BOUNDS, LQ_WEIGHTS, random_lq, random_traj
 
 pytestmark = pytest.mark.gpu
@@ -43,18 +43,69 @@ def cuda():
     return torch.device("cuda")
 
 
+def _traj(B, N, switch, device, seed=3):
+    xs, us = (torch.as_tensor(a, device=device) for a in
+              random_traj(np.random.default_rng(seed), B, N, 7, 2))
+    return xs, us, torch.full((B, 1), switch, device=device)
+
+
 @pytest.mark.parametrize("switch", [1.0, 0.3])
-def test_vde_kernel_matches_plain(cuda, switch):
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_vde_kernel_matches_plain(cuda, switch, B):
+    """B*N = 30 and 1110 rows: a single partial warp, and a ragged last
+    warp of the output tile."""
     N = 30
-    xs, us = (torch.as_tensor(a, device=cuda) for a in
-              random_traj(np.random.default_rng(3), RAGGED_B, N, 7, 2))
-    ps = torch.full((RAGGED_B, 1), switch, device=cuda)
+    xs, us, ps = _traj(B, N, switch, cuda)
     vde = make_vde(fleet.dynamic_bicycle, 0.05, N, 7, 2, 1, device=cuda)
     got = vde(xs, us, ps)
     want = vde_plain(fleet.dynamic_bicycle, 0.05, 1, xs, us, ps)
     assert vde.launches == 1
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("switch", [1.0, 0.3])
+def test_rk4_kernel_matches_plain(cuda, switch):
+    """Both modes of the tangent-free entry against ``discrete_step``; the
+    step takes u as the strided view ``us[:, 0]``, and the defect is the
+    sweep's c."""
+    N, dyn = 30, fleet.dynamic_bicycle
+    xs, us, ps = _traj(RAGGED_B, N, switch, cuda)
+    rk4 = make_rk4(dyn, 0.05, 7, 2, 1, device=cuda)
+    defect = rk4.defect(xs, us, ps)
+    step = rk4(xs[:, 0], us[:, 0], ps)
+    assert rk4.launches == 2 and defect.shape == (RAGGED_B, N, 7)
+    torch.testing.assert_close(
+        defect, discrete_step(dyn, 0.05, 1, xs[:, :-1], us, ps[:, None])
+        - xs[:, 1:], atol=2e-5, rtol=0)
+    torch.testing.assert_close(
+        step, discrete_step(dyn, 0.05, 1, xs[:, 0], us[:, 0], ps),
+        atol=2e-5, rtol=0)
+    c = make_vde(dyn, 0.05, N, 7, 2, 1, device=cuda)(xs, us, ps)[2]
+    torch.testing.assert_close(defect, c, atol=2e-5, rtol=0)
+
+
+def test_vde_and_rk4_repeat_their_bits(cuda):
+    xs, us, ps = _traj(RAGGED_B, 30, 1.0, cuda, seed=8)
+    vde = make_vde(fleet.dynamic_bicycle, 0.05, 30, 7, 2, 1, device=cuda)
+    rk4 = make_rk4(fleet.dynamic_bicycle, 0.05, 7, 2, 1, device=cuda)
+    for call in (lambda: vde(xs, us, ps), lambda: (rk4.defect(xs, us, ps),),
+                 lambda: (rk4(xs[:, 0], us[:, 0], ps),)):
+        first, second = call(), call()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert vde.launches == 2 and rk4.launches == 4
+
+
+def test_rk4_kernel_rejects_bad_input(cuda):
+    xs, us, ps = _traj(4, 6, 1.0, cuda)
+    rk4 = make_rk4(fleet.dynamic_bicycle, 0.05, 7, 2, 1, device=cuda)
+    with pytest.raises(ValueError):
+        rk4.defect(xs.double(), us, ps)
+    with pytest.raises(ValueError):
+        rk4.defect(xs[:, :-1], us, ps)
+    with pytest.raises(ValueError):
+        rk4(xs[:, 0], us[:, 0].T.contiguous().T, ps)  # last axis strided
+    assert rk4.launches == 0
 
 
 @pytest.mark.parametrize("N", [30, 10, 40])
@@ -109,16 +160,13 @@ extern "C" int run(const float* a, const float* b, long long n,
 
 
 def test_lq_division_matches_ieee(cuda):
-    """The kernel's branch-free fdiv and fsqrt give the bits of IEEE '/' and
-    sqrtf for normal operands with exponents in [-60, 60], the range of
-    the solver's values (2**26 random pairs)."""
-    src = (_build.CSRC / "lq_ipm.cu").read_text()
-    funcs = re.search(r"__device__ __forceinline__ float fdiv.*?\n}\n\n"
-                      r"__device__ __forceinline__ float fsqrt.*?\n}\n", src, re.S)
+    """The branch-free fdiv and fsqrt of ``csrc/ieee_div.cuh`` (the LQ and
+    VDE kernels' divisions) give the bits of IEEE '/' and sqrtf for normal
+    operands with exponents in [-60, 60], the range of the solver's values
+    (2**26 random pairs)."""
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu = _build.BUILD_DIR / "lq_division_check.cu"
-    cu.write_text("#include <cuda_runtime.h>\n#include <math.h>\n"
-                  + funcs.group(0) + DIV_CHECK)
+    cu.write_text(f'#include "{_build.CSRC / "ieee_div.cuh"}"\n' + DIV_CHECK)
     so = cu.with_suffix(".so")
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)],
                    check=True, capture_output=True)
@@ -154,8 +202,9 @@ def test_lq_kernel_rejects_bad_input(cuda):
 
 
 def test_fleet_tick_on_card_matches_plain(cuda):
-    """Three c2 ticks at N=30 through both kernels agree with the plain
-    path on the CPU, and each kernel launches once per tick."""
+    """Three c2 ticks at N=30 through the kernels agree with the plain path
+    on the CPU; per tick the sweep and the QP launch once and the RK4 map
+    twice (the KKT defect and the plant step)."""
     runs = {}
     for dev in ("cpu", cuda):
         tick, init, solver, _ = fleet.build_fleet(
@@ -165,7 +214,8 @@ def test_fleet_tick_on_card_matches_plain(cuda):
             carry, (kkt, lat) = tick(carry)
         runs[str(dev)] = (carry[0].cpu(), kkt.cpu(), float(lat), solver)
     (x_c, kkt_c, lat_c, _), (x_g, kkt_g, lat_g, solver) = runs.values()
-    assert solver.vde.launches == 3 and solver.qp.launches == 3
+    assert fleet.launches(solver) == {
+        k: 3 * n for k, n in fleet.LAUNCHES_PER_TICK.items()}
     torch.testing.assert_close(x_g, x_c, atol=1e-4, rtol=1e-5)
     assert abs(lat_g - lat_c) < 1e-4
     assert float(kkt_g.max()) < 3e-5

@@ -1,9 +1,11 @@
-"""Port parity: the fused linearization sweep (kernel 1's plain version).
+"""Port parity: the fused linearization sweep (kernel 1's plain version)
+and the tangent-free RK4 map.
 
-The port's ``make_vde(..., device="cpu")`` runs the plain PyTorch version
-that ``csrc/vde.cu`` is held against on the card. Here it is held against
-the JAX package's Pallas kernel (interpret mode) and its vmapped
-``integrators.linearize``, at the tolerance of ``tests/test_pallas_vde.py``.
+The port's ``make_vde(..., device="cpu")`` and ``make_rk4(...,
+device="cpu")`` run the plain PyTorch versions that ``csrc/vde.cu`` is held
+against on the card. Here they are held against the JAX package's Pallas
+kernel (interpret mode), its vmapped ``integrators.linearize`` and its
+``discretize`` map, at the tolerance of ``tests/test_pallas_vde.py``.
 """
 
 import re
@@ -19,8 +21,8 @@ from ad_mpc_tpu.models.bicycle import BicycleParams, bicycle_dynamics
 from ad_mpc_tpu.ops.integrators import discretize, linearize, rollout
 from ad_mpc_tpu.ops.pallas_vde import make_vde as jax_make_vde
 from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
-from ad_mpc_tpu_torch.ops import integrators
-from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
+from ad_mpc_tpu_torch.ops import _build, integrators
+from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde
 from ad_mpc_tpu_torch.testing import random_traj
 
 _BP = BicycleParams()
@@ -57,23 +59,82 @@ def test_vde_matches_jax(switch):
                                        atol=2e-5)
 
 
-def test_cuda_needs_a_functor():
+@pytest.mark.parametrize("switch", [1.0, 0.3], ids=["dynamic", "blend"])
+def test_rk4_defect_matches_jax(switch):
+    """The tangent-free map's defect is the sweep's c."""
+    B, N = 5, 6
+    xs, us = random_traj(np.random.default_rng(3), B, N, 7, 2)
+    ps = np.full((B, 1), switch, np.float32)
+
+    rk4 = make_rk4(BicycleDynamics(), DT, 7, 2, 1, device="cpu")
+    got = rk4.defect(*(torch.as_tensor(a) for a in (xs, us, ps)))
+    assert got.shape == (B, N, 7) and got.dtype == torch.float32
+    assert rk4.launches == 0
+
+    pallas = jax_make_vde(_jax_bicycle, DT, N, 7, 2, 1, block_b=8,
+                          interpret=True)
+    args = [jnp.asarray(a) for a in (xs, us, ps)]
+    for ref in (pallas(*args), _jax_xla_linearize(*args)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref[2]), atol=2e-5)
+
+
+@pytest.mark.parametrize("switch", [1.0, 0.3], ids=["dynamic", "blend"])
+def test_rk4_step_matches_jax(switch):
+    """One step per scenario, u taken from a strided view (``us[:, 1]``)."""
+    M, N = 9, 4
+    xs, us = random_traj(np.random.default_rng(6), M, N, 7, 2)
+    ps = np.full((M, 1), switch, np.float32)
+
+    rk4 = make_rk4(BicycleDynamics(), DT, 7, 2, 1, device="cpu")
+    got = rk4(torch.as_tensor(xs[:, 0]), torch.as_tensor(us)[:, 1],
+              torch.as_tensor(ps))
+    assert got.shape == (M, 7) and rk4.launches == 0
+
+    step = jax.vmap(lambda x, u, p: discretize(
+        lambda xx, uu: _jax_bicycle(xx, uu, p), DT, 1)(x, u))
+    want = step(jnp.asarray(xs[:, 0]), jnp.asarray(us[:, 1]), jnp.asarray(ps))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("make", [
+    lambda f: make_vde(f, DT, 4, 7, 2, 1, device="cuda"),
+    lambda f: make_rk4(f, DT, 7, 2, 1, device="cuda"),
+], ids=["vde", "rk4"])
+def test_cuda_needs_a_functor(make):
     """A dynamics with no CUDA functor is refused for the card up front."""
     with pytest.raises(NotImplementedError):
-        make_vde(lambda x, u, p: x, DT, 4, 7, 2, 1, device="cuda")
+        make(lambda x, u, p: x)
+
+
+def test_build_hashes_headers(tmp_path, monkeypatch):
+    """A kernel library's name changes when its source or a header under
+    ``csrc/`` does, so an edited header never reuses a stale build."""
+    for src in _build.CSRC.iterdir():
+        if src.suffix in (".cu", ".cuh"):
+            (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build._target("vde")
+    assert _build._target("vde") == before
+    header = tmp_path / "ieee_div.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = _build._target("vde")
+    assert after != before
+    (tmp_path / "vde.cu").write_text((tmp_path / "vde.cu").read_text() + "\n")
+    assert _build._target("vde") not in (before, after)
 
 
 def test_bicycle_functor_params():
-    """The bicycle names its C entry, and the struct it passes by value has
+    """The bicycle names its C entries, and the struct it passes by value has
     the fields of ``BicycleParamsC`` in ``csrc/vde.cu``, in that order."""
     src = (Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
            / "vde.cu").read_text()
     assert re.search(r"\bint vde_bicycle\(", src)
+    assert re.search(r"\bint rk4_bicycle\(", src)
     c_fields = re.search(r"struct BicycleParamsC \{.*?float ([^;]+);", src,
                          re.S)
     names = [n.strip() for n in c_fields.group(1).split(",")]
     f = BicycleDynamics()
-    assert f.cuda_entry == "vde_bicycle"
+    assert f.cuda_entry == "vde_bicycle" and f.cuda_rk4_entry == "rk4_bicycle"
     params = f.cuda_params()
     assert [n for n, _ in params._fields_] == names
     want = [_BP.mass, _BP.l_f, _BP.l_r, _BP.iz, _BP.cf, _BP.cr,
