@@ -19,9 +19,11 @@ the same math:
 
 Timing (:func:`_time`): ``inner`` = 50 chained, data-dependent
 applications with a per-scenario renormalisation between them form one
-block; the number of blocks per round is calibrated to about ``target_s``
-of device time; each round is timed by CUDA events; the minimum over
-``rounds`` rounds and the spread max/min are reported.
+block, captured once per arm in a CUDA graph, the counterpart of the JAX
+micro's jitted ``fori_loop`` (``mxu_riccati.py:83-87``); the number of
+replays per round is calibrated to about ``target_s`` of device time; each
+round is timed by CUDA events; the minimum over ``rounds`` rounds and the
+spread max/min are reported.
 
     python -m ad_mpc_tpu_torch.experiments.mxu_riccati [--out PATH]
 """
@@ -30,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,29 +61,48 @@ def _block(fn, a, x, inner=INNER):
     return x
 
 
-def _time(fn, a, x0, *, inner=INNER, rounds=5, target_s=0.6):
+class Timing(NamedTuple):
+    s: float  # device seconds per application, min over rounds
+    spread: float  # max / min over rounds
+    ref: torch.Tensor  # output of the first block of ``inner`` applications from x0
+    replays: int  # graph replays made
+    captured: int | None  # launches of ``counter`` recorded in the graph
+
+
+def _time(fn, a, x0, *, inner=INNER, rounds=5, target_s=0.6, counter=None):
     """Device time of one application of ``fn(a, x)``.
 
-    Returns (seconds per application [min over rounds], spread max/min over
-    rounds, output of the first block of ``inner`` applications from x0,
-    number of applications made)."""
+    One block of ``inner`` applications, its output copied back into its
+    input, is captured in a CUDA graph after one warm-up block on a side
+    stream (as PyTorch asks); the warm-up block from x0 is the accuracy
+    probe. Each round replays the graph, chaining the blocks as the JAX
+    micro does, between two CUDA events, so the host's launch rate drops
+    out. ``counter`` (the lane-chain wrapper) gives the launches recorded at
+    capture; replays do not pass through the wrapper."""
     block = lambda x: _block(fn, a, x, inner)
-    ref = block(x0)  # warm-up and accuracy probe
-    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ref = block(x0)
+    torch.cuda.current_stream().wait_stream(side)
+    x = torch.empty_like(x0)
+    before = counter.launches if counter is not None else 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x.copy_(block(x))
+    captured = counter.launches - before if counter is not None else None
+    x.copy_(ref)
 
-    def round_time(n, x):
+    def round_time(n):
         with DeviceWindow() as w:
             for _ in range(n):
-                x = block(x)
-        return w.s, x
+                graph.replay()
+        return w.s
 
-    t_cal, x = round_time(2, ref)
+    t_cal = round_time(2)
     n = max(int(target_s / max(t_cal / 2, 1e-5)), 2)
-    ts = []
-    for _ in range(rounds):
-        t, x = round_time(n, x)
-        ts.append(t / (n * inner))
-    return min(ts), max(ts) / min(ts), ref, inner * (3 + rounds * n)
+    ts = [round_time(n) / (n * inner) for _ in range(rounds)]
+    return Timing(min(ts), max(ts) / min(ts), ref, 2 + rounds * n, captured)
 
 
 def bmm_chain(a, x, chain):
@@ -101,8 +123,10 @@ def inputs(batch, nx, seed, device):
 
 def micro(batch=16384, nx=7, chain=12, seed=0, device="cuda", lane=None):
     """The three arms of the chained product. ``lane`` is the lane-chain
-    wrapper to launch (default: a new one); its ``launches`` count this
-    run's launches when the caller zeroes it first.
+    wrapper to launch (default: a new one). Its ``launches`` grow by the
+    warm-up block and the captured block, ``INNER`` each;
+    ``cuda_lane_applications`` are those made by graph replay, one kernel
+    each: ``cuda_lane_captured_launches`` x ``cuda_lane_replays``.
 
     ``max_rel_diff_vs_f32`` compares the lane and fp32 arms after the
     first block of ``INNER`` applications, as the JAX micro does. Over 600
@@ -116,31 +140,34 @@ def micro(batch=16384, nx=7, chain=12, seed=0, device="cuda", lane=None):
         lane = make_lane_chain(nx, chain, device)
     arm = lambda a, x: bmm_chain(a, x, chain)
     with tf32(True):
-        t_tf32, sp_tf32, o_tf32, _ = _time(arm, A, X)
+        tf = _time(arm, A, X)
     with tf32(False):
-        t_f32, sp_f32, o1, _ = _time(arm, A, X)
-        t_lane, sp_lane, o2, n_lane = _time(lane, A, X)
+        f32 = _time(arm, A, X)
+        ln = _time(lane, A, X, counter=lane)
+    o1, o2 = f32.ref, ln.ref
     scale = float(o1.abs().max()) + 1e-12
     o64 = _block(arm, A.double(), X.double())
     vs64 = lambda o: float((o.double() - o64).abs().max() / o64.abs().max())
     return {
         "device": card(),
-        "spread_max_over_min": {"bmm_tf32": sp_tf32, "bmm_f32": sp_f32,
-                                "lane": sp_lane},
+        "spread_max_over_min": {"bmm_tf32": tf.spread, "bmm_f32": f32.spread,
+                                "lane": ln.spread},
         "batch": batch, "nx": nx, "chain": chain, "flops": flops,
-        "bmm_tf32_ms": 1e3 * t_tf32,
-        "bmm_tf32_gflops": flops / t_tf32 / 1e9,
-        "bmm_f32_ms": 1e3 * t_f32,
-        "bmm_f32_gflops": flops / t_f32 / 1e9,
-        "cuda_lane_ms": 1e3 * t_lane,
-        "cuda_lane_gflops": flops / t_lane / 1e9,
-        "cuda_lane_pct_fp32_peak": 100 * flops / t_lane / H100_FP32_FLOP_PER_S,
-        "cuda_lane_applications": n_lane,
+        "bmm_tf32_ms": 1e3 * tf.s,
+        "bmm_tf32_gflops": flops / tf.s / 1e9,
+        "bmm_f32_ms": 1e3 * f32.s,
+        "bmm_f32_gflops": flops / f32.s / 1e9,
+        "cuda_lane_ms": 1e3 * ln.s,
+        "cuda_lane_gflops": flops / ln.s / 1e9,
+        "cuda_lane_pct_fp32_peak": 100 * flops / ln.s / H100_FP32_FLOP_PER_S,
+        "cuda_lane_captured_launches": ln.captured,
+        "cuda_lane_replays": ln.replays,
+        "cuda_lane_applications": INNER * ln.replays,
         "max_rel_diff_vs_f32": float((o1 - o2).abs().max()) / scale,
-        "tf32_max_rel_diff_vs_f32": float((o1 - o_tf32).abs().max()) / scale,
+        "tf32_max_rel_diff_vs_f32": float((o1 - tf.ref).abs().max()) / scale,
         "cuda_lane_rel_err_vs_f64": vs64(o2),
         "bmm_f32_rel_err_vs_f64": vs64(o1),
-        "bmm_tf32_rel_err_vs_f64": vs64(o_tf32),
+        "bmm_tf32_rel_err_vs_f64": vs64(tf.ref),
     }
 
 

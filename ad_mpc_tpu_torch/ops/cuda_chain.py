@@ -3,8 +3,10 @@ wrapper and plain version.
 
 Replaces ``ad_mpc_tpu/experiments/mxu_riccati.py:135`` ``kernel`` (built by
 ``lane_chain_build`` inside ``micro``). The kernel is ``csrc/lane_chain.cu``:
-one thread per scenario applies X <- A @ X ``chain`` times with A, X and the
-new X in registers, reading the batch-innermost (nx*nx, B) layout.
+each scenario is split by column, warp k of a block carrying column k of
+X <- A @ X through all ``chain`` links for 32 scenarios (one per lane), on
+the batch-innermost (nx*nx, B) layout. :func:`chain_geometry` mirrors its
+launch.
 
 The plain version, :func:`lane_chain_plain`, repeats the Pallas body's
 arithmetic entry by entry on (nx*nx, B) tensors. The wrapper runs it only
@@ -14,12 +16,27 @@ for CPU tensors; for CUDA tensors it launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from ad_mpc_tpu_torch.ops import _build
 
 NX, CHAIN = 7, 12  # the one instance compiled in csrc/lane_chain.cu
+LANES = 32  # scenarios per block: one per lane of each column's warp
+
+
+class Geometry(NamedTuple):
+    scenarios: int  # per block
+    threads: int  # per block: a warp per column
+    block_bytes: int  # shared bytes per block (A is read from global memory)
+    blocks: int
+
+
+def chain_geometry(batch, nx=NX):
+    """The launch of ``csrc/lane_chain.cu`` for ``batch`` scenarios: one
+    block of ``nx`` warps per ``LANES`` scenarios, the last one ragged."""
+    return Geometry(LANES, nx * LANES, 0, -(-batch // LANES))
 
 
 def _lib():
@@ -28,6 +45,8 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.lane_chain.argtypes = [P, P, P, I, I, I, P]
         lib.lane_chain.restype = I
+        lib.lane_chain_occupancy.argtypes = [I, I]
+        lib.lane_chain_occupancy.restype = I
         lib.error_string.argtypes = [I]
         lib.error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -67,12 +86,23 @@ class LaneChain:
     ``__call__(a, x)`` takes float32 tensors in the lane layout (nx*nx, B)
     and returns the same layout, or batch-first (B, nx, nx) tensors, which
     it transposes around the kernel as ``lane_chain_build`` does
-    (``mxu_riccati.py:150-151, 163``). ``launches`` counts kernel launches.
+    (``mxu_riccati.py:150-151, 163``). ``launches`` counts kernel launches
+    made through the wrapper; the replays of a CUDA graph that captured a
+    launch do not pass through it.
     """
 
     def __init__(self, nx=NX, chain=CHAIN):
         self.nx, self.chain = nx, chain
         self.launches = 0
+
+    def occupancy(self):
+        """Blocks of the kernel resident on one SM of the card, by
+        ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+        lib = _lib()
+        n = lib.lane_chain_occupancy(self.nx, self.chain)
+        if n < 0:
+            raise RuntimeError(f"lane_chain_occupancy: {lib.error_string(-n).decode()}")
+        return n
 
     def __call__(self, a, x):
         if a.dim() == 3:

@@ -29,14 +29,17 @@ Phases, each of which must pass:
    twice), the c2 quality gates, and RTI-vs-converged u0;
 5. kernel phase lane chain: the lane-layout chained product (B=16384,
    nx=7, 12 links) held against its plain version and against 12 chained
-   fp32 ``torch.bmm`` at 1e-5 of max |out|; its device time and that of
-   the bmm chain (``library_ms``) by ``torch.profiler``;
-6. MXU micro and macro (``experiments.mxu_riccati``): every output finite,
-   the lane arm's output after 50 renormalised applications no further
-   from its float64 counterpart than SPREAD_FACTOR times the fp32 bmm
-   arm's (one application is held at 1e-5 in phase 5), the lane kernel
-   launched once per application, and the macro's kernel arm within the
-   c2 gates with the tick's launches;
+   fp32 ``torch.bmm`` at 1e-5 of max |out|, a relaunch repeating its
+   bits; its launch geometry (blocks, threads and shared bytes per block,
+   resident blocks per SM); its device time and that of the bmm chain
+   (``library_ms``) by ``torch.profiler``;
+6. MXU micro and macro (``experiments.mxu_riccati``, each arm timed by
+   CUDA-graph replay): every output finite, the lane arm's output after
+   50 renormalised applications no further from its float64 counterpart
+   than SPREAD_FACTOR times the fp32 bmm arm's (one application is held
+   at 1e-5 in phase 5), one kernel launch captured per application and
+   captured launches x replays equal to the applications reported, and
+   the macro's kernel arm within the c2 gates with the tick's launches;
 7. long-horizon Riccati micro (``experiments.long_horizon``): the
    associative scan within 2e-3 of the sequential recursion at N=30 and
    128 (N=512 printed);
@@ -57,6 +60,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -429,13 +433,13 @@ def phase_lane_chain(torch, out):
     from ad_mpc_tpu_torch.experiments.mxu_riccati import bmm_chain, inputs
     from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.ops.cuda_chain import (
-        from_lanes, lane_chain_plain, make_lane_chain, to_lanes)
+        chain_geometry, from_lanes, lane_chain_plain, make_lane_chain, to_lanes)
 
     B, nx, chain = 16384, 7, 12
     lane = make_lane_chain(nx, chain, device="cuda")  # comparison instance
     A, X = inputs(B, nx, 0, "cuda")
     a, x = to_lanes(A), to_lanes(X)
-    got = lane(a, x)
+    got, again = lane(a, x), lane(a, x)
     want = lane_chain_plain(a, x, chain)
     lib = bmm_chain(A, X, chain)  # TF32 is off
     torch.cuda.synchronize()
@@ -447,6 +451,13 @@ def phase_lane_chain(torch, out):
           f"> 1e-5 x {scale:.3e}")
     check(err_lib <= 1e-5 * scale,
           f"lane_chain disagrees with the fp32 bmm chain: {err_lib:.3e}")
+    check(torch.equal(got, again), "lane_chain: a relaunch changed its bits")
+    geo = chain_geometry(B, nx)
+    per_sm = lane.occupancy()
+    print(f"lane_chain geometry: {geo.blocks} blocks of {geo.threads} threads "
+          f"({geo.scenarios} scenarios, a warp per column), {geo.block_bytes} "
+          f"shared bytes per block, {per_sm} resident per SM "
+          f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     n_bytes = 3 * B * nx * nx * 4
     n_flops = 2 * B * nx**3 * chain
     bms, by = bound_ms(n_bytes, n_flops)
@@ -465,8 +476,12 @@ def phase_lane_chain(torch, out):
         "library_ms": device_ms(torch, lambda: bmm_chain(A, X, chain), 50),
         "library_tf32_ms": tf32_ms,
         "bytes": n_bytes, "flops": n_flops, "bound_ms": bms, "bound_by": by,
+        "geometry": geo._asdict(), "blocks_per_sm": per_sm,
         "ptxas": _build.ptxas_report("lane_chain"),
     }
+    print(f"ptxas lane_chain:\n{row['ptxas']}")
+    spills = re.findall(r"(\d+) bytes spill (?:stores|loads)", row["ptxas"])
+    check(all(n == "0" for n in spills), "lane_chain spills registers")
     print(f"lane_chain B={B} chain={chain}: max|err| {err:.3e} ({err / scale:.2e}"
           f" of max|out|; vs fp32 bmm {err_lib / scale:.2e}); kernel "
           f"{row['ms']:.5f} ms device ({row['events_ms']:.5f} ms by events, "
@@ -495,9 +510,15 @@ def phase_mxu(torch, out):
     check(lane64 <= SPREAD_FACTOR * bmm64,
           f"lane arm {lane64:.3e} from float64 > {SPREAD_FACTOR} x the fp32 "
           f"bmm arm's {bmm64:.3e}")
-    check(launches == micro["cuda_lane_applications"],
-          f"lane_chain launched {launches} times for "
+    captured, replays = micro["cuda_lane_captured_launches"], micro["cuda_lane_replays"]
+    check(captured == mxu_riccati.INNER
+          and captured * replays == micro["cuda_lane_applications"],
+          f"lane_chain: {captured} launches captured for a block of "
+          f"{mxu_riccati.INNER} applications, x {replays} replays, for "
           f"{micro['cuda_lane_applications']} applications")
+    check(launches == mxu_riccati.INNER + captured,
+          f"lane_chain launched {launches} times through the wrapper, "
+          f"expected the warm-up block and the capture ({2 * mxu_riccati.INNER})")
     print(f"MXU micro: per application bmm TF32 {micro['bmm_tf32_ms']:.5f} ms, "
           f"bmm fp32 {micro['bmm_f32_ms']:.5f} ms, cuda_lane "
           f"{micro['cuda_lane_ms']:.5f} ms ({micro['cuda_lane_gflops']:.1f} "
@@ -506,7 +527,9 @@ def phase_mxu(torch, out):
           f"{micro['tf32_max_rel_diff_vs_f32']:.2e}; from float64: lane "
           f"{lane64:.2e}, bmm fp32 {bmm64:.2e}, bmm TF32 "
           f"{micro['bmm_tf32_rel_err_vs_f64']:.2e}; spread "
-          f"{micro['spread_max_over_min']}; lane_chain launches {launches}")
+          f"{micro['spread_max_over_min']}; lane_chain launches {launches} "
+          f"({captured} captured, replayed {replays} times: "
+          f"{micro['cuda_lane_applications']} applications)")
     macro = mxu_riccati.macro()
     cuda_arm = macro["cuda"]
     check(cuda_arm["kkt_max"] <= fleet.GATES["kkt_max"],

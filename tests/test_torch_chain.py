@@ -11,6 +11,8 @@ runs it off a TPU.
 """
 
 import functools
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -24,8 +26,10 @@ import bench
 from ad_mpc_tpu.experiments.mxu_riccati import _renorm as jax_renorm
 from ad_mpc_tpu_torch import bench as port_bench
 from ad_mpc_tpu_torch.experiments import mxu_riccati, tf32
+from ad_mpc_tpu_torch.ops import cuda_chain
 from ad_mpc_tpu_torch.ops.cuda_chain import (
-    LaneChain, from_lanes, lane_chain_plain, make_lane_chain, to_lanes)
+    LaneChain, chain_geometry, from_lanes, lane_chain_plain, make_lane_chain,
+    to_lanes)
 
 B, NX, CHAIN = 512, 7, 12
 
@@ -151,6 +155,28 @@ def test_lane_chain_needs_its_instance_on_the_card():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make_lane_chain(device="cuda")
     assert isinstance(make_lane_chain(nx=4, chain=3, device="cpu"), LaneChain)
+
+
+@pytest.mark.parametrize("batch", [1, 31, 32, 33, 37, 1000, 16384])
+def test_chain_geometry_covers_every_batch(batch):
+    """One block per 32 scenarios: the blocks cover the batch, and only the
+    last may be ragged (B < 32 is one ragged block)."""
+    geo = chain_geometry(batch)
+    assert geo.threads == 7 * 32 and geo.block_bytes == 0
+    assert (geo.blocks - 1) * geo.scenarios < batch <= geo.blocks * geo.scenarios
+
+
+def test_chain_geometry_matches_source():
+    """``chain_geometry`` mirrors the constants and the grid of
+    ``csrc/lane_chain.cu``."""
+    src = (Path(cuda_chain.__file__).resolve().parents[1] / "csrc"
+           / "lane_chain.cu").read_text()
+    const = dict(re.findall(r"constexpr int (LC_\w+) = (\d+);", src))
+    assert (int(const["LC_NX"]), int(const["LC_CHAIN"]), int(const["LC_LANES"])) == (
+        cuda_chain.NX, cuda_chain.CHAIN, cuda_chain.LANES)
+    assert "LC_THREADS = LC_NX * LC_LANES" in src
+    assert "grid = (unsigned)((batch + LC_LANES - 1) / LC_LANES)" in src
+    assert chain_geometry(16384).blocks == 512
 
 
 @pytest.mark.parametrize("N,flops", [(30, 861_240), (40, 1_148_320)])

@@ -22,7 +22,7 @@ from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
 from ad_mpc_tpu_torch.ops.cuda_chain import (
-    lane_chain_plain, make_lane_chain, to_lanes)
+    chain_geometry, lane_chain_plain, make_lane_chain, to_lanes)
 from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde, vde_plain
@@ -239,9 +239,10 @@ def test_solver_checks_tf32(cuda):
     assert solver.solve(*args).us.shape == (2, 10, 2)
 
 
-@pytest.mark.parametrize("B", [16384, 1000])
+@pytest.mark.parametrize("B", [16384, 1000, 37, 1])
 def test_lane_chain_kernel_matches_plain(cuda, B):
-    """B=1000 leaves a ragged last block of 128 threads."""
+    """A block carries 32 scenarios: B=1000 and 37 leave a ragged last
+    block, B=1 a single lane."""
     A, X = mxu_riccati.inputs(B, 7, 0, cuda)
     a, x = to_lanes(A), to_lanes(X)
     lane = make_lane_chain(device=cuda)
@@ -251,6 +252,44 @@ def test_lane_chain_kernel_matches_plain(cuda, B):
     assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
     torch.testing.assert_close(lane(A, X), mxu_riccati.bmm_chain(A, X, 12),
                                atol=1e-5 * float(want.abs().max()), rtol=0)
+
+
+def test_lane_chain_repeats_its_bits(cuda):
+    A, X = mxu_riccati.inputs(RAGGED_B, 7, 1, cuda)
+    a, x = to_lanes(A), to_lanes(X)
+    lane = make_lane_chain(device=cuda)
+    assert torch.equal(lane(a, x), lane(a, x)) and lane.launches == 2
+
+
+def test_lane_chain_graph_replay_matches_eager(cuda):
+    """A launch captured in a CUDA graph (as the MXU micro times it) gives
+    the eager launch's bits on every replay; only the capture counts."""
+    A, X = mxu_riccati.inputs(1000, 7, 2, cuda)
+    a, x = to_lanes(A), to_lanes(X)
+    lane = make_lane_chain(device=cuda)
+    eager = lane(a, x)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        lane(a, x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = lane(a, x)
+    assert lane.launches == 3
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert lane.launches == 3
+
+
+def test_lane_chain_grid_is_one_wave(cuda):
+    """At the micro's B=16384 every block of the launch is resident at once."""
+    lane = make_lane_chain(device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert lane.occupancy() * sms >= chain_geometry(16384).blocks
 
 
 def test_assoc_riccati_on_card_matches_sequential(cuda):
