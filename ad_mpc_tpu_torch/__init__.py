@@ -1,15 +1,18 @@
 """PyTorch/CUDA port of :mod:`ad_mpc_tpu` for NVIDIA Hopper (H100).
 
 The port runs the batched SQP-RTI fleet control tick (bench config c2:
-dynamic bicycle, N=30 and the reference's N=40, nx=7, nu=2) and the
-bench's Riccati-algebra rows through three CUDA C++ kernels written by
-hand for ``sm_90a``:
+dynamic bicycle, N=30 and the reference's N=40, nx=7, nu=2; bench config
+c5: the quadrotor, nx=13, nu=4, N=10, two Gauss-Newton iterations,
+``experiments/quad_fleet.py``) and the bench's Riccati-algebra rows
+through three CUDA C++ kernels written by hand for ``sm_90a``:
 
-- ``csrc/vde.cu``: the fused RK4 + forward-sensitivity sweep
-  (replaces ``ad_mpc_tpu/ops/pallas_vde.py:_vde_kernel``);
+- ``csrc/vde.cu``: the fused RK4 + forward-sensitivity sweep, one functor
+  per model (bicycle, quadrotor) (replaces
+  ``ad_mpc_tpu/ops/pallas_vde.py:_vde_kernel``);
 - ``csrc/lq_ipm.cu``: the fused fixed-iteration interior-point QP with its
-  Riccati recursion (replaces ``ad_mpc_tpu/ops/pallas_lq.py:_lq_kernel_rolled``
-  and the stage-unrolled ``_lq_kernel``);
+  Riccati recursion, at 7x2 and 13x4 (replaces
+  ``ad_mpc_tpu/ops/pallas_lq.py:_lq_kernel_rolled`` and the stage-unrolled
+  ``_lq_kernel``);
 - ``csrc/lane_chain.cu``: the chained batched 7x7 product of the MXU
   micro (replaces ``ad_mpc_tpu/experiments/mxu_riccati.py:kernel``).
 

@@ -5,14 +5,17 @@ paths are ported.
 
 Rows: the c2 fleet tick at B=256/1024/4096/16384; c2-N40 (the reference's
 N=40, tf=2 s dimensions) at B=1024/4096/16384; RTI against a converged
-solve on the B=1024 fleet; the batch-1 latency row against the 20 ms
-budget; the lane-chain micro (``experiments.mxu_riccati.micro``) and the
-long-horizon Riccati micro (``experiments.long_horizon.micro``). Every c2
-row gets the analytic operations per solve and its share of the FP32 peak,
-and is held to the c2 quality gates.
+solve on the B=1024 fleet; the c5 quadrotor fleet
+(``experiments.quad_fleet``: nx=13, nu=4, N=10, two Gauss-Newton
+iterations) at B=256/1024/4096/16384 with 20 warm-up ticks, and its RTI
+row on the B=256 fleet; the batch-1 latency row against the 20 ms budget;
+the lane-chain micro (``experiments.mxu_riccati.micro``) and the
+long-horizon Riccati micro (``experiments.long_horizon.micro``). Every
+fleet row gets the analytic operations per solve and its share of the FP32
+peak, and is held to its config's quality gates.
 
-Not ported, so not here: configs c3-c6, the deployment loop and the
-shard-invariance row. The result goes to ``--out`` only; the last line of
+Not ported, so not here: configs c3, c4 and c6, the deployment loop and
+the shard-invariance row. The result goes to ``--out`` only; the last line of
 standard output is a one-line summary. Exits 1 when a gate fails or a row
 raises.
 """
@@ -26,15 +29,19 @@ import sys
 import torch
 
 from ad_mpc_tpu_torch import fleet
-from ad_mpc_tpu_torch.experiments import card, require_cuda, tf32
+from ad_mpc_tpu_torch.experiments import card, quad_fleet, require_cuda, tf32
 
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
 
-# The c2 quality gates of ``bench.py:473-476``, by config-name prefix.
-GATES = {"c2_": fleet.GATES}
+# The quality gates of ``bench.py:473-483``, by config-name prefix, and the
+# RTI-vs-converged gates of ``bench.py:493-497`` by result key.
+GATES = {"c2_": fleet.GATES, "c5_": quad_fleet.GATES}
+RTI_GATES = {"rti_vs_converged_u0": fleet.RTI_GATE,
+             "c5_rti_vs_converged_u0": quad_fleet.RTI_GATE}
 
 # Hand-counted operations of the continuous dynamics (``bench.py:523-529``).
-DYN_FLOPS = {"c2_": 90}  # blended-tire bicycle
+DYN_FLOPS = {"c2_": 90,  # blended-tire bicycle
+             "c5_": 150}  # entrywise quaternion quad
 
 
 def _gates_for(cfg_name):
@@ -56,15 +63,24 @@ def analytic_flops_per_solve(N, nx, nu, qp_iters, sqp_iters, dyn_flops):
     return sqp_iters * (N * vde + ipm) + N * rk4
 
 
+def solve_dims(name):
+    """(N, nx, nu, qp_iters, sqp_iters) of a fleet row's deployed solve.
+    The reference's roofline passes one Gauss-Newton iteration for c5
+    (``bench.py:559``) though its tick runs ``QUAD_SQP_ITERS``; here the
+    count is the tick's."""
+    if name.startswith("c5_"):
+        return 10, 13, 4, 18, quad_fleet.QUAD_SQP_ITERS
+    return (40 if "_N40_" in name else 30), 7, 2, 12, 1
+
+
 def annotate_roofline(detail):
     """Attach operations per solve, achieved GFLOP/s and the share of the
-    H100's FP32 peak to every c2 row (in place)."""
+    H100's FP32 peak to every fleet row (in place)."""
     for name, row in detail["configs"].items():
         dyn = next((v for k, v in DYN_FLOPS.items() if name.startswith(k)), None)
         if dyn is None or "solves_per_s" not in row:
             continue
-        N = 40 if "_N40_" in name else 30
-        fl = analytic_flops_per_solve(N, 7, 2, 12, 1, dyn)
+        fl = analytic_flops_per_solve(*solve_dims(name), dyn)
         ach = fl * row["solves_per_s"]
         row["flops_per_solve"] = fl
         row["achieved_gflops"] = ach / 1e9
@@ -78,9 +94,10 @@ def gate_failures(detail):
         for key, lim in _gates_for(cfg_name).items():
             if not r[key] <= lim:
                 failures.append(f"{cfg_name}.{key}={r[key]:.3e}>{lim}")
-    d_u0 = detail.get("rti_vs_converged_u0")
-    if d_u0 is not None and not d_u0 <= fleet.RTI_GATE:
-        failures.append(f"rti_vs_converged_u0={d_u0:.3e}>{fleet.RTI_GATE}")
+    for key, lim in RTI_GATES.items():
+        d_u0 = detail.get(key)
+        if d_u0 is not None and not d_u0 <= lim:
+            failures.append(f"{key}={d_u0:.3e}>{lim}")
     for name, err in detail["errors"].items():
         failures.append(f"{name} raised: {err[:120]}")
     return failures
@@ -128,6 +145,19 @@ def run(log=lambda s: print(s, file=sys.stderr)):
         log("# c2-N40: " + " ".join(f"b{b} {r['solves_per_s']:.0f}/s"
                                     for b, r in rows.items()))
 
+    def run_c5():
+        tick, init, _, _ = quad_fleet.build_quad_fleet()
+        rows, carry_q = {}, None
+        for b in (256, 1024, 4096, 16384):
+            rows[b], c = fleet.run_config(tick, init, b, warmup=20)
+            detail["configs"][f"c5_quad_b{b}"] = rows[b]
+            if b == 256:
+                carry_q = c
+        log("# c5 quad N=10: " + " ".join(f"b{b} {r['solves_per_s']:.0f}/s"
+                                         for b, r in rows.items()))
+        detail["c5_rti_vs_converged_u0"] = quad_fleet.rti_vs_converged_quad(
+            carry_q)
+
     def run_lat():
         lat = fleet.bench_latency(fleet.dynamic_bicycle, fleet.switch_on)
         detail["latency_ms"] = lat
@@ -147,6 +177,7 @@ def run(log=lambda s: print(s, file=sys.stderr)):
                 fleet.dynamic_bicycle, fleet.switch_on, carry))
             if d_u0 is not None:
                 detail["rti_vs_converged_u0"] = d_u0
+        guarded("c5_quad", run_c5)
         guarded("latency", run_lat)
         detail["mxu_riccati_micro"] = guarded("mxu_riccati", mxu_riccati.micro)
         detail["long_horizon_riccati"] = guarded("long_horizon_riccati",
@@ -154,7 +185,7 @@ def run(log=lambda s: print(s, file=sys.stderr)):
     annotate_roofline(detail)
     failures = gate_failures(detail)
     detail["quality_gates"] = {"pass": not failures, "failures": failures,
-                               "gates": GATES, "rti_gate": fleet.RTI_GATE}
+                               "gates": GATES, "rti_gates": RTI_GATES}
     return detail
 
 

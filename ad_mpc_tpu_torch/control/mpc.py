@@ -1,7 +1,8 @@
-"""MPC problem specs (port of ``ad_mpc_tpu/control/mpc.py:26-58``).
+"""MPC problem specs (port of ``ad_mpc_tpu/control/mpc.py:26-58,
+194-218``).
 
-Only :func:`bicycle_spec` is ported in this slice; the controller facades
-(``BicycleMPC``, ``QuadMPC``) come with the single-vehicle path.
+:func:`bicycle_spec` and :func:`quad_spec` are ported; the controller
+facades (``BicycleMPC``, ``QuadMPC``) come with the single-vehicle path.
 """
 
 from __future__ import annotations
@@ -42,4 +43,30 @@ def bicycle_spec(
         sqp_iters=sqp_iters,
         qp_iters=qp_iters,
         yaw_wrap_idx=2,
+    )
+
+
+def quad_spec(
+    t_horizon: float = 1.0,
+    n_nodes: int = 10,
+    q_cost=(10, 10, 10, 0.1, 0.1, 0.1, 0.1, 0.05, 0.05, 0.05, 0.05, 0.05, 0.05),
+    r_cost=(0.1, 0.1, 0.1, 0.1),
+    sqp_iters: int = 1,
+    qp_iters: int = 18,
+) -> OCPSpec:
+    """Quadrotor OCP spec with the reference's dims and weights: N=10,
+    tf=1 s, nx=13, nu=4, a hard input box [0, 1], the 13 diagonal state
+    weights also as the terminal weight."""
+    return OCPSpec(
+        n_nodes=n_nodes,
+        t_horizon=t_horizon,
+        nx=13,
+        nu=4,
+        q_cost=tuple(q_cost),
+        r_cost=tuple(r_cost),
+        w_e_cost=tuple(q_cost),
+        lbu=(0.0,) * 4,
+        ubu=(1.0,) * 4,
+        sqp_iters=sqp_iters,
+        qp_iters=qp_iters,
     )

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from ad_mpc_tpu_torch.models.bicycle import BicycleParams
+from ad_mpc_tpu_torch.models.quadrotor import QuadrotorParams
 from ad_mpc_tpu_torch.ocp.solver import SolverState, load_iterate
 from ad_mpc_tpu_torch.ocp.spec import OCPSpec
 
@@ -23,9 +24,22 @@ def bicycle_params(params) -> BicycleParams:
     return BicycleParams(**params._asdict())
 
 
+def quadrotor_params(params) -> QuadrotorParams:
+    """The port's :class:`QuadrotorParams` from the JAX package's."""
+    return QuadrotorParams(**params._asdict())
+
+
 def ocp_spec(spec) -> OCPSpec:
     """The port's :class:`OCPSpec` from the JAX package's (same fields)."""
     return OCPSpec(**dataclasses.asdict(spec))
+
+
+def quad_spec(spec) -> OCPSpec:
+    """The port's :class:`OCPSpec` from the JAX package's ``quad_spec(...)``;
+    refuses a spec of other dimensions than the quad's (13, 4)."""
+    if (spec.nx, spec.nu) != (13, 4):
+        raise ValueError(f"not a quad spec: nx={spec.nx}, nu={spec.nu}")
+    return ocp_spec(spec)
 
 
 def solver_state(xs=None, us=None, path=None, device="cuda") -> SolverState:

@@ -12,38 +12,49 @@
 // What bounds it on the H100: at c2 (B=16384, N=30, nx=7, nu=2) the sweep
 // moves ~156 MB (A, Bm, c out: 137.6 MB; ~47 us at 3.35 TB/s) and does
 // ~4.3 GFLOP by the hand count (~64 us at 67 TFLOP/s FP32): near the ridge,
-// on the operations side. Measured on an H100 (PERF.md), the first
-// design lost most of its time elsewhere: its stores were strided (a
-// thread's 70 outputs lie 280 B from its neighbour's, so each warp store
-// touched 32 partly written sectors; 83% of the time once the compute was
-// lean), and each of its 336 IEEE divisions per thread called a slow-path
-// subroutine behind a branch.
+// on the operations side. At c5 (B=16384, N=10, nx=13, nu=4) it is 165 MB
+// (~49 us) against 4.48 GFLOP (~67 us): the operations. Measured on an
+// H100 (PERF.md), the first design lost most of its time elsewhere: its
+// stores were strided (a thread's 70 outputs lie 280 B from its
+// neighbour's, so each warp store touched 32 partly written sectors; 83%
+// of the time once the compute was lean), and each of its 336 IEEE
+// divisions per thread called a slow-path subroutine behind a branch.
 //
 // Design:
 //   - One thread per (b, k), thread index b*N + k, reading and writing the
 //     solver's batch-first layout (no transposes or padding around the
 //     launch). The 32 rows of a warp own contiguous ranges of A, Bm and c:
-//     each thread writes its outputs into the warp's tile in shared memory
-//     (row strides 49, 14 and 7 words: 49 and 7 are odd, so those writes
-//     are free of bank conflicts), and after __syncwarp the warp copies the
-//     tile out with 16-byte stores. A ragged last warp computes a clamped
-//     duplicate of the last row and copies only its own rows.
+//     each thread writes its outputs into the warp's tile in dynamic shared
+//     memory (bicycle row strides 49, 14 and 7 words, quad 169, 52 and 13:
+//     the odd ones are free of bank conflicts), and after __syncwarp the
+//     warp copies the tile out with 16-byte stores. A ragged last warp
+//     computes a clamped duplicate of the last row and copies only its own
+//     rows. ROW_WARPS, the warps of a block, is a functor trait: the quad's
+//     tile is 29,952 B per warp, so a block of 4 warps would hold one block
+//     per SM; one warp per block holds 7.
 //   - Forward-mode duals: Dual<NT> carries a value and NT tangents, x_j and
-//     u_j are seeded with one-hot tangents. All nx+nu = 9 tangents run in
-//     one pass (TANGENTS_PER_PASS), so the primal is computed once: 255
+//     u_j are seeded with one-hot tangents. TANGENTS_PER_PASS, a functor
+//     trait, splits the nx+nu tangents into passes (vde_passes), each of
+//     which recomputes the primal. The bicycle runs all 9 in one pass: 255
 //     registers and no spill once the divisions are branch-free, 8 warps
-//     per SM. It was the fastest split on an H100: 3 passes of 3 and 2 of
-//     5 + 4 took 8% and 4% longer, and a warp per pass 60-80% (PERF.md).
+//     per SM; 3 passes of 3 and 2 of 5 + 4 took 8% and 4% longer, and a
+//     warp per pass 60-80% (PERF.md). The quad's 17 tangents cannot share
+//     one pass without spilling; its width was measured (PERF.md,
+//     experiments/quad_kernels.py).
 //   - A dual division computes its value once with the bits of IEEE '/'
 //     (fdiv_rcp of ieee_div.cuh, branch-free) and multiplies the tangents by
 //     the reciprocal it refined; one sincosf per angle. No --use_fast_math:
 //     the 2e-5 parity assumes IEEE-accurate sinf/cosf.
 // The dynamics is a __device__ functor templated on the scalar type, with
-// one C entry per functor and kernel (vde_<model>, rk4_<model>); this file
-// has one, the blended bicycle.
+// one pair of C entries per functor (vde_<model>, rk4_<model>): the blended
+// bicycle and the quadrotor. A functor states NX, NU, NP (parameter entries
+// it reads; a launch with fewer is refused, and NP = 0 never reads ps),
+// TANGENTS_PER_PASS and ROW_WARPS.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: IEEE sinf/cosf/division).
+//        -DQUAD_TANGENTS_PER_PASS=n and -DQUAD_ROW_WARPS=n override the
+//        quad's traits (the measurement of experiments/quad_kernels.py).
 
 #include <cuda_runtime.h>
 
@@ -51,9 +62,15 @@
 
 #define DI __device__ __forceinline__
 
-constexpr int TANGENTS_PER_PASS = 9;
+#ifndef QUAD_TANGENTS_PER_PASS
+#define QUAD_TANGENTS_PER_PASS 6
+#endif
+#ifndef QUAD_ROW_WARPS
+#define QUAD_ROW_WARPS 1
+#endif
+
 constexpr int WARP = 32;
-constexpr int ROW_WARPS = 4;  // warps of rows per block
+constexpr int RK4_ROW_WARPS = 4;  // warps of rows per block of rk4_kernel
 
 template <int NT>
 struct Dual {
@@ -178,8 +195,8 @@ struct BicycleParamsC {  // by value from the wrapper (models/bicycle.py)
 // The blended kinematic/dynamic bicycle (ad_mpc_tpu/models/bicycle.py:60-114)
 // with the blend switch taken from p[0]; same order of operations.
 struct BicycleDyn {
-  static constexpr int NX = 7;
-  static constexpr int NU = 2;
+  static constexpr int NX = 7, NU = 2, NP = 1;
+  static constexpr int TANGENTS_PER_PASS = 9, ROW_WARPS = 4;
   BicycleParamsC P;
 
   template <class T>
@@ -216,6 +233,56 @@ struct BicycleDyn {
     xd[4] = s * v_y_dyn + (1.0f - s) * v_y_kin;
     xd[5] = s * psi_dd_dyn + (1.0f - s) * psi_dd_kin;
     xd[6] = delta_dot;
+  }
+};
+
+struct QuadParamsC {  // by value from the wrapper (models/quadrotor.py)
+  float max_thrust, mass, g, jxx, jyy, jzz, jyy_jzz, jzz_jxx, jxx_jyy;
+  float x_f[4], y_f[4], z_l[4];
+};
+
+// The entrywise quadrotor (ad_mpc_tpu/models/quadrotor.py:112-167,
+// quad_dynamics_lane) with the same order of operations; p is not read.
+struct QuadDyn {
+  static constexpr int NX = 13, NU = 4, NP = 0;
+  static constexpr int TANGENTS_PER_PASS = QUAD_TANGENTS_PER_PASS;
+  static constexpr int ROW_WARPS = QUAD_ROW_WARPS;
+  QuadParamsC P;
+
+  template <class T>
+  DI void operator()(const T* x, const T* u, const float*, T* xd) const {
+    const T& qw = x[3];
+    const T& qx = x[4];
+    const T& qy = x[5];
+    const T& qz = x[6];
+    const T& wx = x[10];
+    const T& wy = x[11];
+    const T& wz = x[12];
+    const T t0 = u[0] * P.max_thrust;
+    const T t1 = u[1] * P.max_thrust;
+    const T t2 = u[2] * P.max_thrust;
+    const T t3 = u[3] * P.max_thrust;
+
+    xd[0] = x[7];
+    xd[1] = x[8];
+    xd[2] = x[9];
+    // Quaternion kinematics q_dot = 1/2 Omega(w) q, expanded.
+    xd[3] = 0.5f * (-qx * wx - qy * wy - qz * wz);
+    xd[4] = 0.5f * (qw * wx + qy * wz - qz * wy);
+    xd[5] = 0.5f * (qw * wy - qx * wz + qz * wx);
+    xd[6] = 0.5f * (qw * wz + qx * wy - qy * wx);
+    // Third column of R(q) times the specific thrust, minus gravity.
+    const T a = divide(t0 + t1 + t2 + t3, P.mass);
+    xd[7] = 2.0f * (qx * qz + qw * qy) * a;
+    xd[8] = 2.0f * (qy * qz - qw * qx) * a;
+    xd[9] = (1.0f - 2.0f * qx * qx - 2.0f * qy * qy) * a - P.g;
+    // Thrust moments and the Euler inertia coupling.
+    const T m_x = t0 * P.y_f[0] + t1 * P.y_f[1] + t2 * P.y_f[2] + t3 * P.y_f[3];
+    const T m_y = -(t0 * P.x_f[0] + t1 * P.x_f[1] + t2 * P.x_f[2] + t3 * P.x_f[3]);
+    const T m_z = t0 * P.z_l[0] + t1 * P.z_l[1] + t2 * P.z_l[2] + t3 * P.z_l[3];
+    xd[10] = divide(m_x + P.jyy_jzz * wy * wz, P.jxx);
+    xd[11] = divide(m_y + P.jzz_jxx * wz * wx, P.jyy);
+    xd[12] = divide(m_z + P.jxx_jyy * wx * wy, P.jzz);
   }
 };
 
@@ -319,25 +386,34 @@ DI void vde_passes(const float* x0, const float* u0, const float* xn,
                    const float* p, const Dyn& f, Steps st, float* tA,
                    float* tB, float* tc) {
   constexpr int NV = Dyn::NX + Dyn::NU;
-  constexpr int NT = TANGENTS_PER_PASS < NV - J0 ? TANGENTS_PER_PASS : NV - J0;
+  constexpr int TP = Dyn::TANGENTS_PER_PASS;
+  constexpr int NT = TP < NV - J0 ? TP : NV - J0;
   vde_pass<J0, NT>(x0, u0, xn, p, f, st, tA, tB, tc);
   if constexpr (J0 + NT < NV)
     vde_passes<J0 + NT>(x0, u0, xn, p, f, st, tA, tB, tc);
 }
 
+// A warp's tile of vde_kernel in floats: its 32 rows of A, then of Bm, then
+// of c.
 template <class Dyn>
-__global__ void __launch_bounds__(ROW_WARPS * WARP)
+__host__ __device__ constexpr int vde_tile() {
+  return WARP * Dyn::NX * (Dyn::NX + Dyn::NU + 1);
+}
+
+template <class Dyn>
+__global__ void __launch_bounds__(Dyn::ROW_WARPS * WARP)
 vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
            const float* __restrict__ ps, float* __restrict__ A,
            float* __restrict__ Bm, float* __restrict__ c, int batch, int N,
            int pd, Steps st, Dyn f) {
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
-  // A warp's tile: its 32 rows of A, then of Bm, then of c.
+  constexpr int ROW_WARPS = Dyn::ROW_WARPS;
   constexpr int TILE_B = WARP * NX * NX;
   constexpr int TILE_C = TILE_B + WARP * NX * NU;
-  constexpr int TILE = TILE_C + WARP * NX;
-  __shared__ float4 smem[ROW_WARPS * TILE / 4];
+  constexpr int TILE = vde_tile<Dyn>();
+  static_assert(TILE % 4 == 0, "tiles start on 16 bytes");
+  extern __shared__ float4 smem[];  // ROW_WARPS tiles
 
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   float* tile = reinterpret_cast<float*>(smem) + warp * TILE;
@@ -371,7 +447,7 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
 // The RK4 map alone, row r = b*N + k: out[r] = F(x_{b,k}, u_{b,k}; p_b),
 // minus x_{b,k+1} when `defect`. x rows are NX apart within a scenario.
 template <class Dyn>
-__global__ void __launch_bounds__(ROW_WARPS * WARP)
+__global__ void __launch_bounds__(RK4_ROW_WARPS * WARP)
 rk4_kernel(const float* __restrict__ xs, long long xs_b,
            const float* __restrict__ us, long long us_b, long long us_k,
            const float* __restrict__ ps, long long ps_b,
@@ -379,12 +455,12 @@ rk4_kernel(const float* __restrict__ xs, long long xs_b,
            Dyn f) {
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
-  __shared__ float4 smem[ROW_WARPS * WARP * NX / 4];
+  __shared__ float4 smem[RK4_ROW_WARPS * WARP * NX / 4];
 
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   float* tile = reinterpret_cast<float*>(smem) + warp * WARP * NX;
   const long long rows = (long long)batch * N;
-  const long long row0 = ((long long)blockIdx.x * ROW_WARPS + warp) * WARP;
+  const long long row0 = ((long long)blockIdx.x * RK4_ROW_WARPS + warp) * WARP;
   const long long row = min(row0 + lane, rows - 1);
   const long long b = row / N;
   const long long k = row - b * N;
@@ -411,15 +487,30 @@ static Steps steps_of(double dt, int n) {
   return Steps{n, (float)hd, (float)(0.5 * hd), (float)(hd / 6.0)};
 }
 
+// The launch's shape against the functor's: nx, nu as the wrapper states
+// them, and at least NP parameter entries.
+template <class Dyn>
+static bool shape_ok(int nx, int nu, int pd, int steps) {
+  return nx == Dyn::NX && nu == Dyn::NU && pd >= Dyn::NP && steps >= 1;
+}
+
 template <class Dyn>
 static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
                               float* A, float* Bm, float* c, int batch, int N,
-                              int pd, double dt, int steps, Dyn f, void* stream) {
-  if (pd < 1 || steps < 1) return cudaErrorInvalidValue;
+                              int nx, int nu, int pd, double dt, int steps,
+                              Dyn f, void* stream) {
+  if (!shape_ok<Dyn>(nx, nu, pd, steps)) return cudaErrorInvalidValue;
   const long long rows = (long long)batch * N;
   if (rows == 0) return cudaSuccess;
-  const long long grid = (rows + ROW_WARPS * WARP - 1) / (ROW_WARPS * WARP);
-  vde_kernel<Dyn><<<(unsigned)grid, ROW_WARPS * WARP, 0, (cudaStream_t)stream>>>(
+  constexpr int RW = Dyn::ROW_WARPS;
+  constexpr size_t bytes = sizeof(float) * RW * vde_tile<Dyn>();
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const long long grid = (rows + RW * WARP - 1) / (RW * WARP);
+  vde_kernel<Dyn><<<(unsigned)grid, RW * WARP, bytes, (cudaStream_t)stream>>>(
       xs, us, ps, A, Bm, c, batch, N, pd, steps_of(dt, steps), f);
   return cudaGetLastError();
 }
@@ -428,45 +519,54 @@ template <class Dyn>
 static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
                               long long us_b, long long us_k, const float* ps,
                               long long ps_b, float* out, int batch, int N,
-                              int defect, double dt, int steps, Dyn f,
-                              void* stream) {
-  if (steps < 1) return cudaErrorInvalidValue;
+                              int nx, int nu, int pd, int defect, double dt,
+                              int steps, Dyn f, void* stream) {
+  if (!shape_ok<Dyn>(nx, nu, pd, steps)) return cudaErrorInvalidValue;
   const long long rows = (long long)batch * N;
   if (rows == 0) return cudaSuccess;
-  const long long grid = (rows + ROW_WARPS * WARP - 1) / (ROW_WARPS * WARP);
-  rk4_kernel<Dyn><<<(unsigned)grid, ROW_WARPS * WARP, 0, (cudaStream_t)stream>>>(
+  const long long grid = (rows + RK4_ROW_WARPS * WARP - 1) / (RK4_ROW_WARPS * WARP);
+  rk4_kernel<Dyn><<<(unsigned)grid, RK4_ROW_WARPS * WARP, 0, (cudaStream_t)stream>>>(
       xs, xs_b, us, us_b, us_k, ps, ps_b, out, batch, N, defect,
       steps_of(dt, steps), f);
   return cudaGetLastError();
 }
 
+// One pair of C entries per dynamics functor, with these signatures apart
+// from the by-value parameter struct. All tensors float32 on the device;
+// outputs contiguous and 16-byte aligned. Each returns a cudaError_t, and
+// refuses (cudaErrorInvalidValue) an nx, nu other than the functor's or
+// fewer than its NP parameter entries.
+//
+// vde_<model>: xs (batch, N+1, nx), us (batch, N, nu), ps (batch, pd), all
+// contiguous, in; A (batch, N, nx, nx), Bm (batch, N, nx, nu),
+// c (batch, N, nx) out.
+//
+// rk4_<model>: out (batch, N, nx) = F(x_{b,k}, u_{b,k}; p_b), minus
+// x_{b,k+1} when defect != 0. Strides in floats: x_{b,k} at
+// xs + b*xs_b + nx*k, u_{b,k} at us + b*us_b + k*us_k, p_b at ps + b*ps_b;
+// each row's entries adjacent. The step mode is N = 1.
+#define VDE_ENTRIES(model, Dyn, ParamsC)                                      \
+  int vde_##model(const float* xs, const float* us, const float* ps,         \
+                  float* A, float* Bm, float* c, int batch, int N, int nx,   \
+                  int nu, int pd, double dt, int rk4_steps, ParamsC params,  \
+                  void* stream) {                                            \
+    return (int)launch_vde(xs, us, ps, A, Bm, c, batch, N, nx, nu, pd, dt,   \
+                           rk4_steps, Dyn{params}, stream);                  \
+  }                                                                          \
+  int rk4_##model(const float* xs, long long xs_b, const float* us,          \
+                  long long us_b, long long us_k, const float* ps,           \
+                  long long ps_b, float* out, int batch, int N, int nx,      \
+                  int nu, int pd, int defect, double dt, int rk4_steps,      \
+                  ParamsC params, void* stream) {                            \
+    return (int)launch_rk4(xs, xs_b, us, us_b, us_k, ps, ps_b, out, batch,   \
+                           N, nx, nu, pd, defect, dt, rk4_steps, Dyn{params}, \
+                           stream);                                          \
+  }
+
 extern "C" {
 
-// One pair of entries per dynamics functor, with these signatures apart
-// from the by-value parameter struct. All tensors float32 on the device;
-// outputs contiguous and 16-byte aligned. Each returns a cudaError_t.
-//
-// vde_<model>: xs (batch, N+1, 7), us (batch, N, 2), ps (batch, pd), all
-// contiguous, in; A (batch, N, 7, 7), Bm (batch, N, 7, 2), c (batch, N, 7)
-// out.
-int vde_bicycle(const float* xs, const float* us, const float* ps, float* A,
-                float* Bm, float* c, int batch, int N, int pd, double dt,
-                int rk4_steps, BicycleParamsC params, void* stream) {
-  return (int)launch_vde(xs, us, ps, A, Bm, c, batch, N, pd, dt, rk4_steps,
-                         BicycleDyn{params}, stream);
-}
-
-// rk4_<model>: out (batch, N, 7) = F(x_{b,k}, u_{b,k}; p_b), minus x_{b,k+1}
-// when defect != 0. Strides in floats: x_{b,k} at xs + b*xs_b + 7k, u_{b,k}
-// at us + b*us_b + k*us_k, p_b at ps + b*ps_b; each row's entries adjacent.
-// The step mode is N = 1.
-int rk4_bicycle(const float* xs, long long xs_b, const float* us,
-                long long us_b, long long us_k, const float* ps, long long ps_b,
-                float* out, int batch, int N, int defect, double dt,
-                int rk4_steps, BicycleParamsC params, void* stream) {
-  return (int)launch_rk4(xs, xs_b, us, us_b, us_k, ps, ps_b, out, batch, N,
-                         defect, dt, rk4_steps, BicycleDyn{params}, stream);
-}
+VDE_ENTRIES(bicycle, BicycleDyn, BicycleParamsC)
+VDE_ENTRIES(quad, QuadDyn, QuadParamsC)
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

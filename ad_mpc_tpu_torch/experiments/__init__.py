@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import contextlib
 import subprocess
+from typing import NamedTuple
 
 import torch
 
@@ -43,6 +44,45 @@ def tf32(on: bool):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
+def device_us(evt):
+    """Device microseconds of a ``torch.profiler`` key average."""
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
+
+FLUSH_BYTES = 128 * 2**20  # written between calls to evict the H100's 50 MB L2
+
+
+def device_ms(fn, reps, cold=False, kernel=None):
+    """Device time per call of ``fn``: the summed duration of the kernels
+    it launches, by ``torch.profiler``, over ``reps`` calls after one warm
+    call. Unlike CUDA events around back-to-back calls, it leaves out the
+    gaps in which the card waits for the host. ``kernel``: count only the
+    kernels whose name holds it. ``cold``: write ``FLUSH_BYTES`` between
+    calls, so every call finds its inputs out of L2 (the write is not
+    counted; ``kernel`` is then required)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if cold and not kernel:
+        raise ValueError("a cold time names the kernel it counts")
+    flush = (torch.empty(FLUSH_BYTES // 4, device="cuda") if cold else None)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if cold:
+                flush.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(device_us(e) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and (kernel is None or kernel in e.key))
+    if not us > 0:
+        raise RuntimeError("the profiler recorded no device time"
+                           + (f" for {kernel}" if kernel else ""))
+    return us / 1e3 / reps
+
+
 class DeviceWindow:
     """Device time between two CUDA events around ``with`` (``.s`` after)."""
 
@@ -56,3 +96,66 @@ class DeviceWindow:
         self.end.record()
         self.end.synchronize()
         self.s = self.start.elapsed_time(self.end) / 1e3
+
+
+def capture(block, x0, counter=None):
+    """Run ``block(x0)`` once on a side stream (the warm-up PyTorch asks
+    for before a capture), then capture ``x <- block(x)`` into a CUDA
+    graph over a static carry ``x``. Returns (graph, x, ref, captured):
+    ``ref`` is the warm-up's output, ``captured`` the launches of
+    ``counter`` (a kernel wrapper) recorded in the graph; replays do not
+    pass through the wrapper."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ref = block(x0)
+    torch.cuda.current_stream().wait_stream(side)
+    x = torch.empty_like(x0)
+    before = counter.launches if counter is not None else 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        x.copy_(block(x))
+    captured = counter.launches - before if counter is not None else None
+    return graph, x, ref, captured
+
+
+class Replays(NamedTuple):
+    s: float  # device seconds per replay of the block, min over rounds
+    spread: float  # max / min over rounds
+    ref: torch.Tensor  # the warm-up block's output from x0
+    replays: int  # graph replays made
+    captured: int | None  # launches of ``counter`` recorded in the graph
+
+
+def time_replays(block, x0, *, rounds=5, target_s=0.6, counter=None):
+    """Device time of one ``block`` by CUDA-graph replay (:func:`capture`),
+    so the host's launch rate drops out. The carry chains from the warm-up
+    output through every replay; the replays per round are calibrated to
+    about ``target_s`` of device time, each round timed by CUDA events."""
+    graph, x, ref, captured = capture(block, x0, counter)
+    x.copy_(ref)
+
+    def round_time(n):
+        with DeviceWindow() as w:
+            for _ in range(n):
+                graph.replay()
+        return w.s
+
+    t_cal = round_time(2)
+    n = max(int(target_s / max(t_cal / 2, 1e-5)), 2)
+    ts = [round_time(n) / n for _ in range(rounds)]
+    return Replays(min(ts), max(ts) / min(ts), ref, 2 + rounds * n, captured)
+
+
+def tick_qp_inputs(tick, init, solver, batch, ticks=3):
+    """The inputs of the last QP that ``solver``'s QP module ran in
+    ``ticks`` ticks of a fleet of ``batch`` vehicles."""
+    captured = []
+    hook = solver.qp.register_forward_pre_hook(lambda mod, a: captured.append(a))
+    try:
+        carry = init(batch)
+        for _ in range(ticks):
+            carry, _ = tick(carry)
+    finally:
+        hook.remove()
+    return captured[-1]

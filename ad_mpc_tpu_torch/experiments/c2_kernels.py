@@ -1,0 +1,106 @@
+"""Bits and device times of the c2 kernels (the bicycle VDE sweep and the
+7x2 LQ kernel) of whichever ``ad_mpc_tpu_torch`` is imported, so that two
+trees can be compared on one card in one call:
+
+    python ad_mpc_tpu_torch/experiments/c2_kernels.py [--out PATH]
+    PYTHONPATH=<other tree> python ad_mpc_tpu_torch/experiments/c2_kernels.py
+
+Run as a file, it imports the package from ``PYTHONPATH`` (or the working
+directory), and uses only the c2 entry points of the package (none of the
+quad's helpers), so that a tree without the quad runs it too.
+Prints one JSON line: the package's path; the sha256 digests of the
+kernels' outputs on the fixed draws of
+``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits``; device ms by
+``torch.profiler`` at c2's B=16384 (the sweep on ``random_traj``, N=30,
+over 50 launches; the LQ kernel on the third c2 tick's QPs over 10).
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+if __name__ == "__main__" and not os.environ.get("PYTHONPATH"):
+    sys.path.insert(0, os.getcwd())
+
+from ad_mpc_tpu_torch import fleet  # noqa: E402
+from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver  # noqa: E402
+from ad_mpc_tpu_torch.ops.cuda_vde import make_vde  # noqa: E402
+from ad_mpc_tpu_torch.testing import (  # noqa: E402
+    BOUNDS, LQ_WEIGHTS, random_lq, random_traj)
+
+
+def digest(*tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def profiled_ms(fn, reps, kernel):
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
+    return us / 1e3 / reps
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also append the JSON line to this file")
+    args = ap.parse_args(argv)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = "cuda"
+    bicycle = fleet.dynamic_bicycle
+    res = {"package": os.path.dirname(fleet.__file__)}
+
+    # The fixed draws of the bits test (B=37).
+    xs, us = (torch.as_tensor(a, device=dev)
+              for a in random_traj(np.random.default_rng(8), 37, 30, 7, 2))
+    ps = torch.ones((37, 1), device=dev)
+    vde = make_vde(bicycle, 0.05, 30, 7, 2, 1, device=dev)
+    Q, R = LQ_WEIGHTS
+    qp = make_lq_solver(30, 7, 2, Q, R, 1e-3 * Q, *BOUNDS["bicycle"](7, 2),
+                        iters=12, device=dev)
+    lq_args = [torch.as_tensor(a, device=dev)
+               for a in random_lq(np.random.default_rng(7), 37, 30, 7, 2)]
+    res["bits"] = {"vde": digest(*vde(xs, us, ps)), "lq_ipm": digest(*qp(*lq_args))}
+
+    # Device times at c2's B=16384.
+    B = 16384
+    xs, us = (torch.as_tensor(a, device=dev)
+              for a in random_traj(np.random.default_rng(3), B, 30, 7, 2))
+    ps = torch.ones((B, 1), device=dev)
+    res["vde_ms"] = profiled_ms(lambda: vde(xs, us, ps), 50, "vde_kernel")
+    tick, init, solver, _ = fleet.build_fleet(bicycle, fleet.switch_on,
+                                              device=dev)
+    captured = []
+    hook = solver.qp.register_forward_pre_hook(lambda m, a: captured.append(a))
+    carry = init(B)
+    for _ in range(3):
+        carry, _ = tick(carry)
+    hook.remove()
+    res["lq_ipm_ms"] = profiled_ms(lambda: solver.qp(*captured[-1]), 10,
+                                   "lq_ipm_kernel")
+    res["device"] = torch.cuda.get_device_name(0)
+    line = json.dumps(res)
+    print(line)
+    if args.out:
+        with open(args.out, "a") as fh:
+            fh.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

@@ -8,8 +8,13 @@ against :func:`ad_mpc_tpu_torch.ops.assoc_riccati.lqr_solve_assoc`, with
 TF32 off (the counterpart of the JAX micro's
 ``default_matmul_precision("highest")``). Reports per-N device times, the
 first N where the scan wins (or None), and the agreement of the two on
-the card. Both backends are eager PyTorch: at batch 1 each is a chain of
-small launches, so the times say how many dependent launches each needs.
+the card. Both backends are eager PyTorch, a chain of small launches at
+batch 1: a block of 30 chained solves is captured once per backend in a
+CUDA graph and the replays are timed (``experiments.time_replays``), the
+counterpart of the JAX micro's jitted block, so the host's launch rate
+drops out and the times are the device's. cuSOLVER serves the linear
+algebra (:func:`cusolver`): MAGMA's batched Cholesky solve cannot be
+captured.
 
     python -m ad_mpc_tpu_torch.experiments.long_horizon [--out PATH]
 """
@@ -17,12 +22,13 @@ small launches, so the times say how many dependent launches each needs.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 
 import numpy as np
 import torch
 
-from ad_mpc_tpu_torch.experiments import DeviceWindow, card, require_cuda, tf32
+from ad_mpc_tpu_torch.experiments import card, require_cuda, tf32, time_replays
 from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 
@@ -43,11 +49,22 @@ def random_lq(rng, N, nx=7, nu=2, dtype=torch.float32, device="cuda"):
                  for v in (A, B, c, Q, q, R, r, dx0))
 
 
-def _time_solver(solve_fn, ops, *, inner=30, rounds=5, target_s=0.4):
-    """Device time of one solve: ``inner`` chained solves per block, where
-    solve k perturbs dx0 by a bounded function of solve k-1's terminal
-    state, so no two overlap. Returns (seconds per solve [min over
-    rounds], spread max/min)."""
+@contextlib.contextmanager
+def cusolver():
+    """cuSOLVER as PyTorch's CUDA linear-algebra backend inside the block
+    (capturable in a CUDA graph), restored after."""
+    old = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(old)
+
+
+def solve_block(solve_fn, ops, inner=30):
+    """``inner`` chained solves: solve k perturbs dx0 by a bounded function
+    of solve k-1's terminal state, so no two overlap. Returns
+    block(carry (1, nx)) -> carry."""
     A, B, c, Q, q, R, r, dx0 = ops
 
     def block(cy):
@@ -56,22 +73,15 @@ def _time_solver(solve_fn, ops, *, inner=30, rounds=5, target_s=0.4):
             cy = dxs[:, -1]
         return cy
 
-    carry = block(dx0)  # warm-up
-    torch.cuda.synchronize()
+    return block
 
-    def round_time(n, cy):
-        with DeviceWindow() as w:
-            for _ in range(n):
-                cy = block(cy)
-        return w.s, cy
 
-    t_cal, carry = round_time(1, carry)
-    n = max(int(target_s / max(t_cal, 1e-5)), 1)
-    ts = []
-    for _ in range(rounds):
-        t, carry = round_time(n, carry)
-        ts.append(t / (n * inner))
-    return min(ts), max(ts) / min(ts)
+def _time_solver(solve_fn, ops, *, inner=30, rounds=5, target_s=0.4):
+    """Device time of one solve by graph replay of :func:`solve_block`.
+    Returns (seconds per solve [min over rounds], spread max/min)."""
+    t = time_replays(solve_block(solve_fn, ops, inner), ops[-1],
+                     rounds=rounds, target_s=target_s)
+    return t.s / inner, t.spread
 
 
 def micro(horizons=(30, 128, 512), nx=7, nu=2, seed=0, device="cuda"):
@@ -79,7 +89,7 @@ def micro(horizons=(30, 128, 512), nx=7, nu=2, seed=0, device="cuda"):
     device = require_cuda(device)
     rng = np.random.default_rng(seed)
     rows, crossover = {}, None
-    with tf32(False):
+    with tf32(False), cusolver():
         for N in horizons:
             ops = random_lq(rng, N, nx, nu, device=device)
             _, dus_s = lqr_solve(*ops)

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ad_mpc_tpu_torch import fleet
-from ad_mpc_tpu_torch.experiments import DeviceWindow, card, require_cuda, tf32
+from ad_mpc_tpu_torch.experiments import card, require_cuda, tf32, time_replays
 from ad_mpc_tpu_torch.ops.cuda_chain import make_lane_chain
 
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
@@ -70,39 +70,14 @@ class Timing(NamedTuple):
 
 
 def _time(fn, a, x0, *, inner=INNER, rounds=5, target_s=0.6, counter=None):
-    """Device time of one application of ``fn(a, x)``.
-
-    One block of ``inner`` applications, its output copied back into its
-    input, is captured in a CUDA graph after one warm-up block on a side
-    stream (as PyTorch asks); the warm-up block from x0 is the accuracy
-    probe. Each round replays the graph, chaining the blocks as the JAX
-    micro does, between two CUDA events, so the host's launch rate drops
-    out. ``counter`` (the lane-chain wrapper) gives the launches recorded at
-    capture; replays do not pass through the wrapper."""
-    block = lambda x: _block(fn, a, x, inner)
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        ref = block(x0)
-    torch.cuda.current_stream().wait_stream(side)
-    x = torch.empty_like(x0)
-    before = counter.launches if counter is not None else 0
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        x.copy_(block(x))
-    captured = counter.launches - before if counter is not None else None
-    x.copy_(ref)
-
-    def round_time(n):
-        with DeviceWindow() as w:
-            for _ in range(n):
-                graph.replay()
-        return w.s
-
-    t_cal = round_time(2)
-    n = max(int(target_s / max(t_cal / 2, 1e-5)), 2)
-    ts = [round_time(n) / (n * inner) for _ in range(rounds)]
-    return Timing(min(ts), max(ts) / min(ts), ref, 2 + rounds * n, captured)
+    """Device time of one application of ``fn(a, x)``: one block of
+    ``inner`` applications captured in a CUDA graph and replayed, chaining
+    the blocks as the JAX micro does (``experiments.time_replays``); the
+    warm-up block from x0 is the accuracy probe. ``counter`` (the
+    lane-chain wrapper) gives the launches recorded at capture."""
+    t = time_replays(lambda x: _block(fn, a, x, inner), x0, rounds=rounds,
+                     target_s=target_s, counter=counter)
+    return Timing(t.s / inner, t.spread, t.ref, t.replays, t.captured)
 
 
 def bmm_chain(a, x, chain):

@@ -1,0 +1,145 @@
+"""The closed-loop quadrotor fleet of bench config c5, on the port.
+
+Port of ``ad_mpc_tpu/experiments/quad_fleet.py:34-60, 90-200`` without the
+GP ensemble (config c6). Each vehicle tracks a horizontal circle of its own
+radius, speed and altitude with a hover attitude reference, at the
+reference's quad OCP dims (nx=13, nu=4, N=10, tf=1 s, ``qp_iters=18``) and
+two Gauss-Newton iterations per tick (``bench.py:471``). On a CUDA device a
+tick is two launches each of the VDE sweep (``vde_quad``) and the QP
+kernel (``lq_ipm`` at 13x4), one of the RK4 map for the KKT defect and one
+for the plant step, which the quaternion renormalization follows.
+
+Scenario draws use ``numpy.random.default_rng(seed)`` exactly as the JAX
+package does, so both packages drive the same fleet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ad_mpc_tpu_torch.control.mpc import quad_spec
+from ad_mpc_tpu_torch.models.quadrotor import (
+    QuadDynamics,
+    QuadrotorParams,
+    hover_input,
+    normalize_quat_state,
+)
+from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver, SolverState
+
+# Gauss-Newton iterations per deployed tick (``bench.py:471``): one RTI
+# iteration leaves the attitude linearization residue at dt=0.1 near the
+# 1e-3 parity bar, the second collapses it.
+QUAD_SQP_ITERS = 2
+# Quality gates of config c5 (``bench.py:483, 497``).
+GATES = {"kkt_mean": 2e-6, "kkt_max": 1e-4, "lat_err_mean_m": 0.02}
+RTI_GATE = 1e-3  # max |u0_deployed - u0_converged|
+# Launches of each kernel per tick on the cuda backend, at QUAD_SQP_ITERS:
+# the sweep and the QP per iteration, the RK4 map for the KKT defect and
+# the plant step.
+LAUNCHES_PER_TICK = {"vde": 2, "lq_ipm": 2, "rk4": 2}
+
+
+def circle_reference(theta0, radius, omega, alt, N, dt):
+    """(B, N+1, 13) state references along horizontal circles: position
+    and world velocity from the circle geometry, hover attitude, zero
+    rates. theta0, radius, omega, alt are (B,)."""
+    ar = torch.arange(N + 1, dtype=torch.float32, device=theta0.device)
+    th = theta0[:, None] + omega[:, None] * ar * dt
+    r, om = radius[:, None], omega[:, None]
+    zeros, ones = torch.zeros_like(th), torch.ones_like(th)
+    return torch.stack(
+        [
+            r * torch.cos(th),
+            r * torch.sin(th),
+            alt[:, None].expand_as(th),
+            ones, zeros, zeros, zeros,  # q = identity (hover attitude)
+            -r * om * torch.sin(th),
+            r * om * torch.cos(th),
+            zeros,
+            zeros, zeros, zeros,
+        ],
+        dim=-1,
+    )
+
+
+def make_quad_scenarios(batch, seed=0):
+    """Per-scenario circle radius, speed and altitude, float32 numpy."""
+    rng = np.random.default_rng(seed)
+    radius = rng.uniform(2.0, 6.0, batch).astype(np.float32)
+    speed = rng.uniform(1.0, 4.0, batch).astype(np.float32)
+    alt = rng.uniform(1.0, 3.0, batch).astype(np.float32)
+    return radius, speed, alt
+
+
+def build_quad_fleet(n_nodes=10, qp_iters=18, sqp_iters=QUAD_SQP_ITERS,
+                     params: QuadrotorParams = QuadrotorParams(),
+                     device="cuda", backend="auto"):
+    """Closed-loop quad fleet over :class:`BatchedSQPSolver` with
+    ``p_dim=0``. ``backend`` is the solver's (``"cuda"``, ``"plain"`` or
+    ``"auto"``).
+
+    Returns (tick, init, solver, spec); tick(carry) -> (carry, (kkt, lat)),
+    carry = (x0, theta, radius, speed, alt, states).
+    """
+    spec = quad_spec(n_nodes=n_nodes, qp_iters=qp_iters, sqp_iters=sqp_iters)
+    solver = BatchedSQPSolver(spec, QuadDynamics(params), p_dim=0,
+                              device=device, backend=backend)
+    N, dt = spec.n_nodes, spec.dt
+    dev = solver.Q.device
+    u_hover = torch.as_tensor(hover_input(params), dtype=torch.float32,
+                              device=dev)
+
+    def tick(carry):
+        x0, theta, radius, speed, alt, states = carry
+        B = x0.shape[0]
+        omega = speed / radius
+        yref_x = circle_reference(theta, radius, omega, alt, N, dt)
+        yref_u = u_hover.expand(B, N, -1)
+        p = x0.new_zeros((B, 0))
+        res = solver.solve(x0, yref_x, yref_u, p, states)
+        with torch.no_grad():
+            x_next = normalize_quat_state(solver.F(x0, res.us[:, 0], p))
+        states = solver.shift(res.state)
+        lat = torch.linalg.norm(x_next[:, :3] - yref_x[:, 1, :3], dim=-1)
+        return (x_next, theta + omega * dt, radius, speed, alt, states), (
+            res.kkt_residual, lat.mean())
+
+    def init(batch, seed=0):
+        radius, speed, alt = (torch.as_tensor(a, device=dev)
+                              for a in make_quad_scenarios(batch, seed))
+        theta = torch.zeros((batch,), dtype=torch.float32, device=dev)
+        x0 = circle_reference(theta, radius, speed / radius, alt, 0, dt)[:, 0]
+        states = SolverState(
+            xs=x0[:, None].expand(-1, N + 1, -1).contiguous(),
+            us=u_hover.expand(batch, N, -1).contiguous(),
+        )
+        return (x0, theta, radius, speed, alt, states)
+
+    return tick, init, solver, spec
+
+
+def rti_vs_converged_quad(carry, n_check=64, n_nodes=10,
+                          deployed_sqp_iters=QUAD_SQP_ITERS):
+    """Quality gate: max |u0| difference, over the first ``n_check``
+    vehicles, between the deployed tick (``deployed_sqp_iters``
+    Gauss-Newton iterations, 18 IPM iterations) and a converged SQP solve
+    (6 and 24) from the same state and warm start."""
+    x0, theta, radius, speed, alt, states = carry
+    m = min(n_check, x0.shape[0])
+    dev = x0.device
+    _, _, sol1, spec = build_quad_fleet(n_nodes=n_nodes, qp_iters=18,
+                                        sqp_iters=deployed_sqp_iters,
+                                        device=dev)
+    _, _, sol6, _ = build_quad_fleet(n_nodes=n_nodes, qp_iters=24,
+                                     sqp_iters=6, device=dev)
+    N, dt = spec.n_nodes, spec.dt
+    yref_x = circle_reference(theta[:m], radius[:m], (speed / radius)[:m],
+                              alt[:m], N, dt)
+    u_h = torch.as_tensor(hover_input(), dtype=torch.float32, device=dev)
+    yref_u = u_h.expand(m, N, -1)
+    p = x0.new_zeros((m, 0))
+    st = SolverState(states.xs[:m].contiguous(), states.us[:m].contiguous())
+    u_rti = sol1.solve(x0[:m], yref_x, yref_u, p, st).us[:, 0]
+    u_cvg = sol6.solve(x0[:m], yref_x, yref_u, p, st).us[:, 0]
+    return float((u_rti - u_cvg).abs().max())

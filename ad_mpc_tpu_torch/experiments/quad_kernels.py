@@ -1,0 +1,111 @@
+"""Design choices of the quad's kernels on the H100, measured at c5's
+shapes (B=16384, N=10, nx=13, nu=4).
+
+    python -m ad_mpc_tpu_torch.experiments.quad_kernels [--out PATH]
+
+1. The VDE sweep with the quad functor (``csrc/vde.cu``), built once per
+   variant of its traits, ``-DQUAD_TANGENTS_PER_PASS`` (the 17 tangents per
+   pass) and ``-DQUAD_ROW_WARPS`` (warps per block, each with a 29,952 B
+   output tile), all ``nvcc`` started together: registers and spills from
+   ``ptxas``, device time by ``torch.profiler`` over 50 launches, the
+   largest error against ``vde_plain`` (held at 3e-5) and whether its bits
+   are the default build's.
+2. The 13x4 LQ kernel (``csrc/lq_ipm.cu``) on the QPs of the third c5 tick
+   at B=16384, for every number of scenarios per block that fits: resident
+   blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), device
+   time over 10 launches, and whether its bits are those of the geometry
+   ``lq_geometry`` picks (a scenario's arithmetic does not depend on its
+   block).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+from ad_mpc_tpu_torch.experiments import (
+    card, device_ms, quad_fleet, require_cuda, tf32, tick_qp_inputs)
+from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+from ad_mpc_tpu_torch.ops import _build
+from ad_mpc_tpu_torch.ops.cuda_lq import MAX_TEAMS
+from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
+from ad_mpc_tpu_torch.testing import quad_traj
+
+# (tangents per pass, row warps); the first is the committed default.
+VDE_VARIANTS = ((6, 1), (4, 1), (9, 1), (17, 1), (6, 2), (6, 4))
+
+
+def _defines(tpp, rw):
+    return (f"QUAD_TANGENTS_PER_PASS={tpp}", f"QUAD_ROW_WARPS={rw}")
+
+
+def vde_variants(B=16384, N=10, dt=0.1, variants=VDE_VARIANTS):
+    dyn = QuadDynamics()
+    with ThreadPoolExecutor(len(variants)) as pool:
+        list(pool.map(lambda v: _build.build_all(("vde",), _defines(*v)),
+                      variants))
+    xs, us = (torch.as_tensor(a, device="cuda")
+              for a in quad_traj(np.random.default_rng(13), B, N))
+    ps = torch.zeros((B, 0), device="cuda")
+    want = vde_plain(dyn, dt, 1, xs, us, ps)
+    rows, first = {}, None
+    for tpp, rw in variants:
+        vde = make_vde(dyn, dt, N, 13, 4, 0, device="cuda")
+        vde.defines = _defines(tpp, rw)
+        got = vde(xs, us, ps)
+        first = got if first is None else first
+        res = next(r for e, r in _build.ptxas_resources(
+            "vde", vde.defines).items() if "vde_kernel" in e and "Quad" in e)
+        rows[f"tpp{tpp}_rw{rw}"] = res | {
+            "tangents_per_pass": tpp, "row_warps": rw,
+            "max_abs_err": max(float((g - w).abs().max())
+                               for g, w in zip(got, want)),
+            "bits_as_default": all(torch.equal(g, f) for g, f in zip(got, first)),
+            "ms": device_ms(lambda: vde(xs, us, ps), 50, kernel="vde_kernel"),
+        }
+    return rows
+
+
+def lq_teams(B=16384):
+    tick, init, solver, _ = quad_fleet.build_quad_fleet(device="cuda")
+    args = tick_qp_inputs(tick, init, solver, B)
+    qp = solver.qp
+    default = qp.geometry.teams
+    ref = qp(*args)
+    rows = {}
+    for s in range(1, MAX_TEAMS + 1):
+        qp.teams = s
+        try:
+            geo = qp.geometry
+        except ValueError:
+            continue
+        got = qp(*args)
+        rows[s] = {"threads": geo.threads, "block_bytes": geo.block_bytes,
+                   "blocks_per_sm": qp.occupancy(),
+                   "bits_as_default": all(torch.equal(g, r) for g, r in zip(got, ref)),
+                   "ms": device_ms(lambda: qp(*args), 10, kernel="lq_ipm_kernel")}
+        rows[s]["scenarios_per_sm"] = s * rows[s]["blocks_per_sm"]
+    qp.teams = None
+    return {"default_teams": default, "rows": rows}
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", help="also write the result to this JSON file")
+    args = ap.parse_args(argv)
+    require_cuda("cuda")
+    with tf32(False):
+        res = {"device": card(), "vde": vde_variants(), "lq": lq_teams()}
+    text = json.dumps(res, indent=1)
+    print(text)
+    if args.out:
+        with open(args.out, "w") as fh:
+            fh.write(text)
+
+
+if __name__ == "__main__":
+    main()

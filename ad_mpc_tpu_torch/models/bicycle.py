@@ -115,12 +115,14 @@ class BicycleDynamics(nn.Module):
     """``f(x, u, p) = bicycle_dynamics(x, u, params, switch=p[0])``: the
     blend switch is the per-scenario stage parameter.
 
+    ``nx``, ``nu`` and ``p_dim`` state the functor's shape;
     ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
     ``csrc/vde.cu`` that run the VDE kernel and its tangent-free RK4 kernel
     with this model's ``__device__`` functor, and ``cuda_params`` builds
     the parameter struct both take by value.
     """
 
+    nx, nu, p_dim = NX, NU, 1
     cuda_entry = "vde_bicycle"
     cuda_rk4_entry = "rk4_bicycle"
 

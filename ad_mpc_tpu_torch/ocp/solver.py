@@ -96,8 +96,10 @@ class BatchedSQPSolver(nn.Module):
 
     :param dynamics: continuous ``f(x, u, p) -> x_dot`` on entries-leading
         tensors (``x[i]`` is one state entry) with a per-scenario parameter
-        vector of ``p_dim >= 1`` entries, e.g.
-        :class:`ad_mpc_tpu_torch.models.bicycle.BicycleDynamics`.
+        vector of ``p_dim`` entries, e.g.
+        :class:`ad_mpc_tpu_torch.models.bicycle.BicycleDynamics` (1) or
+        :class:`ad_mpc_tpu_torch.models.quadrotor.QuadDynamics` (0: params
+        of shape (B, 0), which the kernels never read).
     :param backend: ``"cuda"`` (the kernels), ``"plain"`` (their plain
         versions) or ``"auto"`` (see :func:`resolve_backend`).
     """
@@ -110,9 +112,6 @@ class BatchedSQPSolver(nn.Module):
         if backend == "cuda" and torch.device(device).type != "cuda":
             raise ValueError("backend='cuda' launches the CUDA kernels; "
                              f"device={device!r} is not a CUDA device")
-        if p_dim < 1:
-            raise NotImplementedError("dynamics without parameters (p_dim=0) "
-                                      "are not ported")
         _build.require_card(device)
         self.spec, self.p_dim, self.backend = spec, p_dim, backend
         self.f = dynamics

@@ -8,7 +8,9 @@ with a plain C interface (no PyTorch headers, so a build takes seconds):
 
 The library name carries a hash of the source, of every header
 ``csrc/*.cuh`` and of the flags, so an edited source or header builds anew
-and an unchanged one is reused. ``-Xptxas -v`` (registers, spills) is
+and an unchanged one is reused. ``defines`` add ``-D`` macros (a source's
+tuning traits, as ``experiments/quad_kernels.py`` varies them) and build a
+library of their own. ``-Xptxas -v`` (registers, spills) is
 kept beside the library as ``<name>-<hash>.ptxas.txt``. No
 ``--use_fast_math``: the parity tolerances assume IEEE ``sinf``/``cosf``
 and division. Nothing is built at import; :func:`load` builds on first use
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -45,25 +48,29 @@ def _nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
+def _flags(defines=()) -> list:
+    return NVCC_FLAGS + [f"-D{d}" for d in defines]
+
+
+def _target(name: str, defines=()) -> Path:
     digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(defines)).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
-def build_all(names=SOURCES) -> dict:
+def build_all(names=SOURCES, defines=()) -> dict:
     """Compile every source that has no up-to-date library, all ``nvcc``
     processes started together. Returns {name: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {n: _target(n) for n in names}
+    targets = {n: _target(n, defines) for n in names}
     procs = {}
     for n, so in targets.items():
         if so.exists():
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [_nvcc(), *_flags(defines), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True),
                     tmp, so)
@@ -80,9 +87,9 @@ def build_all(names=SOURCES) -> dict:
     return targets
 
 
-def ptxas_report(name: str) -> str:
+def ptxas_report(name: str, defines=()) -> str:
     """The ``-Xptxas -v`` lines (registers, spills) of the last build."""
-    path = _target(name).with_suffix(".ptxas.txt")
+    path = _target(name, defines).with_suffix(".ptxas.txt")
     if not path.exists():
         return "(built earlier; no ptxas report)"
     keep = ("Compiling entry", "registers", "spill", "stack frame")
@@ -90,12 +97,31 @@ def ptxas_report(name: str) -> str:
                      if any(k in line for k in keep))
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    if name not in _LIBS:
-        so = build_all((name,))[name]
-        _LIBS[name] = ctypes.CDLL(str(so))
-    return _LIBS[name]
+def ptxas_resources(name: str, defines=()) -> dict:
+    """{kernel entry (mangled name): {"registers", "spill_stores",
+    "spill_loads"}} from the ``-Xptxas -v`` report of the last build."""
+    out, entry = {}, None
+    for line in ptxas_report(name, defines).splitlines():
+        if m := re.search(r"Compiling entry function '(\w+)'", line):
+            entry = m.group(1)
+            out[entry] = {"registers": None, "spill_stores": 0, "spill_loads": 0}
+        elif entry and (m := re.search(r"(\d+) bytes spill stores, (\d+) "
+                                       r"bytes spill loads", line)):
+            out[entry]["spill_stores"] = int(m.group(1))
+            out[entry]["spill_loads"] = int(m.group(2))
+        elif entry and (m := re.search(r"Used (\d+) registers", line)):
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
+def load(name: str, defines=()) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
+    built first if needed."""
+    key = (name, tuple(defines))
+    if key not in _LIBS:
+        so = build_all((name,), defines)[name]
+        _LIBS[key] = ctypes.CDLL(str(so))
+    return _LIBS[key]
 
 
 def require_card(device) -> None:

@@ -1,11 +1,13 @@
 """Fused interior-point LQ-QP solve: CUDA kernel wrapper and plain version.
 
 Replaces ``ad_mpc_tpu/ops/pallas_lq.py:_lq_kernel_rolled`` and its
-stage-unrolled twin ``_lq_kernel`` (built by ``make_lq_solver``). The kernel
-is ``csrc/lq_ipm.cu``: a team of 8 lanes runs one scenario's IPM, S teams
-to a block, with the whole iterate in shared memory. :func:`lq_geometry`
-picks S and the shared bytes per scenario here, so that the CPU tests
-reach it; the kernel checks them against its own layout.
+stage-unrolled twin ``_lq_kernel`` (built by ``make_lq_solver``; the
+Pallas wrapper takes it for N < 16, as at the quad's N=10). The kernel is
+``csrc/lq_ipm.cu``, instantiated for the shapes in :data:`SHAPES`: a team
+of :func:`team_lanes` lanes runs one scenario's IPM (8 at nx=7, 16 at
+nx=13), S teams to a block, with the whole iterate in shared memory.
+:func:`lq_geometry` picks S and the shared bytes per scenario here, so that
+the CPU tests reach it; the kernel checks them against its own layout.
 
 Pallas baked the bounds into the trace as Python constants; here they are a
 by-value list of the active (finite) cone entries, and buffers of the module
@@ -28,7 +30,7 @@ from ad_mpc_tpu_torch.ops.qp_ipm import BoundSpec, solve_lq_ocp
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 
 MAX_CONES = 32  # LQ_MAX_CONES in csrc/lq_ipm.cu
-TEAM = 8  # lanes per scenario (LQ_TEAM)
+SHAPES = ((7, 2), (13, 4))  # (nx, nu) of the kernel's instantiations
 MAX_TEAMS = 8  # scenarios per block at most (LQ_MAX_TEAMS)
 SMEM_BLOCK_MAX = 232448  # bytes of shared memory an H100 block may use
 SMEM_SM = 233472  # bytes of shared memory on one H100 SM
@@ -40,6 +42,13 @@ def _align4(n):
     return (n + 3) & ~3
 
 
+def team_lanes(nx):
+    """Lanes of the team that runs one scenario, one per state row
+    (``lq_team`` in csrc/lq_ipm.cu): 8, 4 teams to a warp, up to nx=8, and
+    16, 2 teams to a warp, above."""
+    return 8 if nx <= 8 else 16
+
+
 def header_floats(nx, nu):
     """Shared floats of a block's header: Q, QN, R and the cone list."""
     return (2 * nx * nx + nu * nu + 7 * MAX_CONES + 31) & ~31
@@ -49,16 +58,17 @@ def scenario_floats(N, nx, nu, nc):
     """Shared floats of one scenario (``Layout`` in csrc/lq_ipm.cu, which
     rejects a smaller pitch): the iterate and the Newton step, the gains K
     and kf of every stage, the cone variables and the references under the
-    cones, two stage buffers, the team's tile and a ring of 8 stages' cone
-    weights, padded to 8 mod 32 so that the 4 teams of a warp start on
-    different banks."""
+    cones, two stage buffers, the team's tile and a ring of a team's width
+    of stages' cone weights and gradients, padded to the team's width mod
+    32 floats so that the teams of a warp start on different banks."""
+    team = team_lanes(nx)
     nst = _align4((N + 1) * nx + N * nu)
     gain = _align4(nu * nx + nu)
     stage = _align4(nx * nx) + _align4(nx * nu) + 2 * _align4(nx) + _align4(nu)
     tile = _align4(nx * nx) + _align4(nx * nu) + _align4(nx)
     raw = (2 * nst + N * gain + _align4(4 * nc * N) + _align4(nc * N)
-           + 2 * stage + tile + 16 * max(nc, 1))
-    return raw + (8 - raw) % 32
+           + 2 * stage + tile + 2 * team * max(nc, 1))
+    return raw + (team - raw) % 32
 
 
 class Geometry(NamedTuple):
@@ -71,20 +81,29 @@ class Geometry(NamedTuple):
         return -(-batch // self.teams)
 
 
-def lq_geometry(N, nx, nu, nc):
+def lq_geometry(N, nx, nu, nc, teams=None):
     """The launch geometry: the number of scenarios per block, at most
-    ``MAX_TEAMS``, that keeps the most scenarios resident on an SM (the
-    kernel is latency-bound, so these set its rate), the larger on a tie."""
+    ``MAX_TEAMS``, that keeps the most scenarios resident on an SM by
+    shared memory (the kernel is latency-bound, so these set its rate), the
+    larger on a tie; or ``teams`` scenarios per block when given. Teams of
+    16 lanes fill whole warps: with an odd number of them a block's last
+    warp issues for one team at full cost (at c5, 4 teams per block ran
+    faster than 7, though 7 keep one scenario more resident; PERF.md,
+    ``experiments/quad_kernels.py``)."""
+    team = team_lanes(nx)
     pitch = scenario_floats(N, nx, nu, nc)
     nbytes = lambda s: 4 * (header_floats(nx, nu) + s * pitch)
     fits = [s for s in range(1, MAX_TEAMS + 1) if nbytes(s) <= SMEM_BLOCK_MAX]
-    if not fits:
-        raise ValueError(f"LQ kernel: one scenario (N={N}, {nc} cones) needs "
-                         f"{nbytes(1)} bytes of shared memory")
+    if not fits or (teams is not None and teams not in fits):
+        raise ValueError(f"LQ kernel: {teams or 1} scenarios (N={N}, {nc} "
+                         f"cones) need {nbytes(teams or 1)} bytes of shared "
+                         "memory, or more than a block holds")
     resident = lambda s: s * min(MAX_BLOCKS_SM,
                                  SMEM_SM // (nbytes(s) + SMEM_BLOCK_RESERVED))
-    teams = max(fits, key=lambda s: (resident(s), s))
-    return Geometry(teams, TEAM * teams, pitch, nbytes(teams))
+    if teams is None:
+        whole = [s for s in fits if team * s % 32 == 0] if team == 16 else []
+        teams = max(whole or fits, key=lambda s: (resident(s), s))
+    return Geometry(teams, team * teams, pitch, nbytes(teams))
 
 
 class _LqCone(ctypes.Structure):
@@ -154,7 +173,8 @@ class LQSolver(nn.Module):
     tensors (B,N,nx,nx), (B,N,nx,nu), (B,N,nx), (B,N+1,nx), (B,N,nu),
     (B,N,nu), (B,N+1,nx) and returns (dx (B,N+1,nx), du (B,N,nu),
     alpha (B,)). ``launches`` counts kernel launches; ``geometry`` is
-    the kernel's launch geometry.
+    the kernel's launch geometry, with ``teams`` scenarios per block when
+    that is set (:func:`lq_geometry` picks them when it is None).
     """
 
     def __init__(self, N, nx, nu, Q, R, QN, u_bounds, x_bounds, iters=12,
@@ -175,6 +195,7 @@ class LQSolver(nn.Module):
             raise ValueError(f"{len(cones)} bound entries > {MAX_CONES}")
         self._bounds = _LqBounds(len(cones), (_LqCone * MAX_CONES)(
             *(_LqCone(*e) for e in cones)))
+        self.teams = None
         self.launches = 0
 
     def plain(self, A, Bm, c, q, r, u_ref, x_ref, lqr_fn=lqr_solve):
@@ -190,7 +211,7 @@ class LQSolver(nn.Module):
     @property
     def geometry(self):
         """The kernel's launch geometry (:func:`lq_geometry`)."""
-        return lq_geometry(self.N, self.nx, self.nu, self._bounds.n)
+        return lq_geometry(self.N, self.nx, self.nu, self._bounds.n, self.teams)
 
     def occupancy(self):
         """Blocks of :attr:`geometry` resident on one SM of the card, by
@@ -211,8 +232,9 @@ class LQSolver(nn.Module):
 
     def _launch(self, A, Bm, c, q, r, u_ref, x_ref):
         B, N, nx, nu = A.shape[0], self.N, self.nx, self.nu
-        if (nx, nu) != (7, 2):
-            raise NotImplementedError(f"LQ kernel: nx={nx}, nu={nu}")
+        if (nx, nu) not in SHAPES:
+            raise NotImplementedError(f"LQ kernel: nx={nx}, nu={nu} is not "
+                                      f"one of its shapes {SHAPES}")
         args = (("A", A, (B, N, nx, nx)), ("Bm", Bm, (B, N, nx, nu)),
                 ("c", c, (B, N, nx)), ("q", q, (B, N + 1, nx)),
                 ("r", r, (B, N, nu)), ("u_ref", u_ref, (B, N, nu)),

@@ -31,8 +31,8 @@ from ad_mpc_tpu_torch.ops.integrators import discrete_step, discretize, lineariz
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C signature of each kind of entry, before (dt, rk4_steps, params, stream).
 _ARGS = {
-    "cuda_entry": [_P] * 6 + [_I] * 3,  # vde_<model>
-    "cuda_rk4_entry": [_P, _L, _P, _L, _L, _P, _L, _P] + [_I] * 3,  # rk4_<model>
+    "cuda_entry": [_P] * 6 + [_I] * 5,  # vde_<model>
+    "cuda_rk4_entry": [_P, _L, _P, _L, _L, _P, _L, _P] + [_I] * 6,  # rk4_<model>
 }
 
 
@@ -46,10 +46,11 @@ def _entry_name(f, kind="cuda_entry"):
     return name
 
 
-def _entry(f, kind="cuda_entry"):
+def _entry(f, kind="cuda_entry", defines=()):
     """(C entry of ``f``, ``error_string``), the entry typed for the
-    parameter struct that ``f.cuda_params()`` builds."""
-    lib = _build.load("vde")
+    parameter struct that ``f.cuda_params()`` builds. ``defines`` build
+    ``csrc/vde.cu`` with those ``-D`` macros (its functors' traits)."""
+    lib = _build.load("vde", defines)
     fn = getattr(lib, _entry_name(f, kind))
     if fn.argtypes is None:
         fn.argtypes = _ARGS[kind] + [ctypes.c_double, _I,
@@ -58,6 +59,13 @@ def _entry(f, kind="cuda_entry"):
         lib.error_string.argtypes = [ctypes.c_int]
         lib.error_string.restype = ctypes.c_char_p
     return fn, lib.error_string
+
+
+def _check_shape(what, f, nx, nu):
+    """The functor of ``f`` has the sweep's (nx, nu)."""
+    if (getattr(f, "nx", nx), getattr(f, "nu", nu)) != (nx, nu):
+        raise ValueError(f"{what}: nx={nx}, nu={nu}, but the functor of {f!r} "
+                         f"has nx={f.nx}, nu={f.nu}")
 
 
 def _check(name, t, shape, device, contiguous=True):
@@ -96,8 +104,9 @@ class VDE(nn.Module):
     """Batched fused linearization sweep of ``f(x, u, p)`` over a horizon.
 
     ``forward(xs, us, ps)`` takes batch-first float32 tensors xs (B,N+1,nx),
-    us (B,N,nu), ps (B,p_dim >= 1) and returns (A (B,N,nx,nx), Bm (B,N,nx,nu),
-    c (B,N,nx)). ``launches`` counts kernel launches.
+    us (B,N,nu), ps (B,p_dim) and returns (A (B,N,nx,nx), Bm (B,N,nx,nu),
+    c (B,N,nx)). ``launches`` counts kernel launches; ``defines`` are the
+    ``-D`` macros the kernel is built with (none on the main path).
     """
 
     def __init__(self, f, dt, N, nx, nu, p_dim, rk4_steps=1):
@@ -105,6 +114,7 @@ class VDE(nn.Module):
         self.f = f
         self.dt, self.N, self.nx, self.nu = float(dt), N, nx, nu
         self.p_dim, self.rk4_steps = p_dim, rk4_steps
+        self.defines = ()
         self.launches = 0
 
     def plain(self, xs, us, ps):
@@ -119,10 +129,9 @@ class VDE(nn.Module):
         return self._launch(xs, us, ps)
 
     def _launch(self, xs, us, ps):
-        fn, error_string = _entry(self.f)
         B, N, nx, nu = xs.shape[0], self.N, self.nx, self.nu
-        if (nx, nu) != (7, 2):
-            raise NotImplementedError(f"VDE kernel: nx={nx}, nu={nu}")
+        _check_shape("VDE", self.f, nx, nu)
+        fn, error_string = _entry(self.f, defines=self.defines)
         for name, t, shape in (("xs", xs, (B, N + 1, nx)),
                                ("us", us, (B, N, nu)),
                                ("ps", ps, (B, self.p_dim))):
@@ -132,7 +141,7 @@ class VDE(nn.Module):
         c = torch.empty((B, N, nx), dtype=torch.float32, device=xs.device)
         _run(fn, error_string, self.f, xs.device, xs.data_ptr(), us.data_ptr(),
              ps.data_ptr(), A.data_ptr(), Bm.data_ptr(), c.data_ptr(), B, N,
-             ps.shape[-1], self.dt, self.rk4_steps)
+             nx, nu, ps.shape[-1], self.dt, self.rk4_steps)
         self.launches += 1
         return A, Bm, c
 
@@ -186,34 +195,37 @@ class RK4(nn.Module):
     def _launch(self, x, x_b, u, u_b, u_k, p, batch, N, defect):
         if x.device.type != "cuda":
             raise ValueError(f"RK4: unsupported device {x.device}")
-        if (self.nx, self.nu) != (7, 2):
-            raise NotImplementedError(f"RK4 kernel: nx={self.nx}, nu={self.nu}")
+        _check_shape("RK4", self.f, self.nx, self.nu)
         fn, error_string = _entry(self.f, "cuda_rk4_entry")
         out = torch.empty((batch, N, self.nx) if defect else (batch, self.nx),
                           dtype=torch.float32, device=x.device)
+        # p_dim = 0: the kernel reads no parameter, and the empty tensor's
+        # null pointer is passed with stride 0.
+        p_b = p.stride(0) if self.p_dim else 0
         _run(fn, error_string, self.f, x.device, x.data_ptr(), x_b, u.data_ptr(), u_b,
-             u_k, p.data_ptr(), p.stride(0), out.data_ptr(), batch, N, defect,
-             self.dt, self.rk4_steps)
+             u_k, p.data_ptr(), p_b, out.data_ptr(), batch, N, self.nx, self.nu,
+             self.p_dim, defect, self.dt, self.rk4_steps)
         self.launches += 1
         return out
 
 
-def _prepare(f, device, kind):
-    """On a CUDA device: refuse a dynamics without a CUDA functor, then
-    require the card and build the kernel now."""
+def _prepare(f, device, kind, nx, nu):
+    """On a CUDA device: refuse a dynamics without a CUDA functor or with
+    another (nx, nu), then require the card and build the kernel now."""
     if torch.device(device).type == "cuda":
         _entry_name(f, kind)
+        _check_shape(kind, f, nx, nu)
         _build.require_card(device)
         _entry(f, kind)
 
 
 def make_vde(f, dt, N, nx, nu, p_dim, rk4_steps=1, device="cuda"):
     """Build the fused linearization sweep for ``device``."""
-    _prepare(f, device, "cuda_entry")
+    _prepare(f, device, "cuda_entry", nx, nu)
     return VDE(f, dt, N, nx, nu, p_dim, rk4_steps).to(device)
 
 
 def make_rk4(f, dt, nx, nu, p_dim, rk4_steps=1, device="cuda"):
     """Build the tangent-free RK4 map for ``device``."""
-    _prepare(f, device, "cuda_rk4_entry")
+    _prepare(f, device, "cuda_rk4_entry", nx, nu)
     return RK4(f, dt, nx, nu, p_dim, rk4_steps).to(device)

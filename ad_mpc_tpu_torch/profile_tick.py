@@ -1,9 +1,12 @@
-"""Where the time of the c2 fleet tick goes, on the card.
+"""Where the time of a fleet tick goes, on the card.
 
-    python -m ad_mpc_tpu_torch.profile_tick [--batch 1024 16384] [--ticks 10]
+    python -m ad_mpc_tpu_torch.profile_tick [--config c2|c5]
+                                            [--batch 1024 16384] [--ticks 10]
                                             [--out PATH]
 
-For each batch size: 5 warm-up ticks, then ``--ticks`` ticks under
+``--config``: the c2 bicycle tick (``fleet.build_fleet``) or the c5 quad
+tick (``experiments.quad_fleet.build_quad_fleet``, two Gauss-Newton
+iterations). For each batch size: 5 warm-up ticks, then ``--ticks`` ticks under
 ``torch.profiler`` (CPU and CUDA activities). Prints the device time per
 tick of each kernel (the port's two kernels and PyTorch's own), the tick's
 wall time after a ``synchronize``, and the device's busy share of that
@@ -21,16 +24,17 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ad_mpc_tpu_torch import fleet
+from ad_mpc_tpu_torch.experiments import device_us, quad_fleet
+
+FLEETS = {
+    "c2": lambda: fleet.build_fleet(fleet.dynamic_bicycle, fleet.switch_on,
+                                    device="cuda"),
+    "c5": lambda: quad_fleet.build_quad_fleet(device="cuda"),
+}
 
 
-def _device_us(evt):
-    return getattr(evt, "self_device_time_total",
-                   getattr(evt, "self_cuda_time_total", 0.0))
-
-
-def profile_batch(batch, ticks):
-    tick, init, _, _ = fleet.build_fleet(fleet.dynamic_bicycle,
-                                         fleet.switch_on, device="cuda")
+def profile_batch(batch, ticks, config="c2"):
+    tick, init, _, _ = FLEETS[config]()
     carry = init(batch)
     for _ in range(5):
         carry, _ = tick(carry)
@@ -43,7 +47,7 @@ def profile_batch(batch, ticks):
         wall_ms = 1e3 * (time.perf_counter() - tic) / ticks
     kernels = {}
     for evt in prof.key_averages():
-        us = _device_us(evt)
+        us = device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = (us / 1e3 / ticks, evt.count // ticks)
     if not kernels:
@@ -51,7 +55,7 @@ def profile_batch(batch, ticks):
     busy_ms = sum(ms for ms, _ in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return {
-        "batch": batch, "ticks": ticks, "tick_wall_ms": wall_ms,
+        "config": config, "batch": batch, "ticks": ticks, "tick_wall_ms": wall_ms,
         "device_busy_ms": busy_ms, "device_busy_share": busy_ms / wall_ms,
         "kernels_launched_per_tick": sum(n for _, n in kernels.values()),
         "kernels": [{"name": k[:80], "ms_per_tick": ms, "launches_per_tick": n}
@@ -61,6 +65,7 @@ def profile_batch(batch, ticks):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", choices=sorted(FLEETS), default="c2")
     ap.add_argument("--batch", type=int, nargs="+", default=[1024, 16384])
     ap.add_argument("--ticks", type=int, default=10)
     ap.add_argument("--out", help="also write the rows to this JSON file")
@@ -68,9 +73,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("profile_tick: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = [profile_batch(b, args.ticks) for b in args.batch]
+    rows = [profile_batch(b, args.ticks, args.config) for b in args.batch]
     for r in rows:
-        print(f"B={r['batch']}: tick {r['tick_wall_ms']:.3f} ms wall, device "
+        print(f"{r['config']} B={r['batch']}: tick {r['tick_wall_ms']:.3f} ms wall, device "
               f"busy {r['device_busy_ms']:.3f} ms ({100 * r['device_busy_share']:.1f}%)"
               f", {r['kernels_launched_per_tick']} kernels per tick on "
               f"{torch.cuda.get_device_name(0)}")

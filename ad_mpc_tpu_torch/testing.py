@@ -1,4 +1,5 @@
-"""Seeded numpy problem generators shared by the tests and ``chip_smoke.py``.
+"""Seeded numpy problem generators and the LQ kernel's check
+(:func:`lq_case`), shared by the tests and ``chip_smoke.py``.
 
 They draw the same LQ batches and bound structures as the JAX package's
 kernel tests (``tests/test_pallas_lq.py:21-67``), so a kernel is checked on
@@ -53,6 +54,11 @@ BOUNDS = {"bicycle": bounds_bicycle_like, "unit": bounds_hard_unit}
 # Stage weights of the JAX kernel tests (``tests/test_pallas_lq.py:110-112``).
 LQ_WEIGHTS = (np.diag([0.5, 0.5, 2.0, 0.1, 0.0, 0.0, 0.05]),
               np.diag([0.05, 5.0]))
+# Quad stage weights for random 13x4 problems: the diagonal of
+# ``control.mpc.quad_spec`` times its dt = 0.1 (the terminal weight is ten
+# times this, the spec's unscaled diagonal).
+QUAD_LQ_WEIGHTS = (0.1 * np.diag([10.0] * 3 + [0.1] * 4 + [0.05] * 6),
+                   0.1 * np.diag([0.1] * 4))
 
 
 def random_traj(rng, B, N, nx, nu, v0=8.0):
@@ -62,3 +68,95 @@ def random_traj(rng, B, N, nx, nu, v0=8.0):
     xs[:, :, 3] += v0
     us = rng.normal(0.0, 0.5, (B, N, nu)).astype(np.float32)
     return xs, us
+
+
+def quad_traj(rng, B, N, nx=13, nu=4):
+    """float32 quad iterate (xs (B,N+1,13), us (B,N,4)) as
+    ``tests/test_pallas_vde.py:124-128`` draws it: states around the
+    identity quaternion, inputs in [0, 1]."""
+    xs = rng.normal(0.0, 0.3, (B, N + 1, nx)).astype(np.float32)
+    xs[:, :, 3] += 1.0  # quaternion w
+    us = rng.uniform(0.0, 1.0, (B, N, nu)).astype(np.float32)
+    return xs, us
+
+
+SPREAD_RUNS = 8  # perturbed float32 runs of the plain LQ version (lq_case)
+SPREAD_FACTOR = 4.0  # allowance over a correct float32 run (lq_case, the MXU micro)
+
+
+def lq_case(qp, args, strict):
+    """Hold the LQ kernel against its plain version on one batch, scenario
+    by scenario, at atol 3e-4 / rtol 1e-3 on dx and du.
+
+    Where a problem is ill-conditioned, 12 float32 IPM iterations are not
+    reproducible between two correct implementations: the fraction-to-
+    boundary step is a min over ratios, so rounding moves the path. The
+    float64 run of the plain version is the exact answer, and each scenario
+    b gets an allowance from its own float32 spread s_b: the largest
+    max |m - f64| over float32 runs m of the plain version, on the inputs
+    and on ``SPREAD_RUNS`` copies perturbed by about one ulp. Every scenario
+    must satisfy
+        max (|kernel - f64| - (atol + rtol |f64|)) <= SPREAD_FACTOR * s_b,
+    so a well-conditioned scenario (s_b ~ 1e-6) is held to the tolerance.
+    ``factor`` is the least factor that passes. ``fixed_tol_misses``
+    counts the scenarios that a rule with no allowance would reject: off
+    the float32 plain version and off the float64 answer where the float32
+    plain version hits it. ``control_*`` are the same two numbers for the
+    plain version run on the CPU, a correct float32 implementation by
+    construction. ``strict`` (the main path's QPs) also
+    asks every scenario to agree with the float32 plain version. Every
+    output is finite, alpha lies in [0, 1], and a second launch gives the
+    same bits.
+    """
+    import torch
+
+    plain = lambda: qp.plain(*args)
+    got, again, want = qp(*args), qp(*args), plain()
+    ref64 = qp.plain(*(a.double() for a in args))
+    control = qp.plain(*(a.cpu() for a in args))
+    runs = [want]
+    gen = torch.Generator(device=args[0].device)
+    for seed in range(SPREAD_RUNS):
+        gen.manual_seed(seed)
+        runs.append(qp.plain(*(a * (1 + 2.0**-23 * torch.randn(
+            a.shape, device=a.device, generator=gen)) for a in args)))
+    torch.cuda.synchronize()
+    B = args[0].shape[0]
+
+    def excess(g, w):  # per scenario: how far dx, du lie outside tolerance of w
+        return torch.stack([
+            ((a.double().to(b.device) - b.double()).abs()
+             - (3e-4 + 1e-3 * b.double().abs())).flatten(1).amax(1)
+            for a, b in zip(g[:2], w[:2])]).amax(0)
+
+    spread = torch.stack([torch.stack([
+        (a.double() - b.double()).abs().flatten(1).amax(1)
+        for a, b in zip(m[:2], ref64[:2])]).amax(0) for m in runs]).amax(0)
+
+    def factor(g):
+        e = excess(g, ref64).to(spread.device)
+        need = torch.where(e > 0, e / spread, torch.zeros_like(e))
+        return float(need.amax())
+
+    plain_hits64 = excess(want, ref64) <= 0
+
+    def fixed_tol_misses(g):
+        off = (excess(g, want) > 0) & (excess(g, ref64) > 0)
+        return int((off.to(plain_hits64.device) & plain_hits64).sum())
+
+    agree = excess(got, want) <= 0
+    row = {
+        "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2])),
+        "agree": int(agree.sum()), "B": B,
+        "kernel_misses_f64": int((excess(got, ref64) > 0).sum()),
+        "plain_misses_f64": int(B - plain_hits64.sum()),
+        "factor": factor(got), "control_factor": factor(control),
+        "fixed_tol_misses": fixed_tol_misses(got),
+        "control_fixed_tol_misses": fixed_tol_misses(control),
+        "deterministic": all(torch.equal(g, h) for g, h in zip(got, again)),
+    }
+    ok = (row["factor"] <= SPREAD_FACTOR and row["deterministic"]
+          and (row["agree"] == B or not strict)
+          and all(bool(g.isfinite().all()) for g in got)
+          and bool(((got[2] >= 0) & (got[2] <= 1)).all()))
+    return row, ok, plain

@@ -13,43 +13,55 @@ Phases, each of which must pass:
    both modes of the sweep's tangent-free RK4 entry (the KKT defect over
    B=16384, N=30, and the plant step over 16384 vehicles with u a strided
    view) held against ``integrators.discrete_step`` at atol 2e-5, at
-   switch 1 and 0.3, with their device times;
+   switch 1 and 0.3, with their device times warm and cold (128 MB
+   written between launches, so the bytes come from HBM, not the L2);
 3. kernel phase LQ: the fused interior-point QP kernel on the QPs of the
    third c2 tick at B=16384 and at B=1024 (N=30, 12 iterations), held
    against the plain batched IPM at atol 3e-4 / rtol 1e-3 on dx and du in
    every scenario; then on the QPs of a c2-N40 tick (B=16384), random
    bicycle-bounded problems (B=16384, N=30) and a ragged unit-box case at
-   N=10. In every case each scenario is held to the float64 plain solution
-   with an allowance from that scenario's own float32 spread (``lq_case``),
-   and the kernel's launch geometry is printed (scenarios and threads per
-   block, shared bytes per block, resident blocks per SM);
+   N=10 (timed cold too). In every case each scenario is held to the
+   float64 plain solution with an allowance from that scenario's own
+   float32 spread (``testing.lq_case``), and the kernel's launch geometry is
+   printed (scenarios and threads per block, shared bytes per block,
+   resident blocks per SM);
 4. slice phase: the c2 fleet tick (``fleet.build_fleet``) at B=1024 and
    16384, 5 warm-up and 20 timed ticks, with the launches per tick of
    ``fleet.LAUNCHES_PER_TICK`` (the sweep and the QP once, the RK4 map
    twice), the c2 quality gates, and RTI-vs-converged u0;
-5. kernel phase lane chain: the lane-layout chained product (B=16384,
+5. the c5 quadrotor (nx=13, nu=4, N=10, p_dim=0): kernel phase VDE quad
+   (B=16384, held to ``vde_plain`` at 3e-5, with registers and spills),
+   kernel phase RK4 quad (both modes against ``discrete_step`` at 3e-5,
+   warm and cold), kernel phase LQ 13x4 (``lq_case`` on the QPs of the
+   third c5 tick at B=16384, strict, and B=1024, and on random unit-box
+   problems at B=16384, 18 iterations), then the c5 fleet
+   (``experiments.quad_fleet``) at B=256, 1024, 4096 and 16384, 20 warm-up
+   and 20 timed ticks, with ``quad_fleet.LAUNCHES_PER_TICK`` (two
+   Gauss-Newton iterations: the sweep and the QP twice, the RK4 map
+   twice), the c5 gates, and RTI-vs-converged u0 on the B=256 fleet;
+6. kernel phase lane chain: the lane-layout chained product (B=16384,
    nx=7, 12 links) held against its plain version and against 12 chained
    fp32 ``torch.bmm`` at 1e-5 of max |out|, a relaunch repeating its
    bits; its launch geometry (blocks, threads and shared bytes per block,
-   resident blocks per SM); its device time and that of the bmm chain
-   (``library_ms``) by ``torch.profiler``;
-6. MXU micro and macro (``experiments.mxu_riccati``, each arm timed by
+   resident blocks per SM); its device time warm and cold and that of the
+   bmm chain (``library_ms``) by ``torch.profiler``;
+7. MXU micro and macro (``experiments.mxu_riccati``, each arm timed by
    CUDA-graph replay): every output finite, the lane arm's output after
    50 renormalised applications no further from its float64 counterpart
    than SPREAD_FACTOR times the fp32 bmm arm's (one application is held
    at 1e-5 in phase 5), one kernel launch captured per application and
    captured launches x replays equal to the applications reported, and
    the macro's kernel arm within the c2 gates with the tick's launches;
-7. long-horizon Riccati micro (``experiments.long_horizon``): the
-   associative scan within 2e-3 of the sequential recursion at N=30 and
-   128 (N=512 printed);
-8. c2-N40 at B=16384: 5 + 20 ticks, the tick's launches, the c2 gates;
-9. the batch-1 latency row (``fleet.bench_latency``) with the tick's
-   launches: printed; over the 20 ms budget is a warning, as in
-   ``bench.py``.
+8. long-horizon Riccati micro (``experiments.long_horizon``, each backend
+   timed by CUDA-graph replay): the associative scan within 2e-3 of the
+   sequential recursion at N=30 and 128 (N=512 printed);
+9. c2-N40 at B=16384: 5 + 20 ticks, the tick's launches, the c2 gates;
+10. the batch-1 latency row (``fleet.bench_latency``) with the tick's
+    launches: printed; over the 20 ms budget is a warning, as in
+    ``bench.py``.
 
-Each path of phases 4 and 6-9 starts with its kernels' launch counts at 0
-and reads them after. The script then prints a ``{"kernels": [...]}`` line
+Each path of phases 4, 5 and 7-10 starts with its kernels' launch counts
+at 0 and reads them after. The script then prints a ``{"kernels": [...]}`` line
 and, last, the ``{"ok": true, ...}`` line. Any failure exits non-zero
 before the ``ok`` line. No JAX is imported. ``--out`` also writes every
 measurement as JSON.
@@ -68,9 +80,9 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, same sheet
 BICYCLE_DYN_FLOPS = 90  # hand count of the blended bicycle f(x, u, p)
+QUAD_DYN_FLOPS = 150  # hand count of the entrywise quad (bench.py:527)
 WARMUP, TICKS = 5, 20
-SPREAD_RUNS = 8  # perturbed float32 runs of the plain LQ version (lq_case)
-SPREAD_FACTOR = 4.0  # allowance over a correct float32 run (lq_case, phase_mxu)
+C5_WARMUP = 20  # the c5 rows' warm-up ticks (bench.py:779)
 
 
 def vde_flops_per_stage(nx, nu, dyn_flops):
@@ -116,35 +128,14 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps):
-    """Device time per call of ``fn``: the summed duration of the kernels
-    it launches, by ``torch.profiler``, over ``reps`` calls after one warm
-    call. Unlike CUDA events around back-to-back calls, it leaves out the
-    gaps in which the card waits for the host."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from ad_mpc_tpu_torch.profile_tick import _device_us
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    check(us > 0, "the profiler recorded no device time")
-    return us / 1e3 / reps
-
-
 def zero_launches(solver):
     """Set the launch counts of the solver's kernels to 0."""
     solver.vde.launches = solver.qp.launches = solver.rk4.launches = 0
 
 
-def check_launches(fleet, launches, ticks, where):
-    """Each kernel launched ``fleet.LAUNCHES_PER_TICK`` times per tick."""
-    want = {k: n * ticks for k, n in fleet.LAUNCHES_PER_TICK.items()}
+def check_launches(per_tick, launches, ticks, where):
+    """Each kernel launched ``per_tick[kernel]`` times per tick."""
+    want = {k: n * ticks for k, n in per_tick.items()}
     check(launches == want,
           f"launches {launches} in {ticks} ticks {where}, expected {want}")
 
@@ -156,10 +147,60 @@ def max_err(got, want, atol, rtol=0.0):
     return float(d.max()), ok
 
 
+def vde_case(torch, out, key, vde, dyn, dt, xs, us, params, atol, dyn_flops):
+    """The VDE kernel against ``vde_plain`` at ``atol`` for each parameter
+    tensor of ``params`` ({name: ps}); device time by the profiler beside
+    the CUDA-event time. Returns the kernels-line numbers."""
+    from ad_mpc_tpu_torch.experiments import device_ms
+    from ad_mpc_tpu_torch.ops import _build
+    from ad_mpc_tpu_torch.ops.cuda_vde import vde_plain
+
+    B, N, nx = xs.shape[0], xs.shape[1] - 1, xs.shape[2]
+    nu = us.shape[-1]
+    rows = {}
+    for name, ps in params.items():
+        got = vde(xs, us, ps)
+        want = vde_plain(dyn, dt, 1, xs, us, ps)
+        torch.cuda.synchronize()
+        errs = [max_err(g, w, atol) for g, w in zip(got, want)]
+        err = max(e for e, _ in errs)
+        check(all(ok for _, ok in errs),
+              f"{key} kernel disagrees with its plain version at {name}: "
+              f"max |err| {err:.3e} > {atol}")
+        row = rows[name] = {
+            "max_abs_err": err,
+            "ms": device_ms(lambda: vde(xs, us, ps), 50),
+            "events_ms": time_ms(torch, lambda: vde(xs, us, ps), 50),
+            "plain_ms": time_ms(
+                torch, lambda: vde_plain(dyn, dt, 1, xs, us, ps), 3),
+        }
+        print(f"{key} {name}: max|err| {err:.3e}, kernel {row['ms']:.5f} ms "
+              f"device ({row['events_ms']:.5f} ms by events, back to back), "
+              f"plain {row['plain_ms']:.3f} ms, launches (comparison "
+              f"instance) {vde.launches}")
+    pd = next(iter(params.values())).shape[-1]
+    n_bytes = 4 * (xs.numel() + us.numel() + B * pd
+                   + B * N * (nx * nx + nx * nu + nx))
+    n_flops = B * N * vde_flops_per_stage(nx, nu, dyn_flops)
+    bms, by = bound_ms(n_bytes, n_flops)
+    ptxas = _build.ptxas_report("vde")
+    res = next(r for e, r in _build.ptxas_resources("vde").items()
+               if "vde_kernel" in e and dyn.cuda_entry.split("_")[1] in e.lower())
+    print(f"{key} bound at B={B}, N={N}: {n_bytes / 1e6:.1f} MB, "
+          f"{n_flops / 1e9:.2f} GFLOP -> {bms:.4f} ms ({by}); kernel "
+          f"{res['registers']} registers, {res['spill_stores']} B spill stores, "
+          f"{res['spill_loads']} B spill loads")
+    out[key] = {"cases": rows, "bytes": n_bytes, "flops": n_flops,
+                "bound_ms": bms, "bound_by": by, "ptxas": ptxas,
+                "resources": res}
+    first = next(iter(rows.values()))
+    return first | {"bound_ms": bms, "bound_by": by, "max_abs_err": max(
+        r["max_abs_err"] for r in rows.values())}
+
+
 def phase_vde(torch, np, out):
     from ad_mpc_tpu_torch import fleet
-    from ad_mpc_tpu_torch.ops import _build
-    from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
     from ad_mpc_tpu_torch.testing import random_traj
 
     B, N, nx, nu, dt = 16384, 30, 7, 2, 0.05
@@ -167,56 +208,41 @@ def phase_vde(torch, np, out):
     vde = make_vde(dyn, dt, N, nx, nu, 1, device="cuda")
     xs, us = random_traj(np.random.default_rng(3), B, N, nx, nu)
     xs, us = torch.as_tensor(xs).cuda(), torch.as_tensor(us).cuda()
-    rows = {}
-    for switch in (1.0, 0.3):
-        ps = torch.full((B, 1), switch, device="cuda")
-        got = vde(xs, us, ps)
-        want = vde_plain(dyn, dt, 1, xs, us, ps)
-        torch.cuda.synchronize()
-        errs = [max_err(g, w, 2e-5) for g, w in zip(got, want)]
-        err = max(e for e, _ in errs)
-        check(all(ok for _, ok in errs),
-              f"VDE kernel disagrees with its plain version at switch "
-              f"{switch}: max |err| {err:.3e} > 2e-5")
-        rows[switch] = {
-            "max_abs_err": err,
-            "ms": device_ms(torch, lambda: vde(xs, us, ps), 50),
-            "events_ms": time_ms(torch, lambda: vde(xs, us, ps), 50),
-            "plain_ms": time_ms(
-                torch, lambda: vde_plain(dyn, dt, 1, xs, us, ps), 3),
-        }
-        print(f"VDE switch={switch}: max|err| {err:.3e}, kernel "
-              f"{rows[switch]['ms']:.5f} ms device ({rows[switch]['events_ms']:.5f}"
-              f" ms by events, back to back), plain "
-              f"{rows[switch]['plain_ms']:.3f} ms, launches (comparison "
-              f"instance) {vde.launches}")
-    n_bytes = 4 * (xs.numel() + us.numel() + B + B * N * (nx * nx + nx * nu + nx))
-    n_flops = B * N * vde_flops_per_stage(nx, nu, BICYCLE_DYN_FLOPS)
-    bms, by = bound_ms(n_bytes, n_flops)
-    print(f"VDE bound at B={B}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} "
-          f"GFLOP -> {bms:.4f} ms ({by})")
-    out["vde"] = {"cases": rows, "bytes": n_bytes, "flops": n_flops,
-                  "bound_ms": bms, "bound_by": by,
-                  "ptxas": _build.ptxas_report("vde")}
-    return rows[1.0] | {"bound_ms": bms, "bound_by": by, "max_abs_err": max(
-        rows[s]["max_abs_err"] for s in (1.0, 0.3))}
+    params = {f"switch={s}": torch.full((B, 1), s, device="cuda")
+              for s in (1.0, 0.3)}
+    return vde_case(torch, out, "vde", vde, dyn, dt, xs, us, params, 2e-5,
+                    BICYCLE_DYN_FLOPS)
 
 
-def phase_rk4(torch, np, out):
-    from ad_mpc_tpu_torch import fleet
-    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+def phase_vde_quad(torch, np, out):
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
+    from ad_mpc_tpu_torch.testing import quad_traj
+
+    B, N, nx, nu, dt = 16384, 10, 13, 4, 0.1
+    dyn = QuadDynamics()
+    vde = make_vde(dyn, dt, N, nx, nu, 0, device="cuda")
+    xs, us = (torch.as_tensor(a).cuda()
+              for a in quad_traj(np.random.default_rng(13), B, N))
+    params = {"p_dim=0": torch.zeros((B, 0), device="cuda")}
+    return vde_case(torch, out, "vde_quad", vde, dyn, dt, xs, us, params,
+                    3e-5, QUAD_DYN_FLOPS)
+
+
+def rk4_case(torch, out, key, rk4, dyn, dt, xs, us, params, atol, dyn_flops):
+    """Both modes of the tangent-free RK4 entry (the KKT defect over every
+    stage, and the plant step with u a strided view ``us[:, 0]``) against
+    ``integrators.discrete_step`` at ``atol``, for each parameter tensor of
+    ``params``; device times warm and, at the first parameter, cold (the
+    bytes of either mode fit the 50 MB L2)."""
+    from ad_mpc_tpu_torch.experiments import device_ms
     from ad_mpc_tpu_torch.ops.integrators import discrete_step
-    from ad_mpc_tpu_torch.testing import random_traj
 
-    B, N, nx, nu, dt = 16384, 30, 7, 2, 0.05
-    dyn = fleet.dynamic_bicycle
-    rk4 = make_rk4(dyn, dt, nx, nu, 1, device="cuda")  # comparison instance
-    xs, us = random_traj(np.random.default_rng(4), B, N, nx, nu)
-    xs, us = torch.as_tensor(xs).cuda(), torch.as_tensor(us).cuda()
+    B, N, nx = xs.shape[0], xs.shape[1] - 1, xs.shape[2]
+    nu = us.shape[-1]
     x, u = xs[:, 0].contiguous(), us[:, 0]  # u strided, as the plant step's
-    rows = {}
-    for switch in (1.0, 0.3):
-        ps = torch.full((B, 1), switch, device="cuda")
+    rows, first = {}, next(iter(params))
+    for name, ps in params.items():
         modes = {
             "defect": (lambda: rk4.defect(xs, us, ps),
                        lambda: discrete_step(dyn, dt, 1, xs[:, :-1], us,
@@ -225,118 +251,138 @@ def phase_rk4(torch, np, out):
                      lambda: discrete_step(dyn, dt, 1, x, u, ps)),
         }
         for mode, (kernel, plain) in modes.items():
-            err, ok = max_err(kernel(), plain(), 2e-5)
-            check(ok, f"RK4 {mode} disagrees with discrete_step at switch "
-                  f"{switch}: max |err| {err:.3e} > 2e-5")
-            rows[mode, switch] = {
-                "max_abs_err": err, "ms": device_ms(torch, kernel, 50),
+            err, ok = max_err(kernel(), plain(), atol)
+            check(ok, f"{key} {mode} disagrees with discrete_step at {name}: "
+                  f"max |err| {err:.3e} > {atol}")
+            rows[mode, name] = {
+                "max_abs_err": err, "ms": device_ms(kernel, 50),
                 "plain_ms": time_ms(torch, plain, 5)}
+            if name == first:
+                rows[mode, name]["cold_ms"] = device_ms(
+                    kernel, 50, cold=True, kernel="rk4_kernel")
+    pd = params[first].shape[-1]
     bounds = {}
     for mode, n_rows, n_in in (("defect", B * N, xs.numel() + us.numel()),
                                ("step", B, B * (nx + nu))):
-        n_bytes = 4 * (n_in + B + n_rows * nx)
-        n_flops = n_rows * (4 * BICYCLE_DYN_FLOPS + 14 * nx)
+        n_bytes = 4 * (n_in + B * pd + n_rows * nx)
+        n_flops = n_rows * (4 * dyn_flops + 14 * nx)
         bms, by = bound_ms(n_bytes, n_flops)
         bounds[mode] = {"bytes": n_bytes, "flops": n_flops, "bound_ms": bms,
                         "bound_by": by}
-        r = rows[mode, 1.0]
-        err = max(rows[mode, s]["max_abs_err"] for s in (1.0, 0.3))
-        print(f"RK4 {mode}: max|err| {err:.3e}, kernel {r['ms']:.5f} ms "
-              f"device, plain {r['plain_ms']:.3f} ms, bound {bms:.5f} ms "
+        r = rows[mode, first]
+        err = max(rows[mode, n]["max_abs_err"] for n in params)
+        print(f"{key} {mode}: max|err| {err:.3e}, kernel {r['ms']:.5f} ms "
+              f"device warm, {r['cold_ms']:.5f} ms cold ({100 * bms / r['cold_ms']:.0f}% "
+              f"of the bound), plain {r['plain_ms']:.3f} ms, bound {bms:.5f} ms "
               f"({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP)")
-    out["rk4"] = {"cases": {f"{m}_{s}": r for (m, s), r in rows.items()},
-                  "bounds": bounds}
-    return rows["defect", 1.0] | bounds["defect"] | {"max_abs_err": max(
+    out[key] = {"cases": {f"{m}_{n}": r for (m, n), r in rows.items()},
+                "bounds": bounds}
+    return rows["defect", first] | bounds["defect"] | {"max_abs_err": max(
         r["max_abs_err"] for r in rows.values())}
 
 
-def lq_case(torch, qp, args, strict):
-    """Hold the LQ kernel against its plain version on one batch, scenario
-    by scenario, at atol 3e-4 / rtol 1e-3 on dx and du.
+def phase_rk4(torch, np, out):
+    from ad_mpc_tpu_torch import fleet
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import random_traj
 
-    Where a problem is ill-conditioned, 12 float32 IPM iterations are not
-    reproducible between two correct implementations: the fraction-to-
-    boundary step is a min over ratios, so rounding moves the path. The
-    float64 run of the plain version is the exact answer, and each scenario
-    b gets an allowance from its own float32 spread s_b: the largest
-    max |m - f64| over float32 runs m of the plain version, on the inputs
-    and on ``SPREAD_RUNS`` copies perturbed by about one ulp. Every scenario
-    must satisfy
-        max (|kernel - f64| - (atol + rtol |f64|)) <= SPREAD_FACTOR * s_b,
-    so a well-conditioned scenario (s_b ~ 1e-6) is held to the tolerance.
-    ``factor`` is the least factor that passes. ``fixed_tol_misses``
-    counts the scenarios that a rule with no allowance would reject: off
-    the float32 plain version and off the float64 answer where the float32
-    plain version hits it. ``control_*`` are the same two numbers for the
-    plain version run on the CPU, a correct float32 implementation by
-    construction. ``strict`` (the main path's QPs) also
-    asks every scenario to agree with the float32 plain version. Every
-    output is finite, alpha lies in [0, 1], and a second launch gives the
-    same bits.
-    """
-    plain = lambda: qp.plain(*args)
-    got, again, want = qp(*args), qp(*args), plain()
-    ref64 = qp.plain(*(a.double() for a in args))
-    control = qp.plain(*(a.cpu() for a in args))
-    runs = [want]
-    gen = torch.Generator(device=args[0].device)
-    for seed in range(SPREAD_RUNS):
-        gen.manual_seed(seed)
-        runs.append(qp.plain(*(a * (1 + 2.0**-23 * torch.randn(
-            a.shape, device=a.device, generator=gen)) for a in args)))
-    torch.cuda.synchronize()
-    B = args[0].shape[0]
+    B, N, nx, nu, dt = 16384, 30, 7, 2, 0.05
+    dyn = fleet.dynamic_bicycle
+    rk4 = make_rk4(dyn, dt, nx, nu, 1, device="cuda")  # comparison instance
+    xs, us = random_traj(np.random.default_rng(4), B, N, nx, nu)
+    xs, us = torch.as_tensor(xs).cuda(), torch.as_tensor(us).cuda()
+    params = {f"switch={s}": torch.full((B, 1), s, device="cuda")
+              for s in (1.0, 0.3)}
+    return rk4_case(torch, out, "rk4", rk4, dyn, dt, xs, us, params, 2e-5,
+                    BICYCLE_DYN_FLOPS)
 
-    def excess(g, w):  # per scenario: how far dx, du lie outside tolerance of w
-        return torch.stack([
-            ((a.double().to(b.device) - b.double()).abs()
-             - (3e-4 + 1e-3 * b.double().abs())).flatten(1).amax(1)
-            for a, b in zip(g[:2], w[:2])]).amax(0)
 
-    spread = torch.stack([torch.stack([
-        (a.double() - b.double()).abs().flatten(1).amax(1)
-        for a, b in zip(m[:2], ref64[:2])]).amax(0) for m in runs]).amax(0)
+def phase_rk4_quad(torch, np, out):
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import quad_traj
 
-    def factor(g):
-        e = excess(g, ref64).to(spread.device)
-        need = torch.where(e > 0, e / spread, torch.zeros_like(e))
-        return float(need.amax())
-
-    plain_hits64 = excess(want, ref64) <= 0
-
-    def fixed_tol_misses(g):
-        off = (excess(g, want) > 0) & (excess(g, ref64) > 0)
-        return int((off.to(plain_hits64.device) & plain_hits64).sum())
-
-    agree = excess(got, want) <= 0
-    row = {
-        "max_abs_err": max(float((g - w).abs().max()) for g, w in zip(got[:2], want[:2])),
-        "agree": int(agree.sum()), "B": B,
-        "kernel_misses_f64": int((excess(got, ref64) > 0).sum()),
-        "plain_misses_f64": int(B - plain_hits64.sum()),
-        "factor": factor(got), "control_factor": factor(control),
-        "fixed_tol_misses": fixed_tol_misses(got),
-        "control_fixed_tol_misses": fixed_tol_misses(control),
-        "deterministic": all(torch.equal(g, h) for g, h in zip(got, again)),
-    }
-    ok = (row["factor"] <= SPREAD_FACTOR and row["deterministic"]
-          and (row["agree"] == B or not strict)
-          and all(bool(g.isfinite().all()) for g in got)
-          and bool(((got[2] >= 0) & (got[2] <= 1)).all()))
-    return row, ok, plain
+    B, N, nx, nu, dt = 16384, 10, 13, 4, 0.1
+    dyn = QuadDynamics()
+    rk4 = make_rk4(dyn, dt, nx, nu, 0, device="cuda")  # comparison instance
+    xs, us = (torch.as_tensor(a).cuda()
+              for a in quad_traj(np.random.default_rng(14), B, N))
+    params = {"p_dim=0": torch.zeros((B, 0), device="cuda")}
+    return rk4_case(torch, out, "rk4_quad", rk4, dyn, dt, xs, us, params,
+                    3e-5, QUAD_DYN_FLOPS)
 
 
 def tick_qps(fleet, batch, n_nodes):
     """The c2 solver's QP module and the inputs of its QP at the third tick
     of a fleet of ``batch`` vehicles."""
+    from ad_mpc_tpu_torch.experiments import tick_qp_inputs
+
     tick, init, solver, spec = fleet.build_fleet(
         fleet.dynamic_bicycle, fleet.switch_on, n_nodes=n_nodes, device="cuda")
-    captured = []
-    solver.qp.register_forward_pre_hook(lambda mod, a: captured.append(a))
-    carry = init(batch)
-    for _ in range(3):
-        carry, _ = tick(carry)
-    return solver.qp, captured[-1], spec
+    return solver.qp, tick_qp_inputs(tick, init, solver, batch), spec
+
+
+def quad_tick_qps(batch):
+    """The c5 solver's QP module and the inputs of the last QP of its third
+    tick (the second Gauss-Newton iteration) at ``batch`` vehicles."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet, tick_qp_inputs
+
+    tick, init, solver, _ = quad_fleet.build_quad_fleet(device="cuda")
+    return solver.qp, tick_qp_inputs(tick, init, solver, batch)
+
+
+def lq_cases(torch, out, key, cases, cold=()):
+    """``lq_case`` on each of ``cases`` ({name: (solver, inputs, strict)}),
+    with its launch geometry, its time against its bound and, for the
+    names in ``cold``, its time with the inputs out of L2. Returns the
+    rows."""
+    from ad_mpc_tpu_torch.experiments import device_ms
+    from ad_mpc_tpu_torch.testing import SPREAD_FACTOR, lq_case
+
+    rows = {}
+    for name, (qp, args, strict) in cases.items():
+        row, ok, plain = lq_case(qp, args, strict)
+        check(ok, f"LQ kernel disagrees with its plain version ({name}): {row}")
+        B, N, nx = args[0].shape[:3]
+        nu = args[1].shape[-1]
+        n_bytes = 4 * (sum(a.numel() for a in args)
+                       + B * ((N + 1) * nx + N * nu + 1))
+        n_flops = B * N * qp.iters * lq_flops_per_stage_iter(nx, nu)
+        bms, by = bound_ms(n_bytes, n_flops)
+        geo = qp.geometry
+        row |= {"N": N, "nx": nx, "nu": nu,
+                "ms": time_ms(torch, lambda: qp(*args), 10),
+                "plain_ms": time_ms(torch, plain, 2), "bytes": n_bytes,
+                "flops": n_flops, "bound_ms": bms, "bound_by": by,
+                "geometry": geo._asdict() | {"blocks": geo.blocks(B)},
+                "blocks_per_sm": qp.occupancy()}
+        if name in cold:
+            row["device_ms"] = device_ms(lambda: qp(*args), 20,
+                                         kernel="lq_ipm_kernel")
+            row["cold_ms"] = device_ms(lambda: qp(*args), 20, cold=True,
+                                       kernel="lq_ipm_kernel")
+        rows[name] = row
+        print(f"LQ {name} geometry: {geo.teams} scenarios and {geo.threads} "
+              f"threads per block, {geo.block_bytes} shared bytes per block "
+              f"({4 * geo.pitch} per scenario), {geo.blocks(B)} blocks, "
+              f"{row['blocks_per_sm']} resident per SM "
+              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+        cold_txt = (f" (device {row['device_ms']:.4f} ms warm, "
+                    f"{row['cold_ms']:.4f} ms cold: "
+                    f"{100 * bms / row['cold_ms']:.0f}% of the bound)"
+                    if "cold_ms" in row else "")
+        print(f"LQ {name} B={B} N={N} {nx}x{nu}: {row['agree']}/{B} scenarios "
+              f"agree (max|err| {row['max_abs_err']:.3e}); outside tolerance of the "
+              f"float64 solution: kernel {row['kernel_misses_f64']}, plain "
+              f"{row['plain_misses_f64']}; spread factor {row['factor']:.3f} (limit "
+              f"{SPREAD_FACTOR}; plain on the CPU {row['control_factor']:.3f}); "
+              f"fixed-tolerance misses {row['fixed_tol_misses']} (plain on the "
+              f"CPU {row['control_fixed_tol_misses']}); "
+              f"deterministic {row['deterministic']}; kernel {row['ms']:.4f} ms"
+              f"{cold_txt}, plain {row['plain_ms']:.3f} ms, bound {bms:.4f} ms "
+              f"({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
+    out[key] = rows
+    return rows
 
 
 def phase_lq(torch, np, out):
@@ -363,38 +409,27 @@ def phase_lq(torch, np, out):
                                            *BOUNDS["unit"](7, 2), iters=12),
                             rand(1000, 10), False),
     }
-    rows = {}
-    for name, (qp, args, strict) in cases.items():
-        row, ok, plain = lq_case(torch, qp, args, strict)
-        check(ok, f"LQ kernel disagrees with its plain version ({name}): {row}")
-        B, N = args[0].shape[:2]
-        n_bytes = 4 * (sum(a.numel() for a in args) + B * ((N + 1) * 7 + N * 2 + 1))
-        n_flops = B * N * qp.iters * lq_flops_per_stage_iter(7, 2)
-        bms, by = bound_ms(n_bytes, n_flops)
-        geo = qp.geometry
-        row |= {"N": N, "ms": time_ms(torch, lambda: qp(*args), 10),
-                "plain_ms": time_ms(torch, plain, 2), "bytes": n_bytes,
-                "flops": n_flops, "bound_ms": bms, "bound_by": by,
-                "geometry": geo._asdict() | {"blocks": geo.blocks(B)},
-                "blocks_per_sm": qp.occupancy()}
-        rows[name] = row
-        print(f"LQ {name} geometry: {geo.teams} scenarios and {geo.threads} "
-              f"threads per block, {geo.block_bytes} shared bytes per block "
-              f"({4 * geo.pitch} per scenario), {geo.blocks(B)} blocks, "
-              f"{row['blocks_per_sm']} resident per SM "
-              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
-        print(f"LQ {name} B={B} N={N}: {row['agree']}/{B} scenarios agree "
-              f"(max|err| {row['max_abs_err']:.3e}); outside tolerance of the "
-              f"float64 solution: kernel {row['kernel_misses_f64']}, plain "
-              f"{row['plain_misses_f64']}; spread factor {row['factor']:.3f} (limit "
-              f"{SPREAD_FACTOR}; plain on the CPU {row['control_factor']:.3f}); "
-              f"fixed-tolerance misses {row['fixed_tol_misses']} (plain on the "
-              f"CPU {row['control_fixed_tol_misses']}); "
-              f"deterministic {row['deterministic']}; kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.3f} ms, bound {bms:.4f} ms ({by}: "
-              f"{n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
-    out["lq"] = rows
-    return rows["c2_tick"]
+    # Row 3's case (the stage-unrolled twin's N=10) fits L2: time it cold.
+    return lq_cases(torch, out, "lq", cases, cold=("random_N10_unit",))["c2_tick"]
+
+
+def phase_lq_quad(torch, np, out):
+    from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
+    from ad_mpc_tpu_torch.testing import BOUNDS, QUAD_LQ_WEIGHTS, random_lq
+
+    qp_c5, args_c5 = quad_tick_qps(16384)
+    qp_1024, args_1024 = quad_tick_qps(1024)
+    Q, R = QUAD_LQ_WEIGHTS
+    rand = [torch.as_tensor(a).cuda()
+            for a in random_lq(np.random.default_rng(6), 16384, 10, 13, 4)]
+    cases = {
+        "c5_tick": (qp_c5, args_c5, True),
+        "c5_tick_B1024": (qp_1024, args_1024, True),
+        "random_N10_unit_13x4": (make_lq_solver(10, 13, 4, Q, R, 10 * Q,
+                                                *BOUNDS["unit"](13, 4), iters=18),
+                                 rand, False),
+    }
+    return lq_cases(torch, out, "lq_13x4", cases)["c5_tick"]
 
 
 def phase_slice(torch, out, card):
@@ -408,7 +443,8 @@ def phase_slice(torch, out, card):
         zero_launches(solver)
         row, carry = fleet.run_config(tick, init, B, ticks=TICKS, warmup=WARMUP)
         launches = row["launches"] = fleet.launches(solver)
-        check_launches(fleet, launches, WARMUP + TICKS, f"at B={B}")
+        check_launches(fleet.LAUNCHES_PER_TICK, launches, WARMUP + TICKS,
+                       f"at B={B}")
         bad = fleet.gate_failures(row)
         check(not bad, f"c2 gates failed at B={B}: "
               + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
@@ -429,7 +465,41 @@ def phase_slice(torch, out, card):
     return rows[16384]["launches"]
 
 
+def phase_c5(torch, out, card):
+    from ad_mpc_tpu_torch import fleet
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+
+    rows, carry_256 = {}, None
+    for B in (256, 1024, 4096, 16384):
+        tick, init, solver, _ = quad_fleet.build_quad_fleet(device="cuda")
+        zero_launches(solver)
+        row, carry = fleet.run_config(tick, init, B, ticks=TICKS,
+                                      warmup=C5_WARMUP)
+        launches = row["launches"] = fleet.launches(solver)
+        check_launches(quad_fleet.LAUNCHES_PER_TICK, launches,
+                       C5_WARMUP + TICKS, f"(c5) at B={B}")
+        bad = [k for k, lim in quad_fleet.GATES.items() if not row[k] <= lim]
+        check(not bad, f"c5 gates failed at B={B}: "
+              + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
+        rows[B] = row
+        if B == 256:
+            carry_256 = carry
+        print(f"c5 B={B}: {row['solves_per_s']:.1f} solves/s "
+              f"({row['tick_ms']:.3f} ms/tick) on {card}; kkt mean "
+              f"{row['kkt_mean']:.3e} max {row['kkt_max']:.3e}, lat_err "
+              f"{row['lat_err_mean_m']:.4f} m, launches {launches}")
+    d_u0 = quad_fleet.rti_vs_converged_quad(carry_256)
+    lim = quad_fleet.RTI_GATE
+    check(d_u0 <= lim, f"c5 RTI-vs-converged u0 {d_u0:.3e} > {lim}")
+    print(f"c5 RTI ({quad_fleet.QUAD_SQP_ITERS} Gauss-Newton iterations) vs "
+          f"converged: max|du0| {d_u0:.3e} (gate {lim})")
+    out["c5"] = {str(B): r for B, r in rows.items()}
+    out["c5_rti_vs_converged_u0"] = d_u0
+    return rows[16384]["launches"]
+
+
 def phase_lane_chain(torch, out):
+    from ad_mpc_tpu_torch.experiments import device_ms
     from ad_mpc_tpu_torch.experiments.mxu_riccati import bmm_chain, inputs
     from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.ops.cuda_chain import (
@@ -464,16 +534,18 @@ def phase_lane_chain(torch, out):
     with_tf32 = lambda: bmm_chain(A, X, chain)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32_ms = device_ms(torch, with_tf32, 50)
+        tf32_ms = device_ms(with_tf32, 50)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     row = {
         "max_abs_err": err, "max_rel_err": err / scale,
         "max_rel_err_vs_bmm_f32": err_lib / scale,
-        "ms": device_ms(torch, lambda: lane(a, x), 50),
+        "ms": device_ms(lambda: lane(a, x), 50),
+        "cold_ms": device_ms(lambda: lane(a, x), 50, cold=True,
+                             kernel="lane_chain_kernel"),
         "events_ms": time_ms(torch, lambda: lane(a, x), 200),
         "plain_ms": time_ms(torch, lambda: lane_chain_plain(a, x, chain), 3),
-        "library_ms": device_ms(torch, lambda: bmm_chain(A, X, chain), 50),
+        "library_ms": device_ms(lambda: bmm_chain(A, X, chain), 50),
         "library_tf32_ms": tf32_ms,
         "bytes": n_bytes, "flops": n_flops, "bound_ms": bms, "bound_by": by,
         "geometry": geo._asdict(), "blocks_per_sm": per_sm,
@@ -485,7 +557,9 @@ def phase_lane_chain(torch, out):
     print(f"lane_chain B={B} chain={chain}: max|err| {err:.3e} ({err / scale:.2e}"
           f" of max|out|; vs fp32 bmm {err_lib / scale:.2e}); kernel "
           f"{row['ms']:.5f} ms device ({row['events_ms']:.5f} ms by events, "
-          f"back to back), plain {row['plain_ms']:.3f} ms, 12 x torch.bmm fp32 "
+          f"back to back; cold {row['cold_ms']:.5f} ms, "
+          f"{100 * bms / row['cold_ms']:.0f}% of the bound), plain "
+          f"{row['plain_ms']:.3f} ms, 12 x torch.bmm fp32 "
           f"{row['library_ms']:.5f} ms (TF32 {tf32_ms:.5f} ms), bound "
           f"{bms:.5f} ms ({by}: {n_bytes / 1e6:.2f} MB, {n_flops / 1e6:.1f} MFLOP)")
     out["lane_chain"] = row
@@ -496,6 +570,7 @@ def phase_mxu(torch, out):
     from ad_mpc_tpu_torch import fleet
     from ad_mpc_tpu_torch.experiments import mxu_riccati
     from ad_mpc_tpu_torch.ops.cuda_chain import make_lane_chain
+    from ad_mpc_tpu_torch.testing import SPREAD_FACTOR
 
     lane = make_lane_chain(device="cuda")
     lane.launches = 0
@@ -573,7 +648,8 @@ def phase_c2_n40(torch, out, card):
     zero_launches(solver)
     row, _ = fleet.run_config(tick, init, B, ticks=TICKS, warmup=WARMUP)
     launches = row["launches"] = fleet.launches(solver)
-    check_launches(fleet, launches, WARMUP + TICKS, "(c2-N40)")
+    check_launches(fleet.LAUNCHES_PER_TICK, launches, WARMUP + TICKS,
+                   "(c2-N40)")
     bad = fleet.gate_failures(row)
     check(not bad, "c2-N40 gates failed: "
           + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
@@ -588,7 +664,8 @@ def phase_latency(out):
     from ad_mpc_tpu_torch import fleet
 
     lat = fleet.bench_latency(fleet.dynamic_bicycle, fleet.switch_on)
-    check_launches(fleet, lat["launches"], lat["ticks"], "(latency)")
+    check_launches(fleet.LAUNCHES_PER_TICK, lat["launches"], lat["ticks"],
+                   "(latency)")
     check(all(lat[k] == lat[k] and lat[k] > 0 for k in (
         "p50_compute", "p99_compute", "p50_blocking", "p99_blocking",
         "host_link_floor_p50")), f"latency row {lat}")
@@ -637,6 +714,10 @@ def main(argv=None):
     rk4 = phase_rk4(torch, np, out)
     lq = phase_lq(torch, np, out)
     launches = phase_slice(torch, out, card)
+    vde_q = phase_vde_quad(torch, np, out)
+    rk4_q = phase_rk4_quad(torch, np, out)
+    lq_q = phase_lq_quad(torch, np, out)
+    launches_q = phase_c5(torch, out, card)
     lane = phase_lane_chain(torch, out)
     lane_launches = phase_mxu(torch, out)
     phase_long_horizon(out)
@@ -672,6 +753,30 @@ def main(argv=None):
          "ms": lane["ms"], "plain_ms": lane["plain_ms"],
          "bound_ms": lane["bound_ms"], "bound_by": lane["bound_by"],
          "library_ms": lane["library_ms"]},
+        {"name": "vde_quad", "route": "cuda",
+         "source": "ad_mpc_tpu_torch/csrc/vde.cu",
+         "replaces": "ad_mpc_tpu/ops/pallas_vde.py:106",
+         "launches": launches_q["vde"], "max_abs_err": vde_q["max_abs_err"],
+         "ms": vde_q["ms"], "plain_ms": vde_q["plain_ms"],
+         "bound_ms": vde_q["bound_ms"], "bound_by": vde_q["bound_by"],
+         "library_ms": None},
+        {"name": "rk4_quad", "route": "cuda",
+         "source": "ad_mpc_tpu_torch/csrc/vde.cu",
+         "replaces": "ad_mpc_tpu/ocp/solver.py:464 and "
+                     "ad_mpc_tpu/experiments/quad_fleet.py:143 (the KKT "
+                     "defect and the plant step, which XLA fused in the "
+                     "jitted tick; no Pallas kernel)",
+         "launches": launches_q["rk4"], "max_abs_err": rk4_q["max_abs_err"],
+         "ms": rk4_q["ms"], "plain_ms": rk4_q["plain_ms"],
+         "bound_ms": rk4_q["bound_ms"], "bound_by": rk4_q["bound_by"],
+         "library_ms": None},
+        {"name": "lq_ipm_13x4", "route": "cuda",
+         "source": "ad_mpc_tpu_torch/csrc/lq_ipm.cu",
+         "replaces": "ad_mpc_tpu/ops/pallas_lq.py:468",
+         "launches": launches_q["lq_ipm"], "max_abs_err": lq_q["max_abs_err"],
+         "ms": lq_q["ms"], "plain_ms": lq_q["plain_ms"],
+         "bound_ms": lq_q["bound_ms"], "bound_by": lq_q["bound_by"],
+         "library_ms": None},
     ]
     out["kernels"] = kernels
     if args.out:

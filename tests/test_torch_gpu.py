@@ -17,7 +17,9 @@ import torch
 
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
-from ad_mpc_tpu_torch.experiments import long_horizon, mxu_riccati
+from ad_mpc_tpu_torch.experiments import capture, long_horizon, mxu_riccati, quad_fleet
+from ad_mpc_tpu_torch.experiments.c2_kernels import digest
+from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
@@ -25,13 +27,16 @@ from ad_mpc_tpu_torch.ops.cuda_chain import (
     chain_geometry, lane_chain_plain, make_lane_chain, to_lanes)
 from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
-from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde, vde_plain
+from ad_mpc_tpu_torch.ops.cuda_vde import _entry, make_rk4, make_vde, vde_plain
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
-from ad_mpc_tpu_torch.testing import BOUNDS, LQ_WEIGHTS, random_lq, random_traj
+from ad_mpc_tpu_torch.testing import (
+    BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, lq_case, quad_traj, random_lq,
+    random_traj)
 
 pytestmark = pytest.mark.gpu
 
 RAGGED_B = 37  # not a multiple of any block size
+QUAD = QuadDynamics()
 
 
 @pytest.fixture
@@ -300,3 +305,162 @@ def test_assoc_riccati_on_card_matches_sequential(cuda):
     _, du_a = lqr_solve_assoc(*ops)
     err = float((du_s - du_a).abs().max()) / float(du_s.abs().max())
     assert err < 2e-3
+
+
+def _quad_traj(B, N, device, seed=13):
+    xs, us = (torch.as_tensor(a, device=device)
+              for a in quad_traj(np.random.default_rng(seed), B, N))
+    return xs, us, torch.zeros((B, 0), device=device)
+
+
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_vde_quad_kernel_matches_plain(cuda, B):
+    """B*N = 10 and 370 rows: one partial warp, and a ragged last warp of
+    the one-warp blocks; p_dim = 0, so the kernel gets a null ps."""
+    N = 10
+    xs, us, ps = _quad_traj(B, N, cuda)
+    vde = make_vde(QUAD, 0.1, N, 13, 4, 0, device=cuda)
+    got = vde(xs, us, ps)
+    want = vde_plain(QUAD, 0.1, 1, xs, us, ps)
+    assert vde.launches == 1
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_rk4_quad_kernel_matches_plain(cuda, B):
+    N = 10
+    xs, us, ps = _quad_traj(B, N, cuda, seed=14)
+    rk4 = make_rk4(QUAD, 0.1, 13, 4, 0, device=cuda)
+    defect = rk4.defect(xs, us, ps)
+    step = rk4(xs[:, 0], us[:, 0], ps)
+    assert rk4.launches == 2 and defect.shape == (B, N, 13)
+    torch.testing.assert_close(
+        defect, discrete_step(QUAD, 0.1, 1, xs[:, :-1], us, ps[:, None])
+        - xs[:, 1:], atol=3e-5, rtol=0)
+    torch.testing.assert_close(
+        step, discrete_step(QUAD, 0.1, 1, xs[:, 0], us[:, 0], ps),
+        atol=3e-5, rtol=0)
+    c = make_vde(QUAD, 0.1, N, 13, 4, 0, device=cuda)(xs, us, ps)[2]
+    torch.testing.assert_close(defect, c, atol=3e-5, rtol=0)
+
+
+def _quad_qp(device):
+    Q, R = QUAD_LQ_WEIGHTS
+    return make_lq_solver(10, 13, 4, Q, R, 10 * Q, *BOUNDS["unit"](13, 4),
+                          iters=18, device=device)
+
+
+@pytest.mark.parametrize("B", [1, RAGGED_B, 1000])
+def test_lq_13x4_kernel_matches_plain(cuda, B):
+    """The quad's QP (N=10, 18 iterations, 8 hard cones) on random unit-box
+    problems; RAGGED_B and 1000 leave a partial last block. Each scenario
+    is held to the plain version at 3e-4 / 1e-3 (``testing.lq_case``):
+    at B <= 37 every one to the float32 run, at B=1000 to the float64
+    solution within 4x that scenario's float32 spread (a few of 1000
+    random problems flip an active bound between two correct float32
+    runs)."""
+    qp = _quad_qp(cuda)
+    assert qp.occupancy() >= 1
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(5), B, 10, 13, 4)]
+    row, ok, _ = lq_case(qp, args, strict=B <= RAGGED_B)
+    assert ok, row
+    assert qp.launches == 2  # the case and its relaunch
+
+
+def test_quad_kernels_repeat_their_bits(cuda):
+    xs, us, ps = _quad_traj(RAGGED_B, 10, cuda, seed=8)
+    vde = make_vde(QUAD, 0.1, 10, 13, 4, 0, device=cuda)
+    rk4 = make_rk4(QUAD, 0.1, 13, 4, 0, device=cuda)
+    qp = _quad_qp(cuda)
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(7), RAGGED_B, 10, 13, 4)]
+    for call in (lambda: vde(xs, us, ps), lambda: (rk4.defect(xs, us, ps),),
+                 lambda: (rk4(xs[:, 0], us[:, 0], ps),), lambda: qp(*args)):
+        first, second = call(), call()
+        assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert vde.launches == 2 and rk4.launches == 4 and qp.launches == 2
+
+
+def test_quad_kernels_refuse_another_shape(cuda):
+    """A sweep of another (nx, nu) than its functor's is refused by the
+    wrapper and by the C entry, which also refuses fewer parameter entries
+    than its functor reads; the LQ kernel has no 13x2 instantiation."""
+    with pytest.raises(ValueError):
+        make_vde(QUAD, 0.1, 10, 7, 2, 0, device=cuda)
+    with pytest.raises(ValueError):
+        make_rk4(fleet.dynamic_bicycle, 0.05, 13, 4, 1, device=cuda)
+    B, N = 4, 10
+    xs, us, _ = _quad_traj(B, N, cuda)
+    A = torch.empty((B, N, 13, 13), device=cuda)
+    Bm = torch.empty((B, N, 13, 4), device=cuda)
+    c = torch.empty((B, N, 13), device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for f, nx, nu, pd in ((QUAD, 7, 2, 0), (QUAD, 13, 2, 0),
+                          (fleet.dynamic_bicycle, 7, 2, 0)):
+        fn, _ = _entry(f)
+        err = fn(xs.data_ptr(), us.data_ptr(), None, A.data_ptr(), Bm.data_ptr(),
+                 c.data_ptr(), B, N, nx, nu, pd, 0.1, 1, f.cuda_params(), stream)
+        assert err != 0
+    Q, R = np.eye(13), np.eye(2)
+    qp = make_lq_solver(6, 13, 2, Q, R, Q, *BOUNDS["unit"](13, 2), iters=2,
+                        device=cuda)
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(0), 4, 6, 13, 2)]
+    with pytest.raises(NotImplementedError):
+        qp(*args)
+    assert qp.launches == 0
+
+
+def test_c5_ticks_on_card_match_plain(cuda):
+    """Three c5 ticks through the kernels agree with the plain path on the
+    CPU; per tick the sweep and the QP launch twice (two Gauss-Newton
+    iterations) and the RK4 map twice."""
+    runs = {}
+    for dev in ("cpu", cuda):
+        tick, init, solver, _ = quad_fleet.build_quad_fleet(device=dev)
+        carry = init(RAGGED_B)
+        for _ in range(3):
+            carry, (kkt, lat) = tick(carry)
+        runs[str(dev)] = (carry[0].cpu(), kkt.cpu(), float(lat), solver)
+    (x_c, kkt_c, lat_c, _), (x_g, kkt_g, lat_g, solver) = runs.values()
+    assert fleet.launches(solver) == {
+        k: 3 * n for k, n in quad_fleet.LAUNCHES_PER_TICK.items()}
+    torch.testing.assert_close(x_g, x_c, atol=1e-4, rtol=1e-5)
+    assert abs(lat_g - lat_c) < 1e-4
+    torch.testing.assert_close(kkt_g, kkt_c, rtol=1e-2, atol=1e-6)
+
+
+# sha256 of the c2 kernels' outputs on a fixed draw, as the kernels gave
+# them before the quad functor and the 13x4 instantiation were added
+# (``experiments/c2_kernels.py`` run on that tree).
+C2_BITS = {"vde": "bc398bce5b68c93b", "lq_ipm": "76dfceaa42f12086"}
+
+
+def test_c2_kernels_keep_their_bits(cuda):
+    xs, us, ps = _traj(RAGGED_B, 30, 1.0, cuda, seed=8)
+    vde = make_vde(fleet.dynamic_bicycle, 0.05, 30, 7, 2, 1, device=cuda)
+    Q, R = LQ_WEIGHTS
+    qp = make_lq_solver(30, 7, 2, Q, R, 1e-3 * Q, *BOUNDS["bicycle"](7, 2),
+                        iters=12, device=cuda)
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(7), RAGGED_B, 30, 7, 2)]
+    got = {"vde": digest(*vde(xs, us, ps)), "lq_ipm": digest(*qp(*args))}
+    assert got == C2_BITS
+
+
+def test_long_horizon_replay_matches_eager(cuda):
+    """The long-horizon micro's block of chained solves, captured in a CUDA
+    graph, gives the eager block's bits on every replay, for both Riccati
+    backends."""
+    ops = long_horizon.random_lq(np.random.default_rng(1), 30, device=cuda)
+    for solve in (lqr_solve, lqr_solve_assoc):
+        with long_horizon.cusolver():
+            graph, x, ref, _ = capture(long_horizon.solve_block(solve, ops, 3),
+                                       ops[-1])
+            for _ in range(2):
+                x.copy_(ops[-1])
+                graph.replay()
+                torch.cuda.synchronize()
+                assert torch.equal(x, ref)

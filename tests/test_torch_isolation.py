@@ -23,7 +23,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "ad_mpc_tpu" or m.startswith("ad_mpc_tpu.")
              or m == "bench")
-print(len([m for m in sys.modules if m.startswith("ad_mpc_tpu_torch")]), bad)
+port = sorted(m for m in sys.modules if m.startswith("ad_mpc_tpu_torch"))
+print(len(port), bad, " ".join(port))
 sys.exit(1 if bad else 0)
 """
 
@@ -38,7 +39,10 @@ def test_port_imports_no_jax():
     res = _run(["-c", _PROBE], REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 27  # every module of the port was imported
+    assert n_modules >= 30  # every module of the port was imported
+    for m in ("models.quadrotor", "experiments.quad_fleet",
+              "experiments.quad_kernels", "utils.math"):
+        assert f"ad_mpc_tpu_torch.{m}" in res.stdout.split()
 
 
 def test_build_fleet_refuses_a_missing_card():

@@ -126,7 +126,7 @@ def test_lq_geometry_fits_a_block(horizon, nc):
     16 bytes and 8 mod 32 floats (the 4 teams of a warp on 4 bank offsets)."""
     geo = lq_geometry(horizon, NX, NU, nc)
     assert 1 <= geo.teams <= cuda_lq.MAX_TEAMS
-    assert geo.threads == cuda_lq.TEAM * geo.teams
+    assert geo.threads == cuda_lq.team_lanes(NX) * geo.teams
     assert geo.block_bytes <= cuda_lq.SMEM_BLOCK_MAX
     assert geo.block_bytes == 4 * (cuda_lq.header_floats(NX, NU)
                                    + geo.teams * geo.pitch)

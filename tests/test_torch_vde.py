@@ -128,13 +128,15 @@ def test_bicycle_functor_params():
     the fields of ``BicycleParamsC`` in ``csrc/vde.cu``, in that order."""
     src = (Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
            / "vde.cu").read_text()
-    assert re.search(r"\bint vde_bicycle\(", src)
-    assert re.search(r"\bint rk4_bicycle\(", src)
+    assert re.search(r"\bVDE_ENTRIES\(bicycle, BicycleDyn, BicycleParamsC\)", src)
+    assert re.search(r"\bint vde_##model\(", src)
+    assert re.search(r"\bint rk4_##model\(", src)
     c_fields = re.search(r"struct BicycleParamsC \{.*?float ([^;]+);", src,
                          re.S)
     names = [n.strip() for n in c_fields.group(1).split(",")]
     f = BicycleDynamics()
     assert f.cuda_entry == "vde_bicycle" and f.cuda_rk4_entry == "rk4_bicycle"
+    assert (f.nx, f.nu, f.p_dim) == (7, 2, 1)
     params = f.cuda_params()
     assert [n for n, _ in params._fields_] == names
     want = [_BP.mass, _BP.l_f, _BP.l_r, _BP.iz, _BP.cf, _BP.cr,
