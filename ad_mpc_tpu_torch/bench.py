@@ -5,7 +5,11 @@ paths are ported.
 
 Rows: the c2 fleet tick at B=256/1024/4096/16384; c2-N40 (the reference's
 N=40, tf=2 s dimensions) at B=1024/4096/16384; RTI against a converged
-solve on the B=1024 fleet; the c5 quadrotor fleet
+solve on the B=1024 fleet; the c3 GP-augmented bicycle
+(``fleet.make_gp_bicycle``: 32 points, 4 features, 2 outputs) at
+B=256/4096/16384; the c4 Pacejka friction/topography sweep
+(``fleet.make_pacejka``) at B=4096 with 45 warm-up and 10 timed ticks, and
+its RTI row on that fleet; the c5 quadrotor fleet
 (``experiments.quad_fleet``: nx=13, nu=4, N=10, two Gauss-Newton
 iterations) at B=256/1024/4096/16384 with 20 warm-up ticks, and its RTI
 row on the B=256 fleet; the batch-1 latency row against the 20 ms budget;
@@ -14,7 +18,7 @@ long-horizon Riccati micro (``experiments.long_horizon.micro``). Every
 fleet row gets the analytic operations per solve and its share of the FP32
 peak, and is held to its config's quality gates.
 
-Not ported, so not here: configs c3, c4 and c6, the deployment loop and
+Not ported, so not here: config c6, the deployment loop and
 the shard-invariance row. The result goes to ``--out`` only; the last line of
 standard output is a one-line summary. Exits 1 when a gate fails or a row
 raises.
@@ -35,12 +39,16 @@ H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data she
 
 # The quality gates of ``bench.py:473-483``, by config-name prefix, and the
 # RTI-vs-converged gates of ``bench.py:493-497`` by result key.
-GATES = {"c2_": fleet.GATES, "c5_": quad_fleet.GATES}
-RTI_GATES = {"rti_vs_converged_u0": fleet.RTI_GATE,
+GATES = {"c2_": fleet.CONFIG_GATES["c2"], "c3_": fleet.CONFIG_GATES["c3"],
+         "c4_": fleet.CONFIG_GATES["c4"], "c5_": quad_fleet.GATES}
+RTI_GATES = {"rti_vs_converged_u0": fleet.RTI_GATES["c2"],
+             "c4_rti_vs_converged_u0": fleet.RTI_GATES["c4"],
              "c5_rti_vs_converged_u0": quad_fleet.RTI_GATE}
 
 # Hand-counted operations of the continuous dynamics (``bench.py:523-529``).
 DYN_FLOPS = {"c2_": 90,  # blended-tire bicycle
+             "c3_": 1100,  # + 2-dim 32-point SE GP mean
+             "c4_": 170,  # Pacejka magic formula + topography
              "c5_": 150}  # entrywise quaternion quad
 
 
@@ -145,6 +153,27 @@ def run(log=lambda s: print(s, file=sys.stderr)):
         log("# c2-N40: " + " ".join(f"b{b} {r['solves_per_s']:.0f}/s"
                                     for b, r in rows.items()))
 
+    def run_c3():
+        tick, init, _, _ = fleet.build_fleet(fleet.make_gp_bicycle(),
+                                             fleet.switch_on)
+        rows = {}
+        for b in (256, 4096, 16384):
+            rows[b], _ = fleet.run_config(tick, init, b)
+            detail["configs"][f"c3_gp_bicycle_b{b}"] = rows[b]
+        log("# c3 GP bicycle N=30: " + " ".join(
+            f"b{b} {r['solves_per_s']:.0f}/s" for b, r in rows.items()))
+
+    def run_c4():
+        dyn, p_of, v_cap = fleet.make_pacejka()
+        tick, init, _, _ = fleet.build_fleet(dyn, p_of, v_cap=v_cap)
+        row, carry_p = fleet.run_config(tick, init, 4096, ticks=fleet.C4_TICKS,
+                                        warmup=fleet.C4_WARMUP)
+        detail["configs"]["c4_pacejka_b4096"] = row
+        detail["c4_rti_vs_converged_u0"] = fleet.rti_vs_converged(
+            dyn, p_of, carry_p)
+        log(f"# c4 Pacejka N=30: b4096 {row['solves_per_s']:.0f}/s, RTI vs "
+            f"converged {detail['c4_rti_vs_converged_u0']:.2e}")
+
     def run_c5():
         tick, init, _, _ = quad_fleet.build_quad_fleet()
         rows, carry_q = {}, None
@@ -177,6 +206,8 @@ def run(log=lambda s: print(s, file=sys.stderr)):
                 fleet.dynamic_bicycle, fleet.switch_on, carry))
             if d_u0 is not None:
                 detail["rti_vs_converged_u0"] = d_u0
+        guarded("c3_gp_bicycle", run_c3)
+        guarded("c4_pacejka", run_c4)
         guarded("c5_quad", run_c5)
         guarded("latency", run_lat)
         detail["mxu_riccati_micro"] = guarded("mxu_riccati", mxu_riccati.micro)

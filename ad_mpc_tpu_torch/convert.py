@@ -13,7 +13,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble
 from ad_mpc_tpu_torch.models.bicycle import BicycleParams
+from ad_mpc_tpu_torch.models.pacejka import PacejkaParams
 from ad_mpc_tpu_torch.models.quadrotor import QuadrotorParams
 from ad_mpc_tpu_torch.ocp.solver import SolverState, load_iterate
 from ad_mpc_tpu_torch.ocp.spec import OCPSpec
@@ -22,6 +24,26 @@ from ad_mpc_tpu_torch.ocp.spec import OCPSpec
 def bicycle_params(params) -> BicycleParams:
     """The port's :class:`BicycleParams` from the JAX package's."""
     return BicycleParams(**params._asdict())
+
+
+def pacejka_params(params) -> PacejkaParams:
+    """The port's :class:`PacejkaParams` from the JAX package's."""
+    return PacejkaParams(**{k: float(v) for k, v in params._asdict().items()})
+
+
+def gp_ensemble(ens) -> GPEnsemble:
+    """The port's :class:`GPEnsemble` from the JAX package's: its arrays as
+    float64 numpy (the port keeps them on the host), ``n_valid`` as int32,
+    ``out_idx`` and ``feat_idx`` as they are."""
+    f64 = lambda a: np.asarray(a, np.float64)
+    return GPEnsemble(
+        x_train=f64(ens.x_train), k_inv_y=f64(ens.k_inv_y),
+        len_scale=f64(ens.len_scale), sigma_f=f64(ens.sigma_f),
+        sigma_n=f64(ens.sigma_n), y_mean=f64(ens.y_mean),
+        centroids=f64(ens.centroids),
+        n_valid=np.asarray(ens.n_valid, np.int32),
+        out_idx=tuple(int(i) for i in ens.out_idx),
+        feat_idx=tuple(int(i) for i in ens.feat_idx))
 
 
 def quadrotor_params(params) -> QuadrotorParams:

@@ -11,9 +11,11 @@
 //
 // What bounds it on the H100: at c2 (B=16384, N=30, nx=7, nu=2) the sweep
 // moves ~156 MB (A, Bm, c out: 137.6 MB; ~47 us at 3.35 TB/s) and does
-// ~4.3 GFLOP by the hand count (~64 us at 67 TFLOP/s FP32): near the ridge,
-// on the operations side. At c5 (B=16384, N=10, nx=13, nu=4) it is 165 MB
-// (~49 us) against 4.48 GFLOP (~67 us): the operations. Measured on an
+// ~1.9 GFLOP of forward-mode arithmetic (counted from the plain version,
+// experiments/opcount.py; ~28 us at 67 TFLOP/s FP32): the bytes. So do
+// the Pacejka bicycle (c4, ~1.8 GFLOP) and the quad at c5 (165 MB against
+// ~2.0 GFLOP). The GP bicycle (c3) adds 2 means of 32 points per
+// evaluation: ~5.6 GFLOP (~83 us), the operations. Measured on an
 // H100 (PERF.md), the first design lost most of its time elsewhere: its
 // stores were strided (a thread's 70 outputs lie 280 B from its
 // neighbour's, so each warp store touched 32 partly written sectors; 83%
@@ -43,20 +45,36 @@
 //     experiments/quad_kernels.py).
 //   - A dual division computes its value once with the bits of IEEE '/'
 //     (fdiv_rcp of ieee_div.cuh, branch-free) and multiplies the tangents by
-//     the reciprocal it refined; one sincosf per angle. No --use_fast_math:
-//     the 2e-5 parity assumes IEEE-accurate sinf/cosf.
+//     the reciprocal it refined; one sincosf per angle; a dual atan takes
+//     its derivative from the same refined reciprocal. No --use_fast_math:
+//     the 2e-5 parity assumes IEEE-accurate sinf/cosf/atanf/expf.
+//   - The GP bicycle's mean and its gradient are float functions of the 4
+//     features; a dual gets them by one contraction of the gradient with
+//     the features' tangents, not by carrying the tangents through every
+//     training point's product and exp.
 // The dynamics is a __device__ functor templated on the scalar type, with
 // one pair of C entries per functor (vde_<model>, rk4_<model>): the blended
-// bicycle and the quadrotor. A functor states NX, NU, NP (parameter entries
-// it reads; a launch with fewer is refused, and NP = 0 never reads ps),
-// TANGENTS_PER_PASS and ROW_WARPS.
+// bicycle, the quadrotor, the Pacejka bicycle and the GP-augmented bicycle.
+// A functor states NX, NU, NP (parameter entries it reads; a launch with
+// fewer is refused, and NP = 0 never reads ps), TANGENTS_PER_PASS and
+// ROW_WARPS, and a per-thread context Ctx built once from the scenario's
+// parameter row (context(p)), before any pass: what depends on p alone is
+// computed there in float, not as duals. The functor rides in the kernel's
+// parameter space (__grid_constant__, never copied to local memory). A
+// functor with STAGES copies a table from there into shared memory once
+// per block before any row (the GP bicycle's training points, which every
+// lane of a warp then reads at the same address).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC (no --use_fast_math: IEEE sinf/cosf/division).
-//        -DQUAD_TANGENTS_PER_PASS=n and -DQUAD_ROW_WARPS=n override the
-//        quad's traits (the measurement of experiments/quad_kernels.py).
+//        -Xcompiler -fPIC (no --use_fast_math: IEEE sinf/cosf/atanf/expf and
+//        division). -D<MODEL>_TANGENTS_PER_PASS=n and -D<MODEL>_ROW_WARPS=n
+//        (MODEL: QUAD, PACEJKA, GP_BICYCLE) override a functor's traits (the
+//        measurements of experiments/quad_kernels.py and
+//        experiments/bicycle_kernels.py).
 
 #include <cuda_runtime.h>
+
+#include <cstddef>
 
 #include "ieee_div.cuh"
 
@@ -67,6 +85,18 @@
 #endif
 #ifndef QUAD_ROW_WARPS
 #define QUAD_ROW_WARPS 1
+#endif
+#ifndef PACEJKA_TANGENTS_PER_PASS
+#define PACEJKA_TANGENTS_PER_PASS 9
+#endif
+#ifndef PACEJKA_ROW_WARPS
+#define PACEJKA_ROW_WARPS 4
+#endif
+#ifndef GP_BICYCLE_TANGENTS_PER_PASS
+#define GP_BICYCLE_TANGENTS_PER_PASS 9
+#endif
+#ifndef GP_BICYCLE_ROW_WARPS
+#define GP_BICYCLE_ROW_WARPS 4
 #endif
 
 constexpr int WARP = 32;
@@ -184,6 +214,39 @@ DI void sin_cos(const Dual<NT>& a, Dual<NT>& s, Dual<NT>& c) {
   }
 }
 
+// atan: atanf for the value, tangent d / (1 + v^2) by the refined
+// reciprocal of fdiv_rcp.
+DI float atan_(float a) { return atanf(a); }
+template <int NT>
+DI Dual<NT> atan_(const Dual<NT>& a) {
+  Dual<NT> r;
+  float rb;
+  r.v = atanf(a.v);
+  fdiv_rcp(1.0f, 1.0f + a.v * a.v, rb);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) r.d[i] = a.d[i] * rb;
+  return r;
+}
+
+// max(a, b) against a constant floor b; the tangent is the branch's: a's
+// when a > b, else 0. At a tie jnp.maximum (and torch.maximum) give half
+// of each operand's tangent; a float draw lands on the floor with
+// probability zero.
+DI float max_(float a, float b) { return a > b ? a : b; }
+template <int NT>
+DI Dual<NT> max_(const Dual<NT>& a, float b) {
+  const bool take = a.v > b;
+  Dual<NT> r;
+  r.v = take ? a.v : b;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) r.d[i] = take ? a.d[i] : 0.0f;
+  return r;
+}
+
+DI float value(float a) { return a; }
+template <int NT>
+DI float value(const Dual<NT>& a) { return a.v; }
+
 // ------------------------------------------------------------- dynamics
 // A functor evaluates x_dot = f(x, u; p) for any scalar type T with the
 // operations above. p is the scenario's parameter row (not differentiated).
@@ -193,46 +256,56 @@ struct BicycleParamsC {  // by value from the wrapper (models/bicycle.py)
 };
 
 // The blended kinematic/dynamic bicycle (ad_mpc_tpu/models/bicycle.py:60-114)
-// with the blend switch taken from p[0]; same order of operations.
+// with blend switch s; same order of operations.
+template <class T>
+DI void bicycle_xdot(const BicycleParamsC& P, float s, const T* x, const T* u,
+                     T* xd) {
+  const T& psi = x[2];
+  const T& v_x = x[3];
+  const T& v_y = x[4];
+  const T& psi_dot = x[5];
+  const T& delta = x[6];
+  const T& a = u[0];
+  const T& delta_dot = u[1];
+
+  const T v_x_safe = v_x + 1e-6f;
+  const T f_fy = (2.0f * P.cf) * (delta - divide(v_y + P.l_f * psi_dot, v_x_safe));
+  const T f_ry = divide((2.0f * P.cr) * (P.l_r * psi_dot - v_y), v_x_safe);
+
+  T sps, cps;
+  sin_cos(psi, sps, cps);
+  xd[0] = v_x * cps - v_y * sps;
+  xd[1] = v_x * sps + v_y * cps;
+  xd[2] = psi_dot;
+
+  T sd, cd;
+  sin_cos(delta, sd, cd);
+  const T v_x_dyn = a - divide(f_fy * sd, P.mass) + v_y * psi_dot;
+  const T v_y_dyn = divide(f_ry + f_fy * cd, P.mass) - v_x * psi_dot;
+  const T kin = delta_dot * v_x + delta * a;
+  const T v_y_kin = divide(kin * P.l_r, P.wheelbase);
+  const T psi_dd_dyn = divide(P.l_f * f_fy * cd - P.l_r * f_ry, P.iz);
+  const T psi_dd_kin = divide(kin, P.wheelbase);
+
+  xd[3] = s * v_x_dyn + (1.0f - s) * a;
+  xd[4] = s * v_y_dyn + (1.0f - s) * v_y_kin;
+  xd[5] = s * psi_dd_dyn + (1.0f - s) * psi_dd_kin;
+  xd[6] = delta_dot;
+}
+
+// The bicycle with the blend switch taken from p[0].
 struct BicycleDyn {
   static constexpr int NX = 7, NU = 2, NP = 1;
   static constexpr int TANGENTS_PER_PASS = 9, ROW_WARPS = 4;
+  static constexpr bool STAGES = false;
+  using Ctx = const float*;
   BicycleParamsC P;
+
+  DI Ctx context(const float* p) const { return p; }
 
   template <class T>
   DI void operator()(const T* x, const T* u, const float* p, T* xd) const {
-    const float s = p[0];
-    const T& psi = x[2];
-    const T& v_x = x[3];
-    const T& v_y = x[4];
-    const T& psi_dot = x[5];
-    const T& delta = x[6];
-    const T& a = u[0];
-    const T& delta_dot = u[1];
-
-    const T v_x_safe = v_x + 1e-6f;
-    const T f_fy = (2.0f * P.cf) * (delta - divide(v_y + P.l_f * psi_dot, v_x_safe));
-    const T f_ry = divide((2.0f * P.cr) * (P.l_r * psi_dot - v_y), v_x_safe);
-
-    T sps, cps;
-    sin_cos(psi, sps, cps);
-    xd[0] = v_x * cps - v_y * sps;
-    xd[1] = v_x * sps + v_y * cps;
-    xd[2] = psi_dot;
-
-    T sd, cd;
-    sin_cos(delta, sd, cd);
-    const T v_x_dyn = a - divide(f_fy * sd, P.mass) + v_y * psi_dot;
-    const T v_y_dyn = divide(f_ry + f_fy * cd, P.mass) - v_x * psi_dot;
-    const T kin = delta_dot * v_x + delta * a;
-    const T v_y_kin = divide(kin * P.l_r, P.wheelbase);
-    const T psi_dd_dyn = divide(P.l_f * f_fy * cd - P.l_r * f_ry, P.iz);
-    const T psi_dd_kin = divide(kin, P.wheelbase);
-
-    xd[3] = s * v_x_dyn + (1.0f - s) * a;
-    xd[4] = s * v_y_dyn + (1.0f - s) * v_y_kin;
-    xd[5] = s * psi_dd_dyn + (1.0f - s) * psi_dd_kin;
-    xd[6] = delta_dot;
+    bicycle_xdot(P, p[0], x, u, xd);
   }
 };
 
@@ -247,7 +320,11 @@ struct QuadDyn {
   static constexpr int NX = 13, NU = 4, NP = 0;
   static constexpr int TANGENTS_PER_PASS = QUAD_TANGENTS_PER_PASS;
   static constexpr int ROW_WARPS = QUAD_ROW_WARPS;
+  static constexpr bool STAGES = false;
+  using Ctx = const float*;
   QuadParamsC P;
+
+  DI Ctx context(const float* p) const { return p; }
 
   template <class T>
   DI void operator()(const T* x, const T* u, const float*, T* xd) const {
@@ -286,6 +363,186 @@ struct QuadDyn {
   }
 };
 
+struct PacejkaParamsC {  // by value from the wrapper (models/pacejka.py)
+  float mass, l_f, l_r, iz, b_f, c_f, d_f, b_r, c_r, d_r, g, wheelbase;
+};
+
+// The Pacejka magic-formula bicycle with road topography
+// (ad_mpc_tpu/models/pacejka.py:38-116, pacejka_dynamics_p with the 5-entry
+// p = [mu, pitch, roll, B scale, D scale]), same order of operations, atanf
+// where the reference has atan_mosaic. What depends on p alone (the normal
+// loads, the magic formula's B and mu F_z D, the gravity feed-through) is
+// computed once per thread in float.
+struct PacejkaDyn {
+  static constexpr int NX = 7, NU = 2, NP = 5;
+  static constexpr int TANGENTS_PER_PASS = PACEJKA_TANGENTS_PER_PASS;
+  static constexpr int ROW_WARPS = PACEJKA_ROW_WARPS;
+  static constexpr bool STAGES = false;
+  struct Ctx {
+    float b_f, b_r;      // B front and rear
+    float k_f, k_r;      // (mu F_z) D front and rear
+    float a_grav_x, a_grav_y;
+  };
+  PacejkaParamsC P;
+
+  DI Ctx context(const float* p) const {
+    const float mu = p[0];
+    float s_pitch, c_pitch, s_roll, c_roll;
+    sincosf(p[1], &s_pitch, &c_pitch);
+    sincosf(p[2], &s_roll, &c_roll);
+    const float g_eff = P.g * c_pitch * c_roll;
+    const float fz_f = divide(P.mass * g_eff * P.l_r, P.wheelbase);
+    const float fz_r = divide(P.mass * g_eff * P.l_f, P.wheelbase);
+    Ctx c;
+    c.b_f = P.b_f * p[3];
+    c.b_r = P.b_r * p[3];
+    c.k_f = mu * fz_f * (P.d_f * p[4]);
+    c.k_r = mu * fz_r * (P.d_r * p[4]);
+    c.a_grav_x = -P.g * s_pitch;
+    c.a_grav_y = P.g * s_roll;
+    return c;
+  }
+
+  template <class T>
+  DI void operator()(const T* x, const T* u, const Ctx& c, T* xd) const {
+    const T& psi = x[2];
+    const T& v_x = x[3];
+    const T& v_y = x[4];
+    const T& psi_dot = x[5];
+    const T& delta = x[6];
+    const T& a_cmd = u[0];
+    const T& delta_dot = u[1];
+
+    const T v_x_safe = max_(v_x, 0.5f);
+    const T alpha_f = delta - atan_(divide(v_y + P.l_f * psi_dot, v_x_safe));
+    const T alpha_r = -atan_(divide(v_y - P.l_r * psi_dot, v_x_safe));
+    T mf, mr, unused;
+    sin_cos(P.c_f * atan_(c.b_f * alpha_f), mf, unused);
+    sin_cos(P.c_r * atan_(c.b_r * alpha_r), mr, unused);
+    const T f_fy = c.k_f * mf;
+    const T f_ry = c.k_r * mr;
+
+    T sps, cps;
+    sin_cos(psi, sps, cps);
+    xd[0] = v_x * cps - v_y * sps;
+    xd[1] = v_x * sps + v_y * cps;
+    xd[2] = psi_dot;
+
+    T sd, cd;
+    sin_cos(delta, sd, cd);
+    xd[3] = a_cmd + c.a_grav_x - divide(f_fy * sd, P.mass) + v_y * psi_dot;
+    xd[4] = divide(f_ry + f_fy * cd, P.mass) + c.a_grav_y - v_x * psi_dot;
+    xd[5] = divide(P.l_f * f_fy * cd - P.l_r * f_ry, P.iz);
+    xd[6] = delta_dot;
+  }
+};
+
+// Capacity of the GP-bicycle's training table (models/gp_bicycle.py).
+constexpr int GP_POINTS = 32, GP_DIMS = 2, GP_FEATS = 4;
+
+struct GPBicycleParamsC {  // by value from the wrapper (models/gp_bicycle.py)
+  BicycleParamsC bike;
+  int n;                                    // training points, <= GP_POINTS
+  float X[GP_DIMS][GP_POINTS][GP_FEATS];    // training features
+  float a[GP_DIMS][GP_POINTS];              // k_inv_y * sigma_f
+  float inv_l[GP_DIMS][GP_FEATS];           // 1 / length scale
+  float y_mean[GP_DIMS];
+};
+static_assert(offsetof(GPBicycleParamsC, a) ==
+                  offsetof(GPBicycleParamsC, X) + sizeof(float) * GP_DIMS * GP_POINTS * GP_FEATS,
+              "stage() copies X and a as one range");
+
+// The table's features and weights (X, then a, as they lie in
+// GPBicycleParamsC), copied once per block from the kernel's parameters by
+// GPBicycleDyn::stage. The j loop reads them with an index the compiler
+// cannot fold; from shared memory every lane of a warp reads the same word
+// (a broadcast), where indexed reads of the parameter space cost the RK4
+// kernel 10x its time (PERF.md section 6). The loop is unrolled 4 times
+// (1, 2 and 8 were slower, PERF.md).
+constexpr int GP_TABLE = GP_DIMS * GP_POINTS * (GP_FEATS + 1);
+__shared__ float gp_table[GP_TABLE];
+
+// The posterior mean of output dim d at the features z, in float, by the
+// order of ad_mpc_tpu/learned/lane.py:lane_gp_mean (mu = y_mean +
+// sum_j a_j exp(-0.5 sum_k ((z_k - X_jk) / l_k)^2)), and its gradient
+// g_k = -sum_j a_j e_j (z_k - X_jk) / l_k^2. A row with a_j = 0 (padding)
+// adds exactly 0 to both.
+DI float gp_mean(const GPBicycleParamsC& P, int d, const float* z, float* g) {
+  const float* X = gp_table + d * GP_POINTS * GP_FEATS;
+  const float* a = gp_table + GP_DIMS * GP_POINTS * GP_FEATS + d * GP_POINTS;
+  float mu = 0.0f, acc[GP_FEATS];
+#pragma unroll
+  for (int k = 0; k < GP_FEATS; ++k) acc[k] = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < P.n; ++j) {
+    float t[GP_FEATS];
+    float d2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < GP_FEATS; ++k) {
+      t[k] = (z[k] - X[j * GP_FEATS + k]) * P.inv_l[d][k];
+      d2 = d2 + t[k] * t[k];
+    }
+    const float e = a[j] * expf(-0.5f * d2);
+    mu = mu + e;
+#pragma unroll
+    for (int k = 0; k < GP_FEATS; ++k) acc[k] = acc[k] + e * t[k];
+  }
+#pragma unroll
+  for (int k = 0; k < GP_FEATS; ++k) g[k] = -acc[k] * P.inv_l[d][k];
+  return mu + P.y_mean[d];
+}
+
+// A float mean as the scalar type: for a dual, value mu and tangents
+// sum_k g_k dz_k, the derivative jax.linearize gives (one contraction, not
+// the tangents carried through every point's product and exp).
+DI float gp_lift(float mu, const float*, const float*) { return mu; }
+template <int NT>
+DI Dual<NT> gp_lift(float mu, const float* g, const Dual<NT>* z) {
+  Dual<NT> r;
+  r.v = mu;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    float s = g[0] * z[0].d[i];
+#pragma unroll
+    for (int k = 1; k < GP_FEATS; ++k) s = s + g[k] * z[k].d[i];
+    r.d[i] = s;
+  }
+  return r;
+}
+
+// The dynamic bicycle (switch p[0]) plus the baked cluster-0 GP mean of the
+// c3 bench config (bench.py:216-257): features x[3..6], outputs added to
+// rows 4 and 5.
+struct GPBicycleDyn {
+  static constexpr int NX = 7, NU = 2, NP = 1;
+  static constexpr int TANGENTS_PER_PASS = GP_BICYCLE_TANGENTS_PER_PASS;
+  static constexpr int ROW_WARPS = GP_BICYCLE_ROW_WARPS;
+  static constexpr bool STAGES = true;
+  using Ctx = const float*;
+  GPBicycleParamsC P;
+
+  DI Ctx context(const float* p) const { return p; }
+
+  // Every thread of the block copies its share of X and a to gp_table; the
+  // kernel synchronizes the block after.
+  DI void stage() const {
+    const float* src = &P.X[0][0][0];
+    for (int i = threadIdx.x; i < GP_TABLE; i += blockDim.x) gp_table[i] = src[i];
+  }
+
+  template <class T>
+  DI void operator()(const T* x, const T* u, const float* p, T* xd) const {
+    float z[GP_FEATS], g0[GP_FEATS], g1[GP_FEATS];
+#pragma unroll
+    for (int k = 0; k < GP_FEATS; ++k) z[k] = value(x[3 + k]);
+    const float mu0 = gp_mean(P, 0, z, g0);
+    const float mu1 = gp_mean(P, 1, z, g1);
+    bicycle_xdot(P.bike, p[0], x, u, xd);
+    xd[4] = xd[4] + gp_lift(mu0, g0, x + 3);
+    xd[5] = xd[5] + gp_lift(mu1, g1, x + 3);
+  }
+};
+
 // ------------------------------------------------------------- kernels
 
 // RK4 sub-step sizes, rounded once from double on the host (the JAX map and
@@ -298,7 +555,8 @@ struct Steps {
 // One RK4 map x <- F(x, u) in place, with the order of operations of
 // pallas_vde.py:128-135: x + (h/6) * (((k1 + 2 k2) + 2 k3) + k4).
 template <class T, class Dyn>
-DI void rk4_map(T* x, const T* u, const float* p, const Dyn& f, Steps st) {
+DI void rk4_map(T* x, const T* u, const typename Dyn::Ctx& p, const Dyn& f,
+                Steps st) {
   constexpr int NX = Dyn::NX;
   for (int s = 0; s < st.n; ++s) {
     T k[NX], xt[NX], acc[NX];
@@ -344,8 +602,8 @@ DI void store_rows(float* __restrict__ dst, const float* tile, int w,
 // into its rows of the tiles (and, on the first pass, c).
 template <int J0, int NT, class Dyn>
 DI void vde_pass(const float* x0, const float* u0, const float* xn,
-                 const float* p, const Dyn& f, Steps st, float* tA, float* tB,
-                 float* tc) {
+                 const typename Dyn::Ctx& p, const Dyn& f, Steps st, float* tA,
+                 float* tB, float* tc) {
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
   Dual<NT> x[NX], u[NU];
@@ -383,8 +641,8 @@ DI void vde_pass(const float* x0, const float* u0, const float* xn,
 // The passes from column J0 on.
 template <int J0, class Dyn>
 DI void vde_passes(const float* x0, const float* u0, const float* xn,
-                   const float* p, const Dyn& f, Steps st, float* tA,
-                   float* tB, float* tc) {
+                   const typename Dyn::Ctx& p, const Dyn& f, Steps st,
+                   float* tA, float* tB, float* tc) {
   constexpr int NV = Dyn::NX + Dyn::NU;
   constexpr int TP = Dyn::TANGENTS_PER_PASS;
   constexpr int NT = TP < NV - J0 ? TP : NV - J0;
@@ -405,7 +663,7 @@ __global__ void __launch_bounds__(Dyn::ROW_WARPS * WARP)
 vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
            const float* __restrict__ ps, float* __restrict__ A,
            float* __restrict__ Bm, float* __restrict__ c, int batch, int N,
-           int pd, Steps st, Dyn f) {
+           int pd, Steps st, const __grid_constant__ Dyn f) {
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
   constexpr int ROW_WARPS = Dyn::ROW_WARPS;
@@ -414,6 +672,10 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   constexpr int TILE = vde_tile<Dyn>();
   static_assert(TILE % 4 == 0, "tiles start on 16 bytes");
   extern __shared__ float4 smem[];  // ROW_WARPS tiles
+  if constexpr (Dyn::STAGES) {
+    f.stage();
+    __syncthreads();
+  }
 
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   float* tile = reinterpret_cast<float*>(smem) + warp * TILE;
@@ -432,7 +694,8 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
 #pragma unroll
   for (int i = 0; i < NU; ++i) u0[i] = us[row * NU + i];
 
-  vde_passes<0>(x0, u0, xn, ps + b * pd, f, st, tile + lane * NX * NX,
+  const typename Dyn::Ctx ctx = f.context(ps + b * pd);
+  vde_passes<0>(x0, u0, xn, ctx, f, st, tile + lane * NX * NX,
                 tile + TILE_B + lane * NX * NU, tile + TILE_C + lane * NX);
 
   __syncwarp();
@@ -452,10 +715,14 @@ rk4_kernel(const float* __restrict__ xs, long long xs_b,
            const float* __restrict__ us, long long us_b, long long us_k,
            const float* __restrict__ ps, long long ps_b,
            float* __restrict__ out, int batch, int N, int defect, Steps st,
-           Dyn f) {
+           const __grid_constant__ Dyn f) {
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
   __shared__ float4 smem[RK4_ROW_WARPS * WARP * NX / 4];
+  if constexpr (Dyn::STAGES) {
+    f.stage();
+    __syncthreads();
+  }
 
   const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
   float* tile = reinterpret_cast<float*>(smem) + warp * WARP * NX;
@@ -473,7 +740,7 @@ rk4_kernel(const float* __restrict__ xs, long long xs_b,
 #pragma unroll
   for (int i = 0; i < NU; ++i) u[i] = uk[i];
 
-  rk4_map(x, u, ps + b * ps_b, f, st);
+  rk4_map(x, u, f.context(ps + b * ps_b), f, st);
 
 #pragma unroll
   for (int i = 0; i < NX; ++i) tile[lane * NX + i] = defect ? x[i] - xk[NX + i] : x[i];
@@ -567,6 +834,8 @@ extern "C" {
 
 VDE_ENTRIES(bicycle, BicycleDyn, BicycleParamsC)
 VDE_ENTRIES(quad, QuadDyn, QuadParamsC)
+VDE_ENTRIES(pacejka, PacejkaDyn, PacejkaParamsC)
+VDE_ENTRIES(gp_bicycle, GPBicycleDyn, GPBicycleParamsC)
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

@@ -1,16 +1,18 @@
 """Bits and device times of the c2 kernels (the bicycle VDE sweep and the
-7x2 LQ kernel) of whichever ``ad_mpc_tpu_torch`` is imported, so that two
-trees can be compared on one card in one call:
+7x2 LQ kernel), and bits of the c5 kernels (the quad VDE sweep, the quad
+RK4 map and the 13x4 LQ kernel), of whichever ``ad_mpc_tpu_torch`` is
+imported, so that two trees can be compared on one card in one call:
 
     python ad_mpc_tpu_torch/experiments/c2_kernels.py [--out PATH]
     PYTHONPATH=<other tree> python ad_mpc_tpu_torch/experiments/c2_kernels.py
 
 Run as a file, it imports the package from ``PYTHONPATH`` (or the working
 directory), and uses only the c2 entry points of the package (none of the
-quad's helpers), so that a tree without the quad runs it too.
+quad's helpers but in :func:`c5_bits`, which needs a tree with the quad).
 Prints one JSON line: the package's path; the sha256 digests of the
 kernels' outputs on the fixed draws of
-``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits``; device ms by
+``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits`` and
+``test_c5_kernels_keep_their_bits``; device ms by
 ``torch.profiler`` at c2's B=16384 (the sweep on ``random_traj``, N=30,
 over 50 launches; the LQ kernel on the third c2 tick's QPs over 10).
 """
@@ -41,6 +43,30 @@ def digest(*tensors):
     for t in tensors:
         h.update(t.detach().cpu().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def c5_bits(dev):
+    """Digests of the c5 kernels' outputs on fixed draws (B=37): the quad
+    VDE sweep and both modes of its RK4 map on ``quad_traj`` (N=10), and the
+    13x4 LQ kernel on random unit-box problems (18 iterations)."""
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import QUAD_LQ_WEIGHTS, quad_traj
+
+    quad = QuadDynamics()
+    xs, us = (torch.as_tensor(a, device=dev)
+              for a in quad_traj(np.random.default_rng(8), 37, 10))
+    ps = torch.zeros((37, 0), device=dev)
+    vde = make_vde(quad, 0.1, 10, 13, 4, 0, device=dev)
+    rk4 = make_rk4(quad, 0.1, 13, 4, 0, device=dev)
+    Q, R = QUAD_LQ_WEIGHTS
+    qp = make_lq_solver(10, 13, 4, Q, R, 10 * Q, *BOUNDS["unit"](13, 4),
+                        iters=18, device=dev)
+    args = [torch.as_tensor(a, device=dev)
+            for a in random_lq(np.random.default_rng(7), 37, 10, 13, 4)]
+    return {"vde_quad": digest(*vde(xs, us, ps)),
+            "rk4_quad": digest(rk4.defect(xs, us, ps), rk4(xs[:, 0], us[:, 0], ps)),
+            "lq_ipm_13x4": digest(*qp(*args))}
 
 
 def profiled_ms(fn, reps, kernel):
@@ -77,6 +103,7 @@ def main(argv=None):
     lq_args = [torch.as_tensor(a, device=dev)
                for a in random_lq(np.random.default_rng(7), 37, 30, 7, 2)]
     res["bits"] = {"vde": digest(*vde(xs, us, ps)), "lq_ipm": digest(*qp(*lq_args))}
+    res["bits_c5"] = c5_bits(dev)
 
     # Device times at c2's B=16384.
     B = 16384

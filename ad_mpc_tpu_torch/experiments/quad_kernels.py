@@ -58,8 +58,8 @@ def vde_variants(B=16384, N=10, dt=0.1, variants=VDE_VARIANTS):
         vde.defines = _defines(tpp, rw)
         got = vde(xs, us, ps)
         first = got if first is None else first
-        res = next(r for e, r in _build.ptxas_resources(
-            "vde", vde.defines).items() if "vde_kernel" in e and "Quad" in e)
+        res = _build.functor_resources("vde", "vde_kernel", dyn.cuda_functor,
+                                       vde.defines)
         rows[f"tpp{tpp}_rw{rw}"] = res | {
             "tangents_per_pass": tpp, "row_warps": rw,
             "max_abs_err": max(float((g - w).abs().max())

@@ -1,6 +1,9 @@
-"""The closed-loop fleet control tick of bench config c2, on the port.
+"""The closed-loop bicycle fleets of bench configs c2, c3 and c4, on the port.
 
-Port of ``bench.py:70-202, 210-213, 303-455``. Every tick is the full unit
+Port of ``bench.py:70-298, 303-455``: the c2 dynamic bicycle, the c3
+GP-augmented bicycle (:func:`make_gp_bicycle`) and the c4 Pacejka
+friction/topography sweep (:func:`make_pacejka`) share :func:`build_fleet`,
+the tick and the gates machinery. Every tick is the full unit
 of work: project each vehicle onto its arc and build its reference window,
 run one batched SQP-RTI solve (two kernel launches per Gauss-Newton
 iteration on a CUDA device, and one for the KKT defect), apply u0 to the
@@ -18,13 +21,24 @@ import numpy as np
 import torch
 
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
+from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble
+from ad_mpc_tpu_torch.learned.gp import GPParams
 from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
+from ad_mpc_tpu_torch.models.gp_bicycle import GPBicycleDynamics
+from ad_mpc_tpu_torch.models.pacejka import PacejkaDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver, SolverState
 
-# Quality gates of config c2 (``bench.py:473-476, 493-495``): they describe
+# Quality gates by config (``bench.py:473-478, 493-496``): they describe
 # the solution, not the chip, and hold for the port unchanged.
-GATES = {"kkt_mean": 5e-6, "kkt_max": 3e-5, "lat_err_mean_m": 0.4}
-RTI_GATE = 5e-4  # max |u0_RTI - u0_converged|
+CONFIG_GATES = {
+    "c2": {"kkt_mean": 5e-6, "kkt_max": 3e-5, "lat_err_mean_m": 0.4},
+    "c3": {"kkt_mean": 5e-6, "kkt_max": 3e-5, "lat_err_mean_m": 0.4},
+    "c4": {"kkt_mean": 8e-6, "kkt_max": 1e-4, "lat_err_mean_m": 0.15},
+}
+RTI_GATES = {"c2": 5e-4, "c4": 7e-4}  # max |u0_RTI - u0_converged|
+# c4's window: its fleet cold-starts off the arc, and the stiff tires'
+# transient takes some 40 ticks to die out (``bench.py:741-745``).
+C4_WARMUP, C4_TICKS = 45, 10
 WHEELBASE = 2.7  # of the reference arcs' steering feed-forward [m]
 
 # c2's dynamics: the linear-tire bicycle with the dynamic branch driven
@@ -33,8 +47,58 @@ dynamic_bicycle = BicycleDynamics()
 
 
 def switch_on(v, kappa, extra):
-    """c2's per-scenario parameter: the blend switch at 1."""
+    """c2's and c3's per-scenario parameter: the blend switch at 1."""
     return np.array([1.0], np.float32)
+
+
+def make_gp_bicycle(n=32):
+    """c3's dynamics (``bench.py:216-257``): the dynamic bicycle plus a
+    synthetic GP ensemble of one cluster, ``n`` points of 4 features
+    (v_x, v_y, psi_dot, delta) for 2 outputs (v_y and psi_dot rows), drawn
+    from ``numpy.random.default_rng(11)`` as the JAX bench draws it
+    (``n=32``; the JAX tests' small twin takes fewer)."""
+    rng = np.random.default_rng(11)
+    d = 4
+    gps = [[], []]
+    for dim in range(2):
+        X = rng.uniform([-0.0, -1.0, -0.5, -0.5], [15.0, 1.0, 0.5, 0.5], (n, d))
+        y = 0.05 * np.sin(X[:, 1] * 3.0) + 0.02 * X[:, 2] * (dim + 1)
+        ls = np.array([5.0, 0.5, 0.3, 0.3])
+        sf, sn = 0.01, 0.05
+        diff = (X[:, None, :] - X[None, :, :]) / ls
+        K = sf * np.exp(-0.5 * np.sum(diff * diff, axis=-1))
+        K += (sn**2 + 1e-6) * np.eye(n)
+        gps[dim].append(GPParams(
+            x_train=X, k_inv_y=np.linalg.solve(K, y - y.mean()), len_scale=ls,
+            sigma_f=sf, sigma_n=sn, y_mean=float(y.mean()),
+            centroid=X.mean(axis=0)))
+    ens = GPEnsemble.from_gps(gps, out_idx=(4, 5), feat_idx=(3, 4, 5, 6))
+    return GPBicycleDynamics(ens)
+
+
+def make_pacejka():
+    """c4 (``bench.py:260-298``): the Pacejka bicycle with a per-scenario
+    p = [mu, pitch, roll, B scale, D scale] and the friction-circle
+    reference-speed cap. Returns (dynamics, p_of_scenario, v_cap)."""
+    dyn = PacejkaDynamics()
+
+    def p_of(v, kappa, extra):
+        mu = 0.6 + 0.5 * extra[0]  # friction in [0.6, 1.1]
+        pitch = (extra[1] - 0.5) * 0.12  # +-3.4 deg
+        roll = (extra[2] - 0.5) * 0.10
+        b_scale = 0.8 + 0.4 * extra[3]  # stiffness factor draw
+        d_scale = 0.85 + 0.3 * extra[4]  # peak factor draw
+        return np.array([mu, pitch, roll, b_scale, d_scale], np.float32)
+
+    def v_cap(v, kappa, p):
+        """Cap the demanded lateral acceleration v^2 |kappa| at 75% of the
+        drawn tire limit mu g D, so that no scenario asks for cornering
+        beyond its friction circle."""
+        a_y_max = 0.75 * p[:, 0] * 9.81 * p[:, 4]
+        v_max = np.sqrt(a_y_max / np.maximum(np.abs(kappa), 1e-3))
+        return np.minimum(v, v_max)
+
+    return dyn, p_of, v_cap
 
 
 def make_scenarios(batch, seed=0):
@@ -79,13 +143,33 @@ def _project_arc(x0, s0, kappa):
     return torch.where(straight, px, s_arc)
 
 
+def draw_p(p_of_scenario, v, kappa):
+    """(B, p_dim) float32 parameters, one per scenario (v, kappa), built by
+    ``p_of_scenario`` from extras drawn from ``default_rng(1)``, as the JAX
+    bench draws them (``bench.py:172-200``)."""
+    extras = np.random.default_rng(1).uniform(0.0, 1.0, (len(v), 8)).astype(
+        np.float32)
+    return np.stack([np.asarray(p_of_scenario(float(vv), float(kk), ee))
+                     for vv, kk, ee in zip(v, kappa, extras)]).astype(np.float32)
+
+
+def pacejka_draw(B):
+    """c4's dynamics and the p of B scenarios at v = kappa = 0 (``p_of``
+    reads neither), drawn as :func:`build_fleet`'s ``init`` draws them."""
+    dyn, p_of, _ = make_pacejka()
+    zeros = np.zeros(B, np.float32)
+    return dyn, draw_p(p_of, zeros, zeros)
+
+
 def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
-                sqp_iters=1, device="cuda", backend="auto"):
+                sqp_iters=1, v_cap=None, device="cuda", backend="auto"):
     """Closed-loop fleet over :class:`BatchedSQPSolver`.
 
     dynamics(x, u, p): continuous model with a per-scenario parameter
-    vector; p_of_scenario(v, kappa, extra) builds that vector. ``backend``
-    is the solver's (``"cuda"``, ``"plain"`` or ``"auto"``).
+    vector; p_of_scenario(v, kappa, extra) builds that vector.
+    ``v_cap(v, kappa, p)`` (numpy) caps each scenario's speed before it
+    reaches the solver. ``backend`` is the solver's (``"cuda"``,
+    ``"plain"`` or ``"auto"``).
     Returns (tick, init, solver, spec): tick(carry) -> (carry, (kkt, lat)).
     """
     spec = bicycle_spec(t_horizon=n_nodes * 0.05, n_nodes=n_nodes,
@@ -109,12 +193,12 @@ def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
         return (x_next, s0, v, kappa, p, states), (res.kkt_residual, lat.mean())
 
     def init(batch, seed=0):
+        """Draw (v, kappa), then the extras from ``default_rng(1)``, then p,
+        then cap v: the JAX bench's order (``bench.py:172-200``)."""
         v, kappa = make_scenarios(batch, seed)
-        extras = np.random.default_rng(1).uniform(0.0, 1.0, (batch, 8)).astype(
-            np.float32)
-        p_np = np.stack([np.asarray(p_of_scenario(float(vv), float(kk), ee))
-                         for vv, kk, ee in zip(v, kappa, extras)]
-                        ).astype(np.float32)
+        p_np = draw_p(p_of_scenario, v, kappa)
+        if v_cap is not None:
+            v = np.minimum(v, v_cap(v, kappa, p_np)).astype(np.float32)
         dev = solver.Q.device
         v = torch.as_tensor(v, device=dev)
         x0 = torch.zeros((batch, 7), dtype=torch.float32, device=dev)
@@ -175,11 +259,6 @@ def launches(solver):
 # Launches of each kernel per tick on the cuda backend (one RTI iteration):
 # the sweep, the QP, and the RK4 map for the KKT defect and the plant step.
 LAUNCHES_PER_TICK = {"vde": 1, "lq_ipm": 1, "rk4": 2}
-
-
-def gate_failures(row):
-    """Names of the c2 quality gates that ``row`` exceeds."""
-    return [k for k, lim in GATES.items() if not row[k] <= lim]
 
 
 def rti_vs_converged(dynamics, p_of, carry):

@@ -123,6 +123,7 @@ class BicycleDynamics(nn.Module):
     """
 
     nx, nu, p_dim = NX, NU, 1
+    cuda_functor = "BicycleDyn"
     cuda_entry = "vde_bicycle"
     cuda_rk4_entry = "rk4_bicycle"
 

@@ -186,6 +186,7 @@ class QuadDynamics(nn.Module):
     """
 
     nx, nu, p_dim = NX, NU, 0
+    cuda_functor = "QuadDyn"
     cuda_entry = "vde_quad"
     cuda_rk4_entry = "rk4_quad"
 

@@ -114,6 +114,19 @@ def ptxas_resources(name: str, defines=()) -> dict:
     return out
 
 
+def functor_resources(name: str, kernel: str, functor: str, defines=()) -> dict:
+    """:func:`ptxas_resources` of the instantiation ``kernel<functor>`` of
+    ``csrc/<name>.cu``, matched on the whole template argument of the
+    mangled name (``vde_kernelI10BicycleDynE``), so that ``BicycleDyn``
+    never matches ``GPBicycleDyn``."""
+    tag = f"{kernel}I{len(functor)}{functor}E"
+    found = [r for e, r in ptxas_resources(name, defines).items() if tag in e]
+    if len(found) != 1:
+        raise RuntimeError(f"{len(found)} ptxas entries of {kernel}<{functor}> "
+                           f"in {name}.cu")
+    return found[0]
+
+
 def load(name: str, defines=()) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` built with ``defines``,
     built first if needed."""

@@ -155,7 +155,8 @@ class RK4(nn.Module):
     contiguous last axis. ``defect(xs, us, ps)`` is the multiple-shooting
     defect F(x_k, u_k) - x_{k+1}: xs (B,N+1,nx), us (B,N,nu), ps (B,p_dim)
     -> (B,N,nx), the sweep's ``c``. All float32. ``launches`` counts kernel
-    launches.
+    launches; ``defines`` are the ``-D`` macros the kernel is built with
+    (none on the main path).
     """
 
     def __init__(self, f, dt, nx, nu, p_dim, rk4_steps=1):
@@ -163,6 +164,7 @@ class RK4(nn.Module):
         self.f = f
         self.dt, self.nx, self.nu = float(dt), nx, nu
         self.p_dim, self.rk4_steps = p_dim, rk4_steps
+        self.defines = ()
         self.launches = 0
 
     def plain(self, x, u, p):
@@ -196,7 +198,7 @@ class RK4(nn.Module):
         if x.device.type != "cuda":
             raise ValueError(f"RK4: unsupported device {x.device}")
         _check_shape("RK4", self.f, self.nx, self.nu)
-        fn, error_string = _entry(self.f, "cuda_rk4_entry")
+        fn, error_string = _entry(self.f, "cuda_rk4_entry", self.defines)
         out = torch.empty((batch, N, self.nx) if defect else (batch, self.nx),
                           dtype=torch.float32, device=x.device)
         # p_dim = 0: the kernel reads no parameter, and the empty tensor's
@@ -210,11 +212,13 @@ class RK4(nn.Module):
 
 
 def _prepare(f, device, kind, nx, nu):
-    """On a CUDA device: refuse a dynamics without a CUDA functor or with
-    another (nx, nu), then require the card and build the kernel now."""
+    """On a CUDA device: refuse a dynamics without a CUDA functor, with
+    another (nx, nu) or with parameters its functor cannot take, then
+    require the card and build the kernel now."""
     if torch.device(device).type == "cuda":
         _entry_name(f, kind)
         _check_shape(kind, f, nx, nu)
+        f.cuda_params()
         _build.require_card(device)
         _entry(f, kind)
 

@@ -1,11 +1,13 @@
 """Where the time of a fleet tick goes, on the card.
 
-    python -m ad_mpc_tpu_torch.profile_tick [--config c2|c5]
+    python -m ad_mpc_tpu_torch.profile_tick [--config c2|c3|c4|c5]
                                             [--batch 1024 16384] [--ticks 10]
                                             [--out PATH]
 
-``--config``: the c2 bicycle tick (``fleet.build_fleet``) or the c5 quad
-tick (``experiments.quad_fleet.build_quad_fleet``, two Gauss-Newton
+``--config``: the c2 bicycle tick (``fleet.build_fleet``), the c3
+GP-bicycle tick (``fleet.make_gp_bicycle``), the c4 Pacejka tick
+(``fleet.make_pacejka``, speeds capped) or the c5 quad tick
+(``experiments.quad_fleet.build_quad_fleet``, two Gauss-Newton
 iterations). For each batch size: 5 warm-up ticks, then ``--ticks`` ticks under
 ``torch.profiler`` (CPU and CUDA activities). Prints the device time per
 tick of each kernel (the port's two kernels and PyTorch's own), the tick's
@@ -26,9 +28,17 @@ from torch.profiler import ProfilerActivity, profile
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.experiments import device_us, quad_fleet
 
+def _c4():
+    dyn, p_of, v_cap = fleet.make_pacejka()
+    return fleet.build_fleet(dyn, p_of, v_cap=v_cap, device="cuda")
+
+
 FLEETS = {
     "c2": lambda: fleet.build_fleet(fleet.dynamic_bicycle, fleet.switch_on,
                                     device="cuda"),
+    "c3": lambda: fleet.build_fleet(fleet.make_gp_bicycle(), fleet.switch_on,
+                                    device="cuda"),
+    "c4": _c4,
     "c5": lambda: quad_fleet.build_quad_fleet(device="cuda"),
 }
 

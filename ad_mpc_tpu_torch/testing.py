@@ -80,6 +80,32 @@ def quad_traj(rng, B, N, nx=13, nu=4):
     return xs, us
 
 
+def pacejka_inputs(B, N, device="cuda"):
+    """c4's dynamics and the kernels' check inputs: ``random_traj`` from
+    ``default_rng(3)`` and p as ``fleet.pacejka_draw`` draws it, as tensors
+    (xs, us, ps) on ``device``."""
+    import torch
+
+    from ad_mpc_tpu_torch.fleet import pacejka_draw
+
+    dyn, ps = pacejka_draw(B)
+    xs, us = random_traj(np.random.default_rng(3), B, N, 7, 2)
+    return dyn, [torch.as_tensor(a, device=device) for a in (xs, us, ps)]
+
+
+def gp_bicycle_inputs(B, N, device="cuda", n=32):
+    """c3's dynamics with an ``n``-point ensemble and the kernels' check
+    inputs: ``random_traj`` from ``default_rng(3)`` and switch 1."""
+    import torch
+
+    from ad_mpc_tpu_torch.fleet import make_gp_bicycle
+
+    xs, us = random_traj(np.random.default_rng(3), B, N, 7, 2)
+    ps = np.ones((B, 1), np.float32)
+    return make_gp_bicycle(n), [torch.as_tensor(a, device=device)
+                                for a in (xs, us, ps)]
+
+
 SPREAD_RUNS = 8  # perturbed float32 runs of the plain LQ version (lq_case)
 SPREAD_FACTOR = 4.0  # allowance over a correct float32 run (lq_case, the MXU micro)
 

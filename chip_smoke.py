@@ -29,6 +29,16 @@ Phases, each of which must pass:
    16384, 5 warm-up and 20 timed ticks, with the launches per tick of
    ``fleet.LAUNCHES_PER_TICK`` (the sweep and the QP once, the RK4 map
    twice), the c2 quality gates, and RTI-vs-converged u0;
+4a. c4, the Pacejka sweep (``fleet.make_pacejka``): kernel phases VDE and
+   RK4 with the ``PacejkaDyn`` functor at B=16384, N=30 (held to their
+   plain versions at 2e-5 on p drawn by ``p_of`` and on the same draw at
+   mu = 0.6, warm and cold, registers and spills), then the fleet at
+   B=4096, 45 warm-up and 10 timed ticks, its launches per tick, the c4
+   gates and RTI-vs-converged u0;
+4b. c3, the GP bicycle (``fleet.make_gp_bicycle``): the same kernel phases
+   with the ``GPBicycleDyn`` functor on the bench's 32-point ensemble and
+   its 8-point twin, then the fleet at B=256, 4096 and 16384, 5 warm-up
+   and 20 timed ticks, its launches per tick and the c3 gates;
 5. the c5 quadrotor (nx=13, nu=4, N=10, p_dim=0): kernel phase VDE quad
    (B=16384, held to ``vde_plain`` at 3e-5, with registers and spills),
    kernel phase RK4 quad (both modes against ``discrete_step`` at 3e-5,
@@ -60,9 +70,13 @@ Phases, each of which must pass:
     launches: printed; over the 20 ms budget is a warning, as in
     ``bench.py``.
 
-Each path of phases 4, 5 and 7-10 starts with its kernels' launch counts
-at 0 and reads them after. The script then prints a ``{"kernels": [...]}`` line
-and, last, the ``{"ok": true, ...}`` line. Any failure exits non-zero
+Each path of phases 4, 4a, 4b, 5 and 7-10 starts with its kernels' launch
+counts at 0 and reads them after. The script then prints a
+``{"kernels": [...]}`` line (each kernel's launches on its path, error,
+times, bound and, for the VDE and RK4 rows, the registers and spills of
+its functor's instantiation, matched by the functor's exact name), failing
+if a kernel was not launched on its path or ran under its bound, and,
+last, the ``{"ok": true, ...}`` line. Any failure exits non-zero
 before the ``ok`` line. No JAX is imported. ``--out`` also writes every
 measurement as JSON.
 """
@@ -79,19 +93,59 @@ import time
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, same sheet
-BICYCLE_DYN_FLOPS = 90  # hand count of the blended bicycle f(x, u, p)
-QUAD_DYN_FLOPS = 150  # hand count of the entrywise quad (bench.py:527)
+GP_POINTS, GP_DIMS, GP_FEATS = 32, 2, 4  # c3's GP (bench.py:227)
 WARMUP, TICKS = 5, 20
 C5_WARMUP = 20  # the c5 rows' warm-up ticks (bench.py:779)
 
 
-def vde_flops_per_stage(nx, nu, dyn_flops):
-    """Operations of one stage of the sweep, by the JAX package's hand count
-    (``bench.py:532-541``): RK4 = 4 dynamics evaluations + 14 nx for the
-    combination, and the sweep = the primal plus nx+nu tangent passes at
-    twice the primal each. A fused multiply-add counts as two."""
-    rk4 = 4 * dyn_flops + 14 * nx
-    return rk4 * (1 + 2 * (nx + nu))
+def sweep_flops_per_stage(dyn, nx, nu, ps):
+    """Operations of one stage of the VDE sweep of ``dyn``: its
+    forward-mode algorithm counted from its plain version
+    (``experiments.opcount``: each evaluation's primal once and its tangent
+    cost per tangent, the RK4 combination and the defect)."""
+    from ad_mpc_tpu_torch.experiments.opcount import dyn_counts, sweep_flops
+
+    return sweep_flops(dyn_counts(dyn, nx, nu, ps[0].cpu()), nx, nu)
+
+
+def gp_ops(n, D=GP_DIMS, d=GP_FEATS):
+    """The least operations of one evaluation of c3's GP means, as
+    (primal, gradient), in the form that keeps X_j sqrt(0.5) / l in the
+    table. Primal: the features scaled once per output, w = z sqrt(0.5) / l
+    (D d); per point and output the d differences w_k - X'_jk, their
+    squared sum (2d - 1), exp of its negation, a x and the sum into the
+    mean started at y_mean (3d + 2; exp as one operation); each mean added
+    to its row (D). Gradient, g_k = -(sqrt(2) / l_k) sum_j a_j e_j t_jk:
+    one multiply-add per point, output and feature (2d), then the scale
+    once per output and feature (D d). At n=32, D=2, d=4: 906 and 520."""
+    primal = D * d + n * D * (3 * d + 2) + D
+    grad = n * D * 2 * d + D * d
+    return primal, grad
+
+
+def gp_vde_flops_per_stage(bicycle, ps, n, D=GP_DIMS, d=GP_FEATS, nx=7, nu=2):
+    """The least operations of one stage of c3's sweep: the bicycle's sweep
+    (:func:`sweep_flops_per_stage` of ``bicycle``), plus for each of RK4's
+    4 evaluations the GP's means and gradients (:func:`gp_ops`) and their
+    tangents by one contraction, 2d per tangent and output (d
+    multiply-adds, the first a multiply, and the add to the row's tangent).
+    At n=32: 4 x (906 + 520 + 144) = 6,280 over the bicycle's. bench.py's
+    1,100 operations per evaluation (``DYN_FLOPS``) charge the GP's
+    products to every tangent, which a closed-form gradient does not
+    need."""
+    primal, grad = gp_ops(n, D, d)
+    gp = primal + grad + D * 2 * d * (nx + nu)
+    return sweep_flops_per_stage(bicycle, nx, nu, ps) + 4 * gp
+
+
+def gp_rk4_flops_per_row(bicycle, ps, n, D=GP_DIMS, d=GP_FEATS, nx=7, nu=2):
+    """The least operations of c3's RK4 map for one row: the bicycle's
+    (``opcount.rk4_flops``) plus each of the 4 evaluations' GP means
+    without gradients (:func:`gp_ops`)."""
+    from ad_mpc_tpu_torch.experiments.opcount import dyn_counts, rk4_flops
+
+    primal, _ = gp_ops(n, D, d)
+    return rk4_flops(dyn_counts(bicycle, nx, nu, ps[0].cpu()), nx) + 4 * primal
 
 
 def lq_flops_per_stage_iter(nx, nu):
@@ -147,18 +201,23 @@ def max_err(got, want, atol, rtol=0.0):
     return float(d.max()), ok
 
 
-def vde_case(torch, out, key, vde, dyn, dt, xs, us, params, atol, dyn_flops):
-    """The VDE kernel against ``vde_plain`` at ``atol`` for each parameter
-    tensor of ``params`` ({name: ps}); device time by the profiler beside
-    the CUDA-event time. Returns the kernels-line numbers."""
+def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None):
+    """The VDE kernel against ``vde_plain`` at ``atol`` for each case of
+    ``cases`` ({name: (dynamics, ps)}); device time by the profiler, warm
+    and with the inputs out of L2, beside the CUDA-event time; registers
+    and spills of the first case's functor. Returns the kernels-line
+    numbers (times of the first case). The bound counts
+    ``flops_per_stage``, by default :func:`sweep_flops_per_stage` of the
+    first case."""
     from ad_mpc_tpu_torch.experiments import device_ms
     from ad_mpc_tpu_torch.ops import _build
-    from ad_mpc_tpu_torch.ops.cuda_vde import vde_plain
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
 
     B, N, nx = xs.shape[0], xs.shape[1] - 1, xs.shape[2]
     nu = us.shape[-1]
     rows = {}
-    for name, ps in params.items():
+    for name, (dyn, ps) in cases.items():
+        vde = make_vde(dyn, dt, N, nx, nu, ps.shape[-1], device="cuda")
         got = vde(xs, us, ps)
         want = vde_plain(dyn, dt, 1, xs, us, ps)
         torch.cuda.synchronize()
@@ -174,75 +233,125 @@ def vde_case(torch, out, key, vde, dyn, dt, xs, us, params, atol, dyn_flops):
             "plain_ms": time_ms(
                 torch, lambda: vde_plain(dyn, dt, 1, xs, us, ps), 3),
         }
+        if len(rows) == 1:
+            row["cold_ms"] = device_ms(lambda: vde(xs, us, ps), 20, cold=True,
+                                       kernel="vde_kernel")
         print(f"{key} {name}: max|err| {err:.3e}, kernel {row['ms']:.5f} ms "
               f"device ({row['events_ms']:.5f} ms by events, back to back), "
               f"plain {row['plain_ms']:.3f} ms, launches (comparison "
               f"instance) {vde.launches}")
-    pd = next(iter(params.values())).shape[-1]
-    n_bytes = 4 * (xs.numel() + us.numel() + B * pd
+    dyn, ps = next(iter(cases.values()))
+    n_bytes = 4 * (xs.numel() + us.numel() + ps.numel()
                    + B * N * (nx * nx + nx * nu + nx))
-    n_flops = B * N * vde_flops_per_stage(nx, nu, dyn_flops)
+    n_flops = B * N * (flops_per_stage or sweep_flops_per_stage(dyn, nx, nu, ps))
     bms, by = bound_ms(n_bytes, n_flops)
     ptxas = _build.ptxas_report("vde")
-    res = next(r for e, r in _build.ptxas_resources("vde").items()
-               if "vde_kernel" in e and dyn.cuda_entry.split("_")[1] in e.lower())
+    res = _build.functor_resources("vde", "vde_kernel", dyn.cuda_functor)
+    first = next(iter(rows.values()))
     print(f"{key} bound at B={B}, N={N}: {n_bytes / 1e6:.1f} MB, "
-          f"{n_flops / 1e9:.2f} GFLOP -> {bms:.4f} ms ({by}); kernel "
-          f"{res['registers']} registers, {res['spill_stores']} B spill stores, "
+          f"{n_flops / 1e9:.2f} GFLOP -> {bms:.4f} ms ({by}); cold "
+          f"{first['cold_ms']:.5f} ms ({100 * bms / first['cold_ms']:.0f}% of the "
+          f"bound); vde_kernel<{dyn.cuda_functor}> {res['registers']} "
+          f"registers, {res['spill_stores']} B spill stores, "
           f"{res['spill_loads']} B spill loads")
     out[key] = {"cases": rows, "bytes": n_bytes, "flops": n_flops,
                 "bound_ms": bms, "bound_by": by, "ptxas": ptxas,
-                "resources": res}
-    first = next(iter(rows.values()))
-    return first | {"bound_ms": bms, "bound_by": by, "max_abs_err": max(
+                "functor": dyn.cuda_functor, "resources": res}
+    return first | res | {"bound_ms": bms, "bound_by": by, "max_abs_err": max(
         r["max_abs_err"] for r in rows.values())}
 
 
-def phase_vde(torch, np, out):
+def bicycle_cases(torch, B):
+    """The c2 bicycle at switch 1 and 0.3."""
     from ad_mpc_tpu_torch import fleet
-    from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
+
+    return {f"switch={s}": (fleet.dynamic_bicycle,
+                            torch.full((B, 1), s, device="cuda"))
+            for s in (1.0, 0.3)}
+
+
+def pacejka_cases(torch, B):
+    """c4's Pacejka with p drawn per scenario by ``p_of`` (the fleet's
+    draw), and the same draw at the sweep's lowest friction, mu = 0.6."""
+    from ad_mpc_tpu_torch.fleet import pacejka_draw
+
+    dyn, ps = pacejka_draw(B)
+    ps = torch.as_tensor(ps, device="cuda")
+    low = ps.clone()
+    low[:, 0] = 0.6
+    return {"p_of": (dyn, ps), "mu=0.6": (dyn, low)}
+
+
+def gp_bicycle_cases(torch, B):
+    """c3's GP bicycle at switch 1 with the bench's 32-point ensemble, and
+    with the 8-point twin of the same draw."""
+    from ad_mpc_tpu_torch import fleet
+
+    ps = torch.ones((B, 1), device="cuda")
+    return {f"n={n}": (fleet.make_gp_bicycle(n), ps) for n in (32, 8)}
+
+
+def c2_traj(torch, np, seed, B=16384, N=30):
     from ad_mpc_tpu_torch.testing import random_traj
 
-    B, N, nx, nu, dt = 16384, 30, 7, 2, 0.05
-    dyn = fleet.dynamic_bicycle
-    vde = make_vde(dyn, dt, N, nx, nu, 1, device="cuda")
-    xs, us = random_traj(np.random.default_rng(3), B, N, nx, nu)
-    xs, us = torch.as_tensor(xs).cuda(), torch.as_tensor(us).cuda()
-    params = {f"switch={s}": torch.full((B, 1), s, device="cuda")
-              for s in (1.0, 0.3)}
-    return vde_case(torch, out, "vde", vde, dyn, dt, xs, us, params, 2e-5,
-                    BICYCLE_DYN_FLOPS)
+    return [torch.as_tensor(a).cuda()
+            for a in random_traj(np.random.default_rng(seed), B, N, 7, 2)]
+
+
+def phase_vde(torch, np, out):
+    xs, us = c2_traj(torch, np, 3)
+    return vde_case(torch, out, "vde", bicycle_cases(torch, xs.shape[0]), 0.05,
+                    xs, us, 2e-5)
+
+
+def phase_vde_pacejka(torch, np, out):
+    xs, us = c2_traj(torch, np, 3)
+    return vde_case(torch, out, "vde_pacejka",
+                    pacejka_cases(torch, xs.shape[0]), 0.05, xs, us, 2e-5)
+
+
+def phase_vde_gp_bicycle(torch, np, out):
+    from ad_mpc_tpu_torch import fleet
+
+    xs, us = c2_traj(torch, np, 3)
+    cases = gp_bicycle_cases(torch, xs.shape[0])
+    ps = cases["n=32"][1]
+    return vde_case(torch, out, "vde_gp_bicycle", cases, 0.05, xs, us, 2e-5,
+                    gp_vde_flops_per_stage(fleet.dynamic_bicycle, ps, GP_POINTS))
 
 
 def phase_vde_quad(torch, np, out):
     from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
-    from ad_mpc_tpu_torch.ops.cuda_vde import make_vde
     from ad_mpc_tpu_torch.testing import quad_traj
 
-    B, N, nx, nu, dt = 16384, 10, 13, 4, 0.1
-    dyn = QuadDynamics()
-    vde = make_vde(dyn, dt, N, nx, nu, 0, device="cuda")
+    B = 16384
     xs, us = (torch.as_tensor(a).cuda()
-              for a in quad_traj(np.random.default_rng(13), B, N))
-    params = {"p_dim=0": torch.zeros((B, 0), device="cuda")}
-    return vde_case(torch, out, "vde_quad", vde, dyn, dt, xs, us, params,
-                    3e-5, QUAD_DYN_FLOPS)
+              for a in quad_traj(np.random.default_rng(13), B, 10))
+    cases = {"p_dim=0": (QuadDynamics(), torch.zeros((B, 0), device="cuda"))}
+    return vde_case(torch, out, "vde_quad", cases, 0.1, xs, us, 3e-5)
 
 
-def rk4_case(torch, out, key, rk4, dyn, dt, xs, us, params, atol, dyn_flops):
+def rk4_case(torch, out, key, cases, dt, xs, us, atol, flops_per_row=None):
     """Both modes of the tangent-free RK4 entry (the KKT defect over every
     stage, and the plant step with u a strided view ``us[:, 0]``) against
-    ``integrators.discrete_step`` at ``atol``, for each parameter tensor of
-    ``params``; device times warm and, at the first parameter, cold (the
-    bytes of either mode fit the 50 MB L2)."""
+    ``integrators.discrete_step`` at ``atol``, for each case of ``cases``
+    ({name: (dynamics, ps)}); device times warm and, at the first case,
+    cold (the bytes of either mode fit the 50 MB L2); registers and
+    spills of the first case's functor. The bound counts
+    ``flops_per_row``, by default the first case's operations as
+    :func:`sweep_flops_per_stage` counts them."""
     from ad_mpc_tpu_torch.experiments import device_ms
+    from ad_mpc_tpu_torch.experiments.opcount import dyn_counts, rk4_flops
+    from ad_mpc_tpu_torch.ops import _build
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
     from ad_mpc_tpu_torch.ops.integrators import discrete_step
 
     B, N, nx = xs.shape[0], xs.shape[1] - 1, xs.shape[2]
     nu = us.shape[-1]
     x, u = xs[:, 0].contiguous(), us[:, 0]  # u strided, as the plant step's
-    rows, first = {}, next(iter(params))
-    for name, ps in params.items():
+    rows, first = {}, next(iter(cases))
+    for name, (dyn, ps) in cases.items():
+        rk4 = make_rk4(dyn, dt, nx, nu, ps.shape[-1], device="cuda")
         modes = {
             "defect": (lambda: rk4.defect(xs, us, ps),
                        lambda: discrete_step(dyn, dt, 1, xs[:, :-1], us,
@@ -260,56 +369,63 @@ def rk4_case(torch, out, key, rk4, dyn, dt, xs, us, params, atol, dyn_flops):
             if name == first:
                 rows[mode, name]["cold_ms"] = device_ms(
                     kernel, 50, cold=True, kernel="rk4_kernel")
-    pd = params[first].shape[-1]
+    dyn, ps = cases[first]
+    pd = ps.shape[-1]
+    res = _build.functor_resources("vde", "rk4_kernel", dyn.cuda_functor)
     bounds = {}
     for mode, n_rows, n_in in (("defect", B * N, xs.numel() + us.numel()),
                                ("step", B, B * (nx + nu))):
         n_bytes = 4 * (n_in + B * pd + n_rows * nx)
-        n_flops = n_rows * (4 * dyn_flops + 14 * nx)
+        n_flops = n_rows * (flops_per_row or rk4_flops(
+            dyn_counts(dyn, nx, nu, ps[0].cpu()), nx))
         bms, by = bound_ms(n_bytes, n_flops)
         bounds[mode] = {"bytes": n_bytes, "flops": n_flops, "bound_ms": bms,
                         "bound_by": by}
         r = rows[mode, first]
-        err = max(rows[mode, n]["max_abs_err"] for n in params)
+        err = max(rows[mode, n]["max_abs_err"] for n in cases)
         print(f"{key} {mode}: max|err| {err:.3e}, kernel {r['ms']:.5f} ms "
               f"device warm, {r['cold_ms']:.5f} ms cold ({100 * bms / r['cold_ms']:.0f}% "
               f"of the bound), plain {r['plain_ms']:.3f} ms, bound {bms:.5f} ms "
               f"({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP)")
+    print(f"{key}: rk4_kernel<{dyn.cuda_functor}> {res['registers']} registers, "
+          f"{res['spill_stores']} B spill stores, {res['spill_loads']} B spill loads")
     out[key] = {"cases": {f"{m}_{n}": r for (m, n), r in rows.items()},
-                "bounds": bounds}
-    return rows["defect", first] | bounds["defect"] | {"max_abs_err": max(
+                "bounds": bounds, "functor": dyn.cuda_functor, "resources": res}
+    return rows["defect", first] | bounds["defect"] | res | {"max_abs_err": max(
         r["max_abs_err"] for r in rows.values())}
 
 
 def phase_rk4(torch, np, out):
-    from ad_mpc_tpu_torch import fleet
-    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
-    from ad_mpc_tpu_torch.testing import random_traj
+    xs, us = c2_traj(torch, np, 4)
+    return rk4_case(torch, out, "rk4", bicycle_cases(torch, xs.shape[0]), 0.05,
+                    xs, us, 2e-5)
 
-    B, N, nx, nu, dt = 16384, 30, 7, 2, 0.05
-    dyn = fleet.dynamic_bicycle
-    rk4 = make_rk4(dyn, dt, nx, nu, 1, device="cuda")  # comparison instance
-    xs, us = random_traj(np.random.default_rng(4), B, N, nx, nu)
-    xs, us = torch.as_tensor(xs).cuda(), torch.as_tensor(us).cuda()
-    params = {f"switch={s}": torch.full((B, 1), s, device="cuda")
-              for s in (1.0, 0.3)}
-    return rk4_case(torch, out, "rk4", rk4, dyn, dt, xs, us, params, 2e-5,
-                    BICYCLE_DYN_FLOPS)
+
+def phase_rk4_pacejka(torch, np, out):
+    xs, us = c2_traj(torch, np, 4)
+    return rk4_case(torch, out, "rk4_pacejka",
+                    pacejka_cases(torch, xs.shape[0]), 0.05, xs, us, 2e-5)
+
+
+def phase_rk4_gp_bicycle(torch, np, out):
+    from ad_mpc_tpu_torch import fleet
+
+    xs, us = c2_traj(torch, np, 4)
+    cases = gp_bicycle_cases(torch, xs.shape[0])
+    ps = cases["n=32"][1]
+    return rk4_case(torch, out, "rk4_gp_bicycle", cases, 0.05, xs, us, 2e-5,
+                    gp_rk4_flops_per_row(fleet.dynamic_bicycle, ps, GP_POINTS))
 
 
 def phase_rk4_quad(torch, np, out):
     from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
-    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
     from ad_mpc_tpu_torch.testing import quad_traj
 
-    B, N, nx, nu, dt = 16384, 10, 13, 4, 0.1
-    dyn = QuadDynamics()
-    rk4 = make_rk4(dyn, dt, nx, nu, 0, device="cuda")  # comparison instance
+    B = 16384
     xs, us = (torch.as_tensor(a).cuda()
-              for a in quad_traj(np.random.default_rng(14), B, N))
-    params = {"p_dim=0": torch.zeros((B, 0), device="cuda")}
-    return rk4_case(torch, out, "rk4_quad", rk4, dyn, dt, xs, us, params,
-                    3e-5, QUAD_DYN_FLOPS)
+              for a in quad_traj(np.random.default_rng(14), B, 10))
+    cases = {"p_dim=0": (QuadDynamics(), torch.zeros((B, 0), device="cuda"))}
+    return rk4_case(torch, out, "rk4_quad", cases, 0.1, xs, us, 3e-5)
 
 
 def tick_qps(fleet, batch, n_nodes):
@@ -432,70 +548,95 @@ def phase_lq_quad(torch, np, out):
     return lq_cases(torch, out, "lq_13x4", cases)["c5_tick"]
 
 
+def fleet_ladder(config, build, batches, warmup, ticks, gates, per_tick, card):
+    """One fleet row per batch size: a fresh fleet from ``build()``, its
+    kernels' launch counts set to 0, ``warmup`` + ``ticks`` ticks
+    (``fleet.run_config``), then each kernel's launches against
+    ``per_tick`` and the row against ``gates``. Returns {B: (row, carry)}."""
+    from ad_mpc_tpu_torch import fleet
+
+    rows = {}
+    for B in batches:
+        tick, init, solver, _ = build()
+        zero_launches(solver)
+        row, carry = fleet.run_config(tick, init, B, ticks=ticks, warmup=warmup)
+        launches = row["launches"] = fleet.launches(solver)
+        check_launches(per_tick, launches, warmup + ticks,
+                       f"({config}) at B={B}")
+        bad = [k for k, lim in gates.items() if not row[k] <= lim]
+        check(not bad, f"{config} gates failed at B={B}: "
+              + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
+        rows[B] = row, carry
+        print(f"{config} B={B}: {row['solves_per_s']:.1f} solves/s "
+              f"({row['tick_ms']:.3f} ms/tick) on {card}; kkt mean "
+              f"{row['kkt_mean']:.3e} max {row['kkt_max']:.3e}, lat_err "
+              f"{row['lat_err_mean_m']:.4f} m, launches {launches}")
+    return rows
+
+
+def rti_check(config, d_u0, lim):
+    check(d_u0 <= lim, f"{config} RTI-vs-converged u0 {d_u0:.3e} > {lim}")
+    print(f"{config} RTI vs converged: max|du0| {d_u0:.3e} (gate {lim})")
+    return d_u0
+
+
 def phase_slice(torch, out, card):
     from ad_mpc_tpu_torch import fleet
 
-    rows, carry_1024 = {}, None
-    for B in (1024, 16384):
-        tick, init, solver, _ = fleet.build_fleet(
-            fleet.dynamic_bicycle, fleet.switch_on, n_nodes=30, qp_iters=12,
-            sqp_iters=1, device="cuda")
-        zero_launches(solver)
-        row, carry = fleet.run_config(tick, init, B, ticks=TICKS, warmup=WARMUP)
-        launches = row["launches"] = fleet.launches(solver)
-        check_launches(fleet.LAUNCHES_PER_TICK, launches, WARMUP + TICKS,
-                       f"at B={B}")
-        bad = fleet.gate_failures(row)
-        check(not bad, f"c2 gates failed at B={B}: "
-              + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
-        rows[B] = row
-        if B == 1024:
-            carry_1024 = carry
-        print(f"c2 B={B}: {row['solves_per_s']:.1f} solves/s "
-              f"({row['tick_ms']:.3f} ms/tick) on {card}; kkt mean "
-              f"{row['kkt_mean']:.3e} max {row['kkt_max']:.3e}, lat_err "
-              f"{row['lat_err_mean_m']:.4f} m, launches {launches}")
-    d_u0 = fleet.rti_vs_converged(fleet.dynamic_bicycle, fleet.switch_on,
-                                  carry_1024)
-    lim = fleet.RTI_GATE
-    check(d_u0 <= lim, f"RTI-vs-converged u0 {d_u0:.3e} > {lim}")
-    print(f"RTI vs converged: max|du0| {d_u0:.3e} (gate {lim})")
-    out["slice"] = {str(B): r for B, r in rows.items()}
-    out["rti_vs_converged_u0"] = d_u0
-    return rows[16384]["launches"]
+    rows = fleet_ladder(
+        "c2", lambda: fleet.build_fleet(fleet.dynamic_bicycle, fleet.switch_on,
+                                        device="cuda"),
+        (1024, 16384), WARMUP, TICKS, fleet.CONFIG_GATES["c2"],
+        fleet.LAUNCHES_PER_TICK, card)
+    out["rti_vs_converged_u0"] = rti_check("c2", fleet.rti_vs_converged(
+        fleet.dynamic_bicycle, fleet.switch_on, rows[1024][1]),
+        fleet.RTI_GATES["c2"])
+    out["slice"] = {str(B): r for B, (r, _) in rows.items()}
+    return rows[16384][0]["launches"]
+
+
+def phase_c3(torch, out, card):
+    """c3: the GP bicycle fleet at B=256/4096/16384 (bench.py:719-734)."""
+    from ad_mpc_tpu_torch import fleet
+
+    dyn = fleet.make_gp_bicycle()
+    rows = fleet_ladder(
+        "c3", lambda: fleet.build_fleet(dyn, fleet.switch_on, device="cuda"),
+        (256, 4096, 16384), WARMUP, TICKS, fleet.CONFIG_GATES["c3"],
+        fleet.LAUNCHES_PER_TICK, card)
+    out["c3"] = {str(B): r for B, (r, _) in rows.items()}
+    return rows[16384][0]["launches"]
+
+
+def phase_c4(torch, out, card):
+    """c4: the Pacejka sweep at B=4096, 45 warm-up and 10 timed ticks
+    (bench.py:737-758), then RTI against a converged solve."""
+    from ad_mpc_tpu_torch import fleet
+
+    dyn, p_of, v_cap = fleet.make_pacejka()
+    rows = fleet_ladder(
+        "c4", lambda: fleet.build_fleet(dyn, p_of, v_cap=v_cap, device="cuda"),
+        (4096,), fleet.C4_WARMUP, fleet.C4_TICKS, fleet.CONFIG_GATES["c4"],
+        fleet.LAUNCHES_PER_TICK, card)
+    row, carry = rows[4096]
+    out["c4"] = {"4096": row}
+    out["c4_rti_vs_converged_u0"] = rti_check(
+        "c4", fleet.rti_vs_converged(dyn, p_of, carry), fleet.RTI_GATES["c4"])
+    return row["launches"]
 
 
 def phase_c5(torch, out, card):
-    from ad_mpc_tpu_torch import fleet
     from ad_mpc_tpu_torch.experiments import quad_fleet
 
-    rows, carry_256 = {}, None
-    for B in (256, 1024, 4096, 16384):
-        tick, init, solver, _ = quad_fleet.build_quad_fleet(device="cuda")
-        zero_launches(solver)
-        row, carry = fleet.run_config(tick, init, B, ticks=TICKS,
-                                      warmup=C5_WARMUP)
-        launches = row["launches"] = fleet.launches(solver)
-        check_launches(quad_fleet.LAUNCHES_PER_TICK, launches,
-                       C5_WARMUP + TICKS, f"(c5) at B={B}")
-        bad = [k for k, lim in quad_fleet.GATES.items() if not row[k] <= lim]
-        check(not bad, f"c5 gates failed at B={B}: "
-              + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
-        rows[B] = row
-        if B == 256:
-            carry_256 = carry
-        print(f"c5 B={B}: {row['solves_per_s']:.1f} solves/s "
-              f"({row['tick_ms']:.3f} ms/tick) on {card}; kkt mean "
-              f"{row['kkt_mean']:.3e} max {row['kkt_max']:.3e}, lat_err "
-              f"{row['lat_err_mean_m']:.4f} m, launches {launches}")
-    d_u0 = quad_fleet.rti_vs_converged_quad(carry_256)
-    lim = quad_fleet.RTI_GATE
-    check(d_u0 <= lim, f"c5 RTI-vs-converged u0 {d_u0:.3e} > {lim}")
-    print(f"c5 RTI ({quad_fleet.QUAD_SQP_ITERS} Gauss-Newton iterations) vs "
-          f"converged: max|du0| {d_u0:.3e} (gate {lim})")
-    out["c5"] = {str(B): r for B, r in rows.items()}
-    out["c5_rti_vs_converged_u0"] = d_u0
-    return rows[16384]["launches"]
+    rows = fleet_ladder(
+        "c5", lambda: quad_fleet.build_quad_fleet(device="cuda"),
+        (256, 1024, 4096, 16384), C5_WARMUP, TICKS, quad_fleet.GATES,
+        quad_fleet.LAUNCHES_PER_TICK, card)
+    out["c5_rti_vs_converged_u0"] = rti_check(
+        f"c5 ({quad_fleet.QUAD_SQP_ITERS} Gauss-Newton iterations)",
+        quad_fleet.rti_vs_converged_quad(rows[256][1]), quad_fleet.RTI_GATE)
+    out["c5"] = {str(B): r for B, (r, _) in rows.items()}
+    return rows[16384][0]["launches"]
 
 
 def phase_lane_chain(torch, out):
@@ -607,7 +748,7 @@ def phase_mxu(torch, out):
           f"{micro['cuda_lane_applications']} applications)")
     macro = mxu_riccati.macro()
     cuda_arm = macro["cuda"]
-    check(cuda_arm["kkt_max"] <= fleet.GATES["kkt_max"],
+    check(cuda_arm["kkt_max"] <= fleet.CONFIG_GATES["c2"]["kkt_max"],
           f"macro cuda arm kkt_max {cuda_arm['kkt_max']:.3e}")
     check(cuda_arm["launches"] == {"vde": 15, "lq_ipm": 15, "rk4": 30}
           and macro["plain"]["launches"] == {"vde": 0, "lq_ipm": 0, "rk4": 0},
@@ -641,23 +782,13 @@ def phase_long_horizon(out):
 def phase_c2_n40(torch, out, card):
     from ad_mpc_tpu_torch import fleet
 
-    B = 16384
-    tick, init, solver, _ = fleet.build_fleet(
-        fleet.dynamic_bicycle, fleet.switch_on, n_nodes=40, qp_iters=12,
-        device="cuda")
-    zero_launches(solver)
-    row, _ = fleet.run_config(tick, init, B, ticks=TICKS, warmup=WARMUP)
-    launches = row["launches"] = fleet.launches(solver)
-    check_launches(fleet.LAUNCHES_PER_TICK, launches, WARMUP + TICKS,
-                   "(c2-N40)")
-    bad = fleet.gate_failures(row)
-    check(not bad, "c2-N40 gates failed: "
-          + ", ".join(f"{k}={row[k]:.3e}" for k in bad))
-    print(f"c2-N40 B={B}: {row['solves_per_s']:.1f} solves/s "
-          f"({row['tick_ms']:.3f} ms/tick) on {card}; kkt mean "
-          f"{row['kkt_mean']:.3e} max {row['kkt_max']:.3e}, lat_err "
-          f"{row['lat_err_mean_m']:.4f} m, launches {launches}")
-    out["c2_n40"] = row
+    rows = fleet_ladder(
+        "c2-N40", lambda: fleet.build_fleet(fleet.dynamic_bicycle,
+                                            fleet.switch_on, n_nodes=40,
+                                            device="cuda"),
+        (16384,), WARMUP, TICKS, fleet.CONFIG_GATES["c2"],
+        fleet.LAUNCHES_PER_TICK, card)
+    out["c2_n40"] = rows[16384][0]
 
 
 def phase_latency(out):
@@ -678,6 +809,24 @@ def phase_latency(out):
         print(f"WARNING: latency compute p99 {lat['p99_compute']:.2f} ms is "
               f"over the {lat['budget']} ms budget")
     out["latency"] = lat
+
+
+ROW_KEYS = ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
+            "registers", "spill_stores", "spill_loads")
+
+
+def kernel_row(name, source, replaces, launches, r):
+    """A kernel's entry of the ``{"kernels": [...]}`` line from its phase's
+    numbers ``r``; fails when the kernel was not launched on its path or
+    ran under its bound (its time is the cold one where there is one:
+    a count that puts the bound above a measured time is wrong)."""
+    check(launches > 0, f"{name}: no launch on its path")
+    t = r.get("cold_ms", r["ms"])
+    check(r["bound_ms"] <= t, f"{name}: {t:.5f} ms is under its bound "
+          f"{r['bound_ms']:.5f} ms: the count is wrong")
+    row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+           "launches": launches, "library_ms": r.get("library_ms")}
+    return row | {k: r[k] for k in ROW_KEYS if k in r}
 
 
 def main(argv=None):
@@ -714,6 +863,12 @@ def main(argv=None):
     rk4 = phase_rk4(torch, np, out)
     lq = phase_lq(torch, np, out)
     launches = phase_slice(torch, out, card)
+    vde_p = phase_vde_pacejka(torch, np, out)
+    rk4_p = phase_rk4_pacejka(torch, np, out)
+    launches_c4 = phase_c4(torch, out, card)
+    vde_g = phase_vde_gp_bicycle(torch, np, out)
+    rk4_g = phase_rk4_gp_bicycle(torch, np, out)
+    launches_c3 = phase_c3(torch, out, card)
     vde_q = phase_vde_quad(torch, np, out)
     rk4_q = phase_rk4_quad(torch, np, out)
     lq_q = phase_lq_quad(torch, np, out)
@@ -724,59 +879,28 @@ def main(argv=None):
     phase_c2_n40(torch, out, card)
     phase_latency(out)
 
+    vde_src, lq_src = "ad_mpc_tpu_torch/csrc/vde.cu", "ad_mpc_tpu_torch/csrc/lq_ipm.cu"
+    vde_tpu = "ad_mpc_tpu/ops/pallas_vde.py:106"
+    fused = ("ad_mpc_tpu/ocp/solver.py:464 and {} (the KKT defect and the "
+             "plant step, which XLA fused in the jitted tick; no Pallas kernel)")
+    rk4_c2, rk4_c5 = fused.format("bench.py:159"), fused.format(
+        "ad_mpc_tpu/experiments/quad_fleet.py:143")
     kernels = [
-        {"name": "vde", "route": "cuda", "source": "ad_mpc_tpu_torch/csrc/vde.cu",
-         "replaces": "ad_mpc_tpu/ops/pallas_vde.py:106",
-         "launches": launches["vde"], "max_abs_err": vde["max_abs_err"],
-         "ms": vde["ms"], "plain_ms": vde["plain_ms"],
-         "bound_ms": vde["bound_ms"], "bound_by": vde["bound_by"],
-         "library_ms": None},
-        {"name": "rk4", "route": "cuda", "source": "ad_mpc_tpu_torch/csrc/vde.cu",
-         "replaces": "ad_mpc_tpu/ocp/solver.py:464 and bench.py:159 (the KKT "
-                     "defect and the plant step, which XLA fused in the "
-                     "jitted tick; no Pallas kernel)",
-         "launches": launches["rk4"], "max_abs_err": rk4["max_abs_err"],
-         "ms": rk4["ms"], "plain_ms": rk4["plain_ms"],
-         "bound_ms": rk4["bound_ms"], "bound_by": rk4["bound_by"],
-         "library_ms": None},
-        {"name": "lq_ipm", "route": "cuda",
-         "source": "ad_mpc_tpu_torch/csrc/lq_ipm.cu",
-         "replaces": "ad_mpc_tpu/ops/pallas_lq.py:485",
-         "launches": launches["lq_ipm"], "max_abs_err": lq["max_abs_err"],
-         "ms": lq["ms"], "plain_ms": lq["plain_ms"],
-         "bound_ms": lq["bound_ms"], "bound_by": lq["bound_by"],
-         "library_ms": None},
-        {"name": "lane_chain", "route": "cuda",
-         "source": "ad_mpc_tpu_torch/csrc/lane_chain.cu",
-         "replaces": "ad_mpc_tpu/experiments/mxu_riccati.py:135",
-         "launches": lane_launches, "max_abs_err": lane["max_abs_err"],
-         "ms": lane["ms"], "plain_ms": lane["plain_ms"],
-         "bound_ms": lane["bound_ms"], "bound_by": lane["bound_by"],
-         "library_ms": lane["library_ms"]},
-        {"name": "vde_quad", "route": "cuda",
-         "source": "ad_mpc_tpu_torch/csrc/vde.cu",
-         "replaces": "ad_mpc_tpu/ops/pallas_vde.py:106",
-         "launches": launches_q["vde"], "max_abs_err": vde_q["max_abs_err"],
-         "ms": vde_q["ms"], "plain_ms": vde_q["plain_ms"],
-         "bound_ms": vde_q["bound_ms"], "bound_by": vde_q["bound_by"],
-         "library_ms": None},
-        {"name": "rk4_quad", "route": "cuda",
-         "source": "ad_mpc_tpu_torch/csrc/vde.cu",
-         "replaces": "ad_mpc_tpu/ocp/solver.py:464 and "
-                     "ad_mpc_tpu/experiments/quad_fleet.py:143 (the KKT "
-                     "defect and the plant step, which XLA fused in the "
-                     "jitted tick; no Pallas kernel)",
-         "launches": launches_q["rk4"], "max_abs_err": rk4_q["max_abs_err"],
-         "ms": rk4_q["ms"], "plain_ms": rk4_q["plain_ms"],
-         "bound_ms": rk4_q["bound_ms"], "bound_by": rk4_q["bound_by"],
-         "library_ms": None},
-        {"name": "lq_ipm_13x4", "route": "cuda",
-         "source": "ad_mpc_tpu_torch/csrc/lq_ipm.cu",
-         "replaces": "ad_mpc_tpu/ops/pallas_lq.py:468",
-         "launches": launches_q["lq_ipm"], "max_abs_err": lq_q["max_abs_err"],
-         "ms": lq_q["ms"], "plain_ms": lq_q["plain_ms"],
-         "bound_ms": lq_q["bound_ms"], "bound_by": lq_q["bound_by"],
-         "library_ms": None},
+        kernel_row("vde", vde_src, vde_tpu, launches["vde"], vde),
+        kernel_row("rk4", vde_src, rk4_c2, launches["rk4"], rk4),
+        kernel_row("lq_ipm", lq_src, "ad_mpc_tpu/ops/pallas_lq.py:485",
+                   launches["lq_ipm"], lq),
+        kernel_row("lane_chain", "ad_mpc_tpu_torch/csrc/lane_chain.cu",
+                   "ad_mpc_tpu/experiments/mxu_riccati.py:135", lane_launches,
+                   lane),
+        kernel_row("vde_quad", vde_src, vde_tpu, launches_q["vde"], vde_q),
+        kernel_row("rk4_quad", vde_src, rk4_c5, launches_q["rk4"], rk4_q),
+        kernel_row("lq_ipm_13x4", lq_src, "ad_mpc_tpu/ops/pallas_lq.py:468",
+                   launches_q["lq_ipm"], lq_q),
+        kernel_row("vde_pacejka", vde_src, vde_tpu, launches_c4["vde"], vde_p),
+        kernel_row("rk4_pacejka", vde_src, rk4_c2, launches_c4["rk4"], rk4_p),
+        kernel_row("vde_gp_bicycle", vde_src, vde_tpu, launches_c3["vde"], vde_g),
+        kernel_row("rk4_gp_bicycle", vde_src, rk4_c2, launches_c3["rk4"], rk4_g),
     ]
     out["kernels"] = kernels
     if args.out:

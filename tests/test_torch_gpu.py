@@ -18,7 +18,7 @@ import torch
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
 from ad_mpc_tpu_torch.experiments import capture, long_horizon, mxu_riccati, quad_fleet
-from ad_mpc_tpu_torch.experiments.c2_kernels import digest
+from ad_mpc_tpu_torch.experiments.c2_kernels import c5_bits, digest
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
 from ad_mpc_tpu_torch.ops import _build
@@ -30,8 +30,8 @@ from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.ops.cuda_vde import _entry, make_rk4, make_vde, vde_plain
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
 from ad_mpc_tpu_torch.testing import (
-    BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, lq_case, quad_traj, random_lq,
-    random_traj)
+    BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, gp_bicycle_inputs, lq_case,
+    pacejka_inputs, quad_traj, random_lq, random_traj)
 
 pytestmark = pytest.mark.gpu
 
@@ -448,6 +448,84 @@ def test_c2_kernels_keep_their_bits(cuda):
             for a in random_lq(np.random.default_rng(7), RAGGED_B, 30, 7, 2)]
     got = {"vde": digest(*vde(xs, us, ps)), "lq_ipm": digest(*qp(*args))}
     assert got == C2_BITS
+
+
+# sha256 of the c5 kernels' outputs on the fixed draws of
+# ``experiments/c2_kernels.py:c5_bits``, as the kernels gave them before the
+# Pacejka and GP-bicycle functors were added (that script run on that tree).
+C5_BITS = {"vde_quad": "4f3a54a5b54acb2f", "rk4_quad": "28f653bd12ad4924",
+           "lq_ipm_13x4": "a9063230cda71da4"}
+
+
+def test_c5_kernels_keep_their_bits(cuda):
+    assert c5_bits(cuda) == C5_BITS
+
+
+def _bicycle_kernels_match_plain(dyn, xs, us, ps):
+    """The VDE sweep and both modes of the RK4 map of ``dyn`` against their
+    plain versions at 2e-5 (``tests/test_pallas_vde.py:81-83, 222-224``)."""
+    B, N = us.shape[:2]
+    vde = make_vde(dyn, 0.05, N, 7, 2, ps.shape[1], device=ps.device)
+    rk4 = make_rk4(dyn, 0.05, 7, 2, ps.shape[1], device=ps.device)
+    got = vde(xs, us, ps)
+    for g, w in zip(got, vde_plain(dyn, 0.05, 1, xs, us, ps)):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+    defect = rk4.defect(xs, us, ps)
+    torch.testing.assert_close(
+        defect, discrete_step(dyn, 0.05, 1, xs[:, :-1], us, ps[:, None])
+        - xs[:, 1:], atol=2e-5, rtol=0)
+    torch.testing.assert_close(
+        rk4(xs[:, 0], us[:, 0], ps),
+        discrete_step(dyn, 0.05, 1, xs[:, 0], us[:, 0], ps), atol=2e-5, rtol=0)
+    torch.testing.assert_close(defect, got[2], atol=2e-5, rtol=0)
+    assert vde.launches == 1 and rk4.launches == 2
+    assert torch.equal(vde(xs, us, ps)[0], got[0])  # a relaunch repeats its bits
+
+
+@pytest.mark.parametrize("low_mu", [False, True])
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_pacejka_kernels_match_plain(cuda, B, low_mu):
+    """c4's functor on p drawn by ``p_of``, and at the sweep's lowest
+    friction; B*N = 30 and 1110 rows (a partial and a ragged last warp)."""
+    dyn, (xs, us, ps) = pacejka_inputs(B, 30, cuda)
+    if low_mu:
+        ps[:, 0] = 0.6
+    _bicycle_kernels_match_plain(dyn, xs, us, ps)
+
+
+@pytest.mark.parametrize("n", [32, 8])
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_gp_bicycle_kernels_match_plain(cuda, B, n):
+    """c3's functor with the bench's 32-point ensemble and its 8-point
+    twin."""
+    dyn, (xs, us, ps) = gp_bicycle_inputs(B, 30, cuda, n)
+    _bicycle_kernels_match_plain(dyn, xs, us, ps)
+
+
+@pytest.mark.parametrize("config", ["c3", "c4"])
+def test_c3_c4_ticks_on_card_match_plain(cuda, config):
+    """Three ticks of the c3 and c4 fleets through the kernels agree with
+    the plain path on the CPU (u0 within 1e-3); per tick the sweep and the
+    QP launch once and the RK4 map twice."""
+    if config == "c3":
+        dyn, p_of, v_cap = fleet.make_gp_bicycle(), fleet.switch_on, None
+    else:
+        dyn, p_of, v_cap = fleet.make_pacejka()
+    runs = {}
+    for dev in ("cpu", cuda):
+        tick, init, solver, _ = fleet.build_fleet(dyn, p_of, v_cap=v_cap,
+                                                  device=dev)
+        carry = init(RAGGED_B)
+        for _ in range(3):
+            carry, (kkt, lat) = tick(carry)
+        runs[str(dev)] = (carry[0].cpu(), carry[5].us[:, 0].cpu(), float(lat),
+                          solver)
+    (x_c, u_c, lat_c, _), (x_g, u_g, lat_g, solver) = runs.values()
+    assert fleet.launches(solver) == {
+        k: 3 * n for k, n in fleet.LAUNCHES_PER_TICK.items()}
+    torch.testing.assert_close(u_g, u_c, atol=1e-3, rtol=0)
+    torch.testing.assert_close(x_g, x_c, atol=1e-4, rtol=1e-5)
+    assert abs(lat_g - lat_c) < 1e-4
 
 
 def test_long_horizon_replay_matches_eager(cuda):

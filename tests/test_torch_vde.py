@@ -20,6 +20,7 @@ import torch
 from ad_mpc_tpu.models.bicycle import BicycleParams, bicycle_dynamics
 from ad_mpc_tpu.ops.integrators import discretize, linearize, rollout
 from ad_mpc_tpu.ops.pallas_vde import make_vde as jax_make_vde
+from ad_mpc_tpu_torch.fleet import make_gp_bicycle
 from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
 from ad_mpc_tpu_torch.ops import _build, integrators
 from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde
@@ -145,6 +146,33 @@ def test_bicycle_functor_params():
                                rtol=1e-7)
 
 
+PTXAS = """ptxas info    : Compiling entry function '_Z10vde_kernelI12GPBicycleDynEvPKfS2_S2_PfS3_S3_iii5StepsT_' for 'sm_90a'
+ptxas info    : Used 168 registers, used 0 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z10vde_kernelI10BicycleDynEvPKfS2_S2_PfS3_S3_iii5StepsT_' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z10rk4_kernelI12GPBicycleDynEvPKfxS2_xxS2_xPfiiii5StepsT_' for 'sm_90a'
+    16 bytes stack frame, 12 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers"""
+
+
+def test_functor_resources_match_the_whole_name(monkeypatch):
+    """A kernel's registers are found by its functor's exact name, as a
+    whole template argument: ``BicycleDyn`` is not ``GPBicycleDyn``."""
+    monkeypatch.setattr(_build, "ptxas_report", lambda name, defines=(): PTXAS)
+    assert _build.functor_resources("vde", "vde_kernel", "BicycleDyn") == {
+        "registers": 255, "spill_stores": 0, "spill_loads": 0}
+    assert _build.functor_resources("vde", "vde_kernel", "GPBicycleDyn")[
+        "registers"] == 168
+    assert _build.functor_resources("vde", "rk4_kernel", "GPBicycleDyn") == {
+        "registers": 40, "spill_stores": 12, "spill_loads": 16}
+    with pytest.raises(RuntimeError):
+        _build.functor_resources("vde", "rk4_kernel", "BicycleDyn")
+    for f in (BicycleDynamics(), make_gp_bicycle(4)):
+        tag = f"I{len(f.cuda_functor)}{f.cuda_functor}E"
+        assert sum(tag in line for line in PTXAS.splitlines()) >= 1
+
+
 def test_rollout_matches_jax():
     xs, us = random_traj(np.random.default_rng(4), 1, 8, 7, 2)
     F_j = discretize(lambda x, u: _jax_bicycle(x, u, jnp.ones(1, jnp.float32)), DT, 2)
@@ -155,3 +183,21 @@ def test_rollout_matches_jax():
                               torch.as_tensor(us[0]))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-5)
+
+
+def test_opcount_counts_the_forward_mode_operations():
+    """``experiments.opcount`` counts per element: a product of two state
+    entries 1 primal and 3 per tangent, a transcendental 1 and 1, a repeated
+    call once, operations on the parameters alone nothing; an operation it
+    has no cost for raises."""
+    from ad_mpc_tpu_torch.experiments.opcount import Counts, dyn_counts
+
+    def f(x, u, p):
+        s = torch.sin(x[2])
+        return torch.stack([x[0] * x[1] + s, torch.sin(x[2]) * (p[0] * 2.0),
+                            u[0] / x[3], x[1]])
+
+    # mul (1, 3), sin (1, 1), add (1, 1), mul by p (1, 1), div (1, 3).
+    assert dyn_counts(f, 4, 1, torch.ones(1)) == Counts(5, 9)
+    with pytest.raises(NotImplementedError):
+        dyn_counts(lambda x, u, p: torch.tanh(x), 4, 1, torch.ones(1))
