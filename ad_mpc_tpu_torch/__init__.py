@@ -4,11 +4,13 @@ The port runs the batched SQP-RTI fleet control tick (bench config c2:
 dynamic bicycle, N=30 and the reference's N=40, nx=7, nu=2; c3: the
 bicycle with a GP mean, ``learned/``; c4: the Pacejka friction/topography
 sweep; c5: the quadrotor, nx=13, nu=4, N=10, two Gauss-Newton iterations,
-``experiments/quad_fleet.py``) and the bench's Riccati-algebra rows
+``experiments/quad_fleet.py``; c6: the quadrotor with a body-frame GP
+residual, the bench's synthetic ensemble or the fitted ``gp_flagship_c1``
+model carried across in ``data/``) and the bench's Riccati-algebra rows
 through three CUDA C++ kernels written by hand for ``sm_90a``:
 
 - ``csrc/vde.cu``: the fused RK4 + forward-sensitivity sweep, one functor
-  per model (bicycle, quadrotor, Pacejka, GP bicycle) (replaces
+  per model (bicycle, quadrotor, Pacejka, GP bicycle, GP quadrotor) (replaces
   ``ad_mpc_tpu/ops/pallas_vde.py:_vde_kernel``);
 - ``csrc/lq_ipm.cu``: the fused fixed-iteration interior-point QP with its
   Riccati recursion, at 7x2 and 13x4 (replaces

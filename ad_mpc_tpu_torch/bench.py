@@ -12,14 +12,19 @@ B=256/4096/16384; the c4 Pacejka friction/topography sweep
 its RTI row on that fleet; the c5 quadrotor fleet
 (``experiments.quad_fleet``: nx=13, nu=4, N=10, two Gauss-Newton
 iterations) at B=256/1024/4096/16384 with 20 warm-up ticks, and its RTI
-row on the B=256 fleet; the batch-1 latency row against the 20 ms budget;
+row on the B=256 fleet; the c6 GP-augmented quadrotor
+(``quad_fleet.make_quad_gp_ensemble``: 32 points, 3 body-frame velocity
+features, 3 outputs) on the same ladder with its RTI row, and the
+c6-fitted rows at B=4096/16384 with the fitted ``gp_flagship_c1`` model
+(``quad_fleet.fitted_ensemble``: 60 points); the batch-1 latency row
+against the 20 ms budget;
 the lane-chain micro (``experiments.mxu_riccati.micro``) and the
 long-horizon Riccati micro (``experiments.long_horizon.micro``). Every
 fleet row gets the analytic operations per solve and its share of the FP32
 peak, and is held to its config's quality gates.
 
-Not ported, so not here: config c6, the deployment loop and
-the shard-invariance row. The result goes to ``--out`` only; the last line of
+Not ported, so not here: the deployment loop and the shard-invariance
+row. The result goes to ``--out`` only; the last line of
 standard output is a one-line summary. Exits 1 when a gate fails or a row
 raises.
 """
@@ -37,19 +42,23 @@ from ad_mpc_tpu_torch.experiments import card, quad_fleet, require_cuda, tf32
 
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, H100 SXM data sheet
 
-# The quality gates of ``bench.py:473-483``, by config-name prefix, and the
-# RTI-vs-converged gates of ``bench.py:493-497`` by result key.
+# The quality gates of ``bench.py:473-491``, by config-name prefix (the
+# first that matches: ``c6_fitted_`` before ``c6_``), and the
+# RTI-vs-converged gates of ``bench.py:493-498`` by result key.
 GATES = {"c2_": fleet.CONFIG_GATES["c2"], "c3_": fleet.CONFIG_GATES["c3"],
-         "c4_": fleet.CONFIG_GATES["c4"], "c5_": quad_fleet.GATES}
+         "c4_": fleet.CONFIG_GATES["c4"], "c5_": quad_fleet.GATES,
+         "c6_fitted_": quad_fleet.FITTED_GATES, "c6_": quad_fleet.GATES}
 RTI_GATES = {"rti_vs_converged_u0": fleet.RTI_GATES["c2"],
              "c4_rti_vs_converged_u0": fleet.RTI_GATES["c4"],
-             "c5_rti_vs_converged_u0": quad_fleet.RTI_GATE}
+             "c5_rti_vs_converged_u0": quad_fleet.RTI_GATE,
+             "c6_rti_vs_converged_u0": quad_fleet.RTI_GATE}
 
 # Hand-counted operations of the continuous dynamics (``bench.py:523-529``).
 DYN_FLOPS = {"c2_": 90,  # blended-tire bicycle
              "c3_": 1100,  # + 2-dim 32-point SE GP mean
              "c4_": 170,  # Pacejka magic formula + topography
-             "c5_": 150}  # entrywise quaternion quad
+             "c5_": 150,  # entrywise quaternion quad
+             "c6_": 1450}  # + 3-dim 32-point GP, body-frame rotations
 
 
 def _gates_for(cfg_name):
@@ -73,10 +82,10 @@ def analytic_flops_per_solve(N, nx, nu, qp_iters, sqp_iters, dyn_flops):
 
 def solve_dims(name):
     """(N, nx, nu, qp_iters, sqp_iters) of a fleet row's deployed solve.
-    The reference's roofline passes one Gauss-Newton iteration for c5
-    (``bench.py:559``) though its tick runs ``QUAD_SQP_ITERS``; here the
-    count is the tick's."""
-    if name.startswith("c5_"):
+    The reference's roofline passes one Gauss-Newton iteration for c5 and
+    c6 (``bench.py:559``) though their tick runs ``QUAD_SQP_ITERS``; here
+    the count is the tick's."""
+    if name.startswith(("c5_", "c6_")):
         return 10, 13, 4, 18, quad_fleet.QUAD_SQP_ITERS
     return (40 if "_N40_" in name else 30), 7, 2, 12, 1
 
@@ -187,6 +196,29 @@ def run(log=lambda s: print(s, file=sys.stderr)):
         detail["c5_rti_vs_converged_u0"] = quad_fleet.rti_vs_converged_quad(
             carry_q)
 
+    def run_c6():
+        ens = quad_fleet.make_quad_gp_ensemble()
+        tick, init, _, _ = quad_fleet.build_quad_fleet(ensemble=ens)
+        rows, carry_g = {}, None
+        for b in (256, 1024, 4096, 16384):
+            rows[b], c = fleet.run_config(tick, init, b, warmup=20)
+            detail["configs"][f"c6_gp_quad_b{b}"] = rows[b]
+            if b == 256:
+                carry_g = c
+        log("# c6 GP-quad N=10: " + " ".join(
+            f"b{b} {r['solves_per_s']:.0f}/s" for b, r in rows.items()))
+        detail["c6_rti_vs_converged_u0"] = quad_fleet.rti_vs_converged_quad(
+            carry_g, ensemble=ens)
+        fitted = quad_fleet.fitted_ensemble()
+        tick, init, _, _ = quad_fleet.build_quad_fleet(ensemble=fitted)
+        for b in (4096, 16384):
+            row, _ = fleet.run_config(tick, init, b, warmup=20)
+            row["notes"] = ("fitted gp_flagship_c1 ensemble "
+                            f"({fitted.x_train.shape[2]} pts/dim)")
+            detail["configs"][f"c6_fitted_gp_quad_b{b}"] = row
+            log(f"# c6-fitted b{b}: {row['solves_per_s']:.0f}/s kkt max="
+                f"{row['kkt_max']:.2e}")
+
     def run_lat():
         lat = fleet.bench_latency(fleet.dynamic_bicycle, fleet.switch_on)
         detail["latency_ms"] = lat
@@ -209,6 +241,7 @@ def run(log=lambda s: print(s, file=sys.stderr)):
         guarded("c3_gp_bicycle", run_c3)
         guarded("c4_pacejka", run_c4)
         guarded("c5_quad", run_c5)
+        guarded("c6_gp_quad", run_c6)
         guarded("latency", run_lat)
         detail["mxu_riccati_micro"] = guarded("mxu_riccati", mxu_riccati.micro)
         detail["long_horizon_riccati"] = guarded("long_horizon_riccati",

@@ -4,6 +4,17 @@ The port never imports the JAX package. These helpers take its objects by
 their public shape alone (a NamedTuple's ``_asdict``, a dataclass's fields,
 arrays or an npz file), so the tests can hand both packages the same
 problem and the same warm start.
+
+A fitted model is carried across once, as weights are: the JAX package
+pickles its ensembles with JAX arrays inside, which a machine without JAX
+cannot read, so :func:`save_gp_ensemble` writes one as a numpy ``.npz``
+that ``learned.ensemble.load_npz`` reads. The fitted model of the c6-fitted
+rows was written so, from the repository's root, on a machine with JAX:
+
+    JAX_PLATFORMS=cpu python -c "from ad_mpc_tpu.utils.io import load_model; \
+        from ad_mpc_tpu_torch.convert import save_gp_ensemble; \
+        save_gp_ensemble(load_model('gp_flagship_c1'), \
+                         'ad_mpc_tpu_torch/data/gp_flagship_c1.npz')"
 """
 
 from __future__ import annotations
@@ -44,6 +55,14 @@ def gp_ensemble(ens) -> GPEnsemble:
         n_valid=np.asarray(ens.n_valid, np.int32),
         out_idx=tuple(int(i) for i in ens.out_idx),
         feat_idx=tuple(int(i) for i in ens.feat_idx))
+
+
+def save_gp_ensemble(ens, path) -> None:
+    """Write ``ens`` (the JAX package's or the port's) to the ``.npz``
+    ``path``: every field of the port's :class:`GPEnsemble` as
+    :func:`gp_ensemble` converts it, ``out_idx`` and ``feat_idx`` as
+    integer arrays."""
+    np.savez(path, **{k: np.asarray(v) for k, v in gp_ensemble(ens)._asdict().items()})
 
 
 def quadrotor_params(params) -> QuadrotorParams:

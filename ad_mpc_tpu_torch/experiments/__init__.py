@@ -152,6 +152,23 @@ def time_replays(block, x0, *, rounds=5, target_s=0.6, counter=None):
     return Replays(min(ts), max(ts) / min(ts), ref, 2 + rounds * n, captured)
 
 
+def graph_ms(fn, inner=20, rounds=5, target_s=0.3):
+    """Device time per call of ``fn`` by CUDA-graph replay: ``inner`` calls
+    captured in one graph (:func:`time_replays`), so neither the host's
+    launch rate nor the profiler enters. Warm: inputs that fit the L2 stay
+    there. ``fn`` launches on the current stream and never waits for the
+    card."""
+
+    def block(x):
+        for _ in range(inner):
+            fn()
+        return x
+
+    t = time_replays(block, torch.zeros(1, device="cuda"), rounds=rounds,
+                     target_s=target_s)
+    return 1e3 * t.s / inner
+
+
 def tick_qp_inputs(tick, init, solver, batch, ticks=3):
     """The inputs of the last QP that ``solver``'s QP module ran in
     ``ticks`` ticks of a fleet of ``batch`` vehicles."""

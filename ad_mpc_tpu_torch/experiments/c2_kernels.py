@@ -1,18 +1,21 @@
 """Bits and device times of the c2 kernels (the bicycle VDE sweep and the
-7x2 LQ kernel), and bits of the c5 kernels (the quad VDE sweep, the quad
-RK4 map and the 13x4 LQ kernel), of whichever ``ad_mpc_tpu_torch`` is
-imported, so that two trees can be compared on one card in one call:
+7x2 LQ kernel), bits of the c5 kernels (the quad VDE sweep, the quad RK4
+map and the 13x4 LQ kernel) and of the c3 and c4 functors (the GP-bicycle's
+and the Pacejka's VDE sweep and RK4 map), of whichever ``ad_mpc_tpu_torch``
+is imported, so that two trees can be compared on one card in one call:
 
     python ad_mpc_tpu_torch/experiments/c2_kernels.py [--out PATH]
     PYTHONPATH=<other tree> python ad_mpc_tpu_torch/experiments/c2_kernels.py
 
 Run as a file, it imports the package from ``PYTHONPATH`` (or the working
 directory), and uses only the c2 entry points of the package (none of the
-quad's helpers but in :func:`c5_bits`, which needs a tree with the quad).
-Prints one JSON line: the package's path; the sha256 digests of the
-kernels' outputs on the fixed draws of
-``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits`` and
-``test_c5_kernels_keep_their_bits``; device ms by
+quad's helpers but in :func:`c5_bits`, which needs a tree with the quad,
+and :func:`c3_c4_bits`, which needs one with the GP bicycle and the
+Pacejka). Prints one JSON line: the package's path; the sha256 digests of
+the kernels' outputs on the fixed draws of
+``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits``,
+``test_c5_kernels_keep_their_bits`` and ``test_c3_c4_kernels_keep_their_bits``;
+device ms by
 ``torch.profiler`` at c2's B=16384 (the sweep on ``random_traj``, N=30,
 over 50 launches; the LQ kernel on the third c2 tick's QPs over 10).
 """
@@ -69,6 +72,25 @@ def c5_bits(dev):
             "lq_ipm_13x4": digest(*qp(*args))}
 
 
+def c3_c4_bits(dev):
+    """Digests of the c3 and c4 functors' outputs on the kernels' check
+    inputs (B=37, N=30): the VDE sweep and both modes of the RK4 map of the
+    GP bicycle (32 points) and of the Pacejka (p drawn as the fleet draws
+    it)."""
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import gp_bicycle_inputs, pacejka_inputs
+
+    out = {}
+    for name, (dyn, (xs, us, ps)) in (("gp_bicycle", gp_bicycle_inputs(37, 30, dev)),
+                                      ("pacejka", pacejka_inputs(37, 30, dev))):
+        vde = make_vde(dyn, 0.05, 30, 7, 2, ps.shape[1], device=dev)
+        rk4 = make_rk4(dyn, 0.05, 7, 2, ps.shape[1], device=dev)
+        out[f"vde_{name}"] = digest(*vde(xs, us, ps))
+        out[f"rk4_{name}"] = digest(rk4.defect(xs, us, ps),
+                                    rk4(xs[:, 0], us[:, 0], ps))
+    return out
+
+
 def profiled_ms(fn, reps, kernel):
     from torch.profiler import ProfilerActivity, profile
 
@@ -104,6 +126,7 @@ def main(argv=None):
                for a in random_lq(np.random.default_rng(7), 37, 30, 7, 2)]
     res["bits"] = {"vde": digest(*vde(xs, us, ps)), "lq_ipm": digest(*qp(*lq_args))}
     res["bits_c5"] = c5_bits(dev)
+    res["bits_c3_c4"] = c3_c4_bits(dev)
 
     # Device times at c2's B=16384.
     B = 16384

@@ -1,24 +1,34 @@
-"""The closed-loop quadrotor fleet of bench config c5, on the port.
+"""The closed-loop quadrotor fleets of bench configs c5 and c6, on the port.
 
-Port of ``ad_mpc_tpu/experiments/quad_fleet.py:34-60, 90-200`` without the
-GP ensemble (config c6). Each vehicle tracks a horizontal circle of its own
-radius, speed and altitude with a hover attitude reference, at the
-reference's quad OCP dims (nx=13, nu=4, N=10, tf=1 s, ``qp_iters=18``) and
-two Gauss-Newton iterations per tick (``bench.py:471``). On a CUDA device a
-tick is two launches each of the VDE sweep (``vde_quad``) and the QP
-kernel (``lq_ipm`` at 13x4), one of the RK4 map for the KKT defect and one
-for the plant step, which the quaternion renormalization follows.
+Port of ``ad_mpc_tpu/experiments/quad_fleet.py``. Each vehicle tracks a
+horizontal circle of its own radius, speed and altitude with a hover
+attitude reference, at the reference's quad OCP dims (nx=13, nu=4, N=10,
+tf=1 s, ``qp_iters=18``) and two Gauss-Newton iterations per tick
+(``bench.py:471``). With an ``ensemble`` (c6) the dynamics carry the
+body-frame GP residual ``R(q) GP(R(q)^T v)`` of its cluster 0
+(:class:`GPQuadDynamics`): the bench's synthetic ensemble
+(:func:`make_quad_gp_ensemble`) or the fitted ``gp_flagship_c1`` model
+carried across from the JAX package (:func:`fitted_ensemble`). On a CUDA
+device a tick is two launches each of the VDE sweep (``vde_quad`` or
+``vde_gp_quad``) and the QP kernel (``lq_ipm`` at 13x4), one of the RK4 map
+for the KKT defect and one for the plant step, which the quaternion
+renormalization follows.
 
-Scenario draws use ``numpy.random.default_rng(seed)`` exactly as the JAX
-package does, so both packages drive the same fleet.
+Scenario and ensemble draws use ``numpy.random.default_rng(seed)`` exactly
+as the JAX package does, so both packages drive the same fleet.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from ad_mpc_tpu_torch.control.mpc import quad_spec
+from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble, load_npz
+from ad_mpc_tpu_torch.learned.gp import GPParams
+from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
 from ad_mpc_tpu_torch.models.quadrotor import (
     QuadDynamics,
     QuadrotorParams,
@@ -31,9 +41,16 @@ from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver, SolverState
 # iteration leaves the attitude linearization residue at dt=0.1 near the
 # 1e-3 parity bar, the second collapses it.
 QUAD_SQP_ITERS = 2
-# Quality gates of config c5 (``bench.py:483, 497``).
+# Quality gates of configs c5 and c6 (``bench.py:483-491, 497-498``). The
+# fitted model's drag residual is about 100x the synthetic ensemble's, and
+# so is its linearization residue: looser KKT gates.
 GATES = {"kkt_mean": 2e-6, "kkt_max": 1e-4, "lat_err_mean_m": 0.02}
-RTI_GATE = 1e-3  # max |u0_deployed - u0_converged|
+FITTED_GATES = {"kkt_mean": 1e-4, "kkt_max": 5e-4, "lat_err_mean_m": 0.02}
+RTI_GATE = 1e-3  # max |u0_deployed - u0_converged|, c5 and c6
+# The fitted GP of the JAX package's record->fit pipeline
+# (results/model_fitting/256298c/gp_flagship_c1), carried across by
+# ``convert.save_gp_ensemble``.
+FITTED_NPZ = Path(__file__).resolve().parents[1] / "data" / "gp_flagship_c1.npz"
 # Launches of each kernel per tick on the cuda backend, at QUAD_SQP_ITERS:
 # the sweep and the QP per iteration, the RK4 map for the KKT defect and
 # the plant step.
@@ -72,19 +89,52 @@ def make_quad_scenarios(batch, seed=0):
     return radius, speed, alt
 
 
+def make_quad_gp_ensemble(seed: int = 23, n: int = 32) -> GPEnsemble:
+    """The bench's synthetic ensemble on the quad's velocity residual
+    (``ad_mpc_tpu/experiments/quad_fleet.py:63-87``): per output dim 7, 8,
+    9, one cluster of ``n`` body-frame velocities in [-5, 5]^3 with a
+    drag-like target, the same draw and solve as the JAX package's."""
+    rng = np.random.default_rng(seed)
+    gps = [[], [], []]
+    for dim in range(3):
+        X = rng.uniform(-5.0, 5.0, (n, 3))
+        # Drag-like residual: quadratic in the dim's own body velocity.
+        y = -0.03 * X[:, dim] * np.abs(X[:, dim]) + 0.01 * X[:, (dim + 1) % 3]
+        ls = np.full(3, 2.5)
+        sf, sn = 0.05, 0.02
+        diff = (X[:, None, :] - X[None, :, :]) / ls
+        K = sf * np.exp(-0.5 * np.sum(diff * diff, axis=-1))
+        K += (sn**2 + 1e-6) * np.eye(n)
+        gps[dim].append(GPParams(
+            x_train=X, k_inv_y=np.linalg.solve(K, y - y.mean()),
+            len_scale=ls, sigma_f=sf, sigma_n=sn, y_mean=float(y.mean()),
+            centroid=X.mean(axis=0)))
+    return GPEnsemble.from_gps(gps, out_idx=(7, 8, 9), feat_idx=(7, 8, 9))
+
+
+def fitted_ensemble() -> GPEnsemble:
+    """The fitted ``gp_flagship_c1`` ensemble (1 cluster, 60 points) of the
+    bench's c6-fitted rows (``bench.py:833-854``)."""
+    return load_npz(FITTED_NPZ)
+
+
 def build_quad_fleet(n_nodes=10, qp_iters=18, sqp_iters=QUAD_SQP_ITERS,
                      params: QuadrotorParams = QuadrotorParams(),
-                     device="cuda", backend="auto"):
+                     device="cuda", backend="auto", ensemble=None):
     """Closed-loop quad fleet over :class:`BatchedSQPSolver` with
     ``p_dim=0``. ``backend`` is the solver's (``"cuda"``, ``"plain"`` or
-    ``"auto"``).
+    ``"auto"``). ``ensemble``: a :class:`GPEnsemble` whose cluster-0
+    body-frame residual the dynamics add (config c6); None for the nominal
+    quad of c5.
 
     Returns (tick, init, solver, spec); tick(carry) -> (carry, (kkt, lat)),
     carry = (x0, theta, radius, speed, alt, states).
     """
     spec = quad_spec(n_nodes=n_nodes, qp_iters=qp_iters, sqp_iters=sqp_iters)
-    solver = BatchedSQPSolver(spec, QuadDynamics(params), p_dim=0,
-                              device=device, backend=backend)
+    dyn = (QuadDynamics(params) if ensemble is None
+           else GPQuadDynamics(ensemble, params))
+    solver = BatchedSQPSolver(spec, dyn, p_dim=0, device=device,
+                              backend=backend)
     N, dt = spec.n_nodes, spec.dt
     dev = solver.Q.device
     u_hover = torch.as_tensor(hover_input(params), dtype=torch.float32,
@@ -120,19 +170,20 @@ def build_quad_fleet(n_nodes=10, qp_iters=18, sqp_iters=QUAD_SQP_ITERS,
 
 
 def rti_vs_converged_quad(carry, n_check=64, n_nodes=10,
-                          deployed_sqp_iters=QUAD_SQP_ITERS):
+                          deployed_sqp_iters=QUAD_SQP_ITERS, ensemble=None):
     """Quality gate: max |u0| difference, over the first ``n_check``
     vehicles, between the deployed tick (``deployed_sqp_iters``
     Gauss-Newton iterations, 18 IPM iterations) and a converged SQP solve
-    (6 and 24) from the same state and warm start."""
+    (6 and 24) from the same state and warm start, both with the dynamics
+    of ``ensemble`` (as :func:`build_quad_fleet`)."""
     x0, theta, radius, speed, alt, states = carry
     m = min(n_check, x0.shape[0])
     dev = x0.device
     _, _, sol1, spec = build_quad_fleet(n_nodes=n_nodes, qp_iters=18,
                                         sqp_iters=deployed_sqp_iters,
-                                        device=dev)
+                                        device=dev, ensemble=ensemble)
     _, _, sol6, _ = build_quad_fleet(n_nodes=n_nodes, qp_iters=24,
-                                     sqp_iters=6, device=dev)
+                                     sqp_iters=6, device=dev, ensemble=ensemble)
     N, dt = spec.n_nodes, spec.dt
     yref_x = circle_reference(theta[:m], radius[:m], (speed / radius)[:m],
                               alt[:m], N, dt)

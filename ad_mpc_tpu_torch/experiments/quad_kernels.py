@@ -1,5 +1,5 @@
-"""Design choices of the quad's kernels on the H100, measured at c5's
-shapes (B=16384, N=10, nx=13, nu=4).
+"""Design choices of the quad's kernels on the H100, measured at c5's and
+c6's shapes (B=16384, N=10, nx=13, nu=4).
 
     python -m ad_mpc_tpu_torch.experiments.quad_kernels [--out PATH]
 
@@ -10,7 +10,14 @@ shapes (B=16384, N=10, nx=13, nu=4).
    ``ptxas``, device time by ``torch.profiler`` over 50 launches, the
    largest error against ``vde_plain`` (held at 3e-5) and whether its bits
    are the default build's.
-2. The 13x4 LQ kernel (``csrc/lq_ipm.cu``) on the QPs of the third c5 tick
+2. The same for the GP-quad functor of c6 (``GPQuadDyn``), on the
+   synthetic 32-point ensemble and the fitted 60-point one:
+   ``-DGP_QUAD_TANGENTS_PER_PASS`` and ``-DGP_QUAD_ROW_WARPS`` (the first
+   pass keeps each evaluation's GP means and gradients in shared memory for
+   the later passes at every width). Each variant is held to ``vde_plain``
+   (3e-5 on the synthetic ensemble; on the fitted one its distance is
+   printed).
+3. The 13x4 LQ kernel (``csrc/lq_ipm.cu``) on the QPs of the third c5 tick
    at B=16384, for every number of scenarios per block that fits: resident
    blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), device
    time over 10 launches, and whether its bits are those of the geometry
@@ -29,6 +36,7 @@ import torch
 
 from ad_mpc_tpu_torch.experiments import (
     card, device_ms, quad_fleet, require_cuda, tf32, tick_qp_inputs)
+from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.cuda_lq import MAX_TEAMS
@@ -37,36 +45,50 @@ from ad_mpc_tpu_torch.testing import quad_traj
 
 # (tangents per pass, row warps); the first is the committed default.
 VDE_VARIANTS = ((6, 1), (4, 1), (9, 1), (17, 1), (6, 2), (6, 4))
+GP_VDE_VARIANTS = ((3, 2), (3, 1), (2, 1), (4, 1), (6, 1), (9, 1))
 
 
-def _defines(tpp, rw):
-    return (f"QUAD_TANGENTS_PER_PASS={tpp}", f"QUAD_ROW_WARPS={rw}")
+def _defines(tpp, rw, model="QUAD"):
+    return (f"{model}_TANGENTS_PER_PASS={tpp}", f"{model}_ROW_WARPS={rw}")
 
 
-def vde_variants(B=16384, N=10, dt=0.1, variants=VDE_VARIANTS):
-    dyn = QuadDynamics()
+def vde_variants(B=16384, N=10, dt=0.1, variants=VDE_VARIANTS, gp=False):
+    """One row per variant of the quad's (``gp``: the GP-quad's) traits."""
+    if gp:
+        from ad_mpc_tpu_torch.experiments.quad_fleet import (
+            fitted_ensemble, make_quad_gp_ensemble)
+
+        cases = {"n=32": GPQuadDynamics(make_quad_gp_ensemble()),
+                 "n=60": GPQuadDynamics(fitted_ensemble())}
+        defines = lambda v: _defines(*v, model="GP_QUAD")
+    else:
+        cases, defines = {"quad": QuadDynamics()}, lambda v: _defines(*v)
     with ThreadPoolExecutor(len(variants)) as pool:
-        list(pool.map(lambda v: _build.build_all(("vde",), _defines(*v)),
+        list(pool.map(lambda v: _build.build_all(("vde",), defines(v)),
                       variants))
     xs, us = (torch.as_tensor(a, device="cuda")
               for a in quad_traj(np.random.default_rng(13), B, N))
     ps = torch.zeros((B, 0), device="cuda")
-    want = vde_plain(dyn, dt, 1, xs, us, ps)
-    rows, first = {}, None
-    for tpp, rw in variants:
-        vde = make_vde(dyn, dt, N, 13, 4, 0, device="cuda")
-        vde.defines = _defines(tpp, rw)
-        got = vde(xs, us, ps)
-        first = got if first is None else first
-        res = _build.functor_resources("vde", "vde_kernel", dyn.cuda_functor,
-                                       vde.defines)
-        rows[f"tpp{tpp}_rw{rw}"] = res | {
-            "tangents_per_pass": tpp, "row_warps": rw,
-            "max_abs_err": max(float((g - w).abs().max())
-                               for g, w in zip(got, want)),
-            "bits_as_default": all(torch.equal(g, f) for g, f in zip(got, first)),
-            "ms": device_ms(lambda: vde(xs, us, ps), 50, kernel="vde_kernel"),
-        }
+    rows = {}
+    for case, dyn in cases.items():
+        want = vde_plain(dyn, dt, 1, xs, us, ps)
+        first = None
+        for v in variants:
+            vde = make_vde(dyn, dt, N, 13, 4, 0, device="cuda")
+            vde.defines = defines(v)
+            got = vde(xs, us, ps)
+            first = got if first is None else first
+            res = _build.functor_resources("vde", "vde_kernel",
+                                           dyn.cuda_functor, vde.defines)
+            name = "_".join(f"{k}{n}" for k, n in zip(("tpp", "rw"), v))
+            rows[f"{case} {name}" if gp else name] = res | dict(zip(
+                ("tangents_per_pass", "row_warps"), v)) | {
+                "max_abs_err": max(float((g - w).abs().max())
+                                   for g, w in zip(got, want)),
+                "bits_as_default": all(torch.equal(g, f)
+                                       for g, f in zip(got, first)),
+                "ms": device_ms(lambda: vde(xs, us, ps), 50, kernel="vde_kernel"),
+            }
     return rows
 
 
@@ -99,7 +121,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     require_cuda("cuda")
     with tf32(False):
-        res = {"device": card(), "vde": vde_variants(), "lq": lq_teams()}
+        res = {"device": card(), "vde": vde_variants(),
+               "vde_gp_quad": vde_variants(variants=GP_VDE_VARIANTS, gp=True),
+               "lq": lq_teams()}
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:

@@ -1,12 +1,15 @@
 """Clustered GP ensembles as stacked parameter arrays.
 
-Port of ``ad_mpc_tpu/learned/ensemble.py:29-145, 193-213``: one GP per
+Port of ``ad_mpc_tpu/learned/ensemble.py:29-145, 183-244``: one GP per
 (output dim, cluster), padded to a common training-set size and sorted by
 centroid, nearest-centroid selection, the posterior means of all output
-dims, and the state-feature residual. The arrays stay on the host as
-float64 numpy (the constants a dynamics bakes in); the functions take them
-to the query's type and device. The quadrotor features and the variance
-wait for the GP-quad path.
+dims, the state-feature residual and the quadrotor's body-frame residual
+(the matrix form that ``lane.quad_lane_residual_terms`` is held to). The
+arrays stay on the host as float64 numpy (the constants a dynamics bakes
+in); the functions take them to the query's type and device.
+:func:`load_npz` reads an ensemble carried across from the JAX package
+(``convert.save_gp_ensemble``) with numpy alone. The posterior variance is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import numpy as np
 import torch
 
 from ad_mpc_tpu_torch.learned.gp import GPParams
+from ad_mpc_tpu_torch.utils.math import quaternion_inverse, v_dot_q
 
 
 class GPEnsemble(NamedTuple):
@@ -111,3 +115,44 @@ def state_residual_fn(ens: GPEnsemble, fixed_cluster=None):
                             for i in range(x.shape[0])])
 
     return residual
+
+
+def body_frame_features(x, feat_idx):
+    """The features ``x[feat_idx]`` of a 13-state quad x (13,), with the
+    velocity block x[7:10] rotated into the body frame, ``R(q)^T v``."""
+    v_b = v_dot_q(x[7:10], quaternion_inverse(x[3:7]))
+    x_body = torch.cat([x[:7], v_b, x[10:]])
+    return torch.stack([x_body[i] for i in feat_idx])
+
+
+def quad_residual_fn(ens: GPEnsemble, fixed_cluster=None):
+    """Quadrotor residual ``residual(x, u)``: ``x_dot[7:10] += R(q)
+    GP(z)`` with z the body-frame features; only the velocity rows may be
+    outputs. ``fixed_cluster`` (D,) pins the cluster per dim; None selects
+    the nearest centroid at every evaluation."""
+
+    def residual(x, u):
+        z = body_frame_features(x, ens.feat_idx)
+        mu_body = predict(ens, z, cluster_idx=fixed_cluster)
+        full = [torch.zeros_like(x[0])] * 3
+        for k, dim in enumerate(ens.out_idx):
+            full[dim - 7] = mu_body[k]
+        mu_world = v_dot_q(torch.stack(full), x[3:7])
+        return torch.cat([torch.zeros_like(x[:7]), mu_world,
+                          torch.zeros_like(x[10:])])
+
+    return residual
+
+
+def load_npz(path) -> GPEnsemble:
+    """A :class:`GPEnsemble` from an ``.npz`` holding one array per field
+    (``out_idx`` and ``feat_idx`` as integer arrays), as
+    ``convert.save_gp_ensemble`` writes it."""
+    with np.load(path) as z:
+        f = {name: z[name] for name in GPEnsemble._fields}
+    return GPEnsemble(
+        **{k: np.asarray(v, np.float64) for k, v in f.items()
+           if k not in ("n_valid", "out_idx", "feat_idx")},
+        n_valid=np.asarray(f["n_valid"], np.int32),
+        out_idx=tuple(int(i) for i in f["out_idx"]),
+        feat_idx=tuple(int(i) for i in f["feat_idx"]))

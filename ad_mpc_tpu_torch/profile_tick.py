@@ -1,19 +1,20 @@
 """Where the time of a fleet tick goes, on the card.
 
-    python -m ad_mpc_tpu_torch.profile_tick [--config c2|c3|c4|c5]
+    python -m ad_mpc_tpu_torch.profile_tick [--config c2|c3|c4|c5|c6]
                                             [--batch 1024 16384] [--ticks 10]
                                             [--out PATH]
 
 ``--config``: the c2 bicycle tick (``fleet.build_fleet``), the c3
 GP-bicycle tick (``fleet.make_gp_bicycle``), the c4 Pacejka tick
-(``fleet.make_pacejka``, speeds capped) or the c5 quad tick
+(``fleet.make_pacejka``, speeds capped), the c5 quad tick
 (``experiments.quad_fleet.build_quad_fleet``, two Gauss-Newton
-iterations). For each batch size: 5 warm-up ticks, then ``--ticks`` ticks under
-``torch.profiler`` (CPU and CUDA activities). Prints the device time per
-tick of each kernel (the port's two kernels and PyTorch's own), the tick's
-wall time after a ``synchronize``, and the device's busy share of that
-window: summed kernel time over wall time (one stream, so kernels do not
-overlap).
+iterations) or the c6 GP-quad tick (the same with the bench's synthetic
+32-point ensemble, ``quad_fleet.make_quad_gp_ensemble``). For each batch
+size: 5 warm-up ticks, then ``--ticks`` ticks under ``torch.profiler``
+(CPU and CUDA activities). Prints the device time per tick of each kernel
+(the port's two kernels and PyTorch's own), the tick's wall time after a
+``synchronize``, and the device's busy share of that window: summed kernel
+time over wall time (one stream, so kernels do not overlap).
 """
 
 from __future__ import annotations
@@ -40,6 +41,8 @@ FLEETS = {
                                     device="cuda"),
     "c4": _c4,
     "c5": lambda: quad_fleet.build_quad_fleet(device="cuda"),
+    "c6": lambda: quad_fleet.build_quad_fleet(
+        device="cuda", ensemble=quad_fleet.make_quad_gp_ensemble()),
 }
 
 

@@ -9,7 +9,9 @@ Phases, each of which must pass:
 2. kernel phase VDE: the fused RK4 + sensitivity kernel at c2 shapes
    (B=16384, N=30) with the bicycle at switch 1 and 0.3, held against its
    plain PyTorch version on the card at atol 2e-5; its device time by
-   ``torch.profiler`` beside the CUDA-event time; then kernel phase RK4:
+   CUDA-graph replay of 20 launches (``experiments.graph_ms``, the row's
+   ``ms``), beside ``torch.profiler``'s and the CUDA events' around
+   back-to-back launches; then kernel phase RK4:
    both modes of the sweep's tangent-free RK4 entry (the KKT defect over
    B=16384, N=30, and the plant step over 16384 vehicles with u a strided
    view) held against ``integrators.discrete_step`` at atol 2e-5, at
@@ -49,6 +51,21 @@ Phases, each of which must pass:
    and 20 timed ticks, with ``quad_fleet.LAUNCHES_PER_TICK`` (two
    Gauss-Newton iterations: the sweep and the QP twice, the RK4 map
    twice), the c5 gates, and RTI-vs-converged u0 on the B=256 fleet;
+5a. c6, the GP-augmented quadrotor: kernel phase VDE gp_quad (B=16384,
+   N=10, p_dim=0) on the bench's synthetic 32-point ensemble, held to
+   ``vde_plain`` at 3e-5, and on the fitted 60-point ``gp_flagship_c1``,
+   whose float32 rounding alone moves a step by about 1e-4: each row of A
+   and Bm and each entry of c held to the float64 plain version within
+   3e-5 plus 4 times the float32 plain version's spread there (its largest
+   distance over the inputs and 8 copies of the inputs and of the GP table
+   each moved by an ulp; ``testing.f64_anchored``); warm and cold,
+   registers and spills; the
+   bound counted as the kernel's design needs it
+   (:func:`gp_quad_vde_flops_per_stage`); kernel phase RK4 gp_quad (both
+   modes, the same rules); then the c6 fleet at B=256, 1024, 4096 and
+   16384 (20 + 20 ticks, launches per tick, the c6 gates, RTI-vs-converged
+   u0 on the B=256 fleet) and the c6-fitted fleet at B=4096 and 16384 with
+   its gates;
 6. kernel phase lane chain: the lane-layout chained product (B=16384,
    nx=7, 12 links) held against its plain version and against 12 chained
    fp32 ``torch.bmm`` at 1e-5 of max |out|, a relaunch repeating its
@@ -70,7 +87,7 @@ Phases, each of which must pass:
     launches: printed; over the 20 ms budget is a warning, as in
     ``bench.py``.
 
-Each path of phases 4, 4a, 4b, 5 and 7-10 starts with its kernels' launch
+Each path of phases 4, 4a, 4b, 5, 5a and 7-10 starts with its kernels' launch
 counts at 0 and reads them after. The script then prints a
 ``{"kernels": [...]}`` line (each kernel's launches on its path, error,
 times, bound and, for the VDE and RK4 rows, the registers and spills of
@@ -94,6 +111,7 @@ import time
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_FP32_FLOP_PER_S = 67e12  # FP32 outside the tensor cores, same sheet
 GP_POINTS, GP_DIMS, GP_FEATS = 32, 2, 4  # c3's GP (bench.py:227)
+GP_QUAD_POINTS, GP_QUAD_DIMS, GP_QUAD_FEATS = 32, 3, 3  # c6's synthetic GP
 WARMUP, TICKS = 5, 20
 C5_WARMUP = 20  # the c5 rows' warm-up ticks (bench.py:779)
 
@@ -146,6 +164,71 @@ def gp_rk4_flops_per_row(bicycle, ps, n, D=GP_DIMS, d=GP_FEATS, nx=7, nu=2):
 
     primal, _ = gp_ops(n, D, d)
     return rk4_flops(dyn_counts(bicycle, nx, nu, ps[0].cpu()), nx) + 4 * primal
+
+
+def quad_rotations(x, u, p):
+    """The GP-quad's dynamics with each body-frame mean replaced by its
+    feature, ``x_dot[7:10] += R(q) R(q)^T v``: the quad plus the float
+    rotations of the residual (R, v_b = R^T v, R mu and the adds into the
+    rows), for ``experiments.opcount`` to count without tangents."""
+    from ad_mpc_tpu_torch.learned.lane import _rot_rows, add_rows
+    from ad_mpc_tpu_torch.models.quadrotor import quad_dynamics_lane
+
+    R = _rot_rows(x)
+    v_b = [R[0][r] * x[7] + R[1][r] * x[8] + R[2][r] * x[9] for r in range(3)]
+    return add_rows(quad_dynamics_lane(x, u), {
+        7 + r: R[r][0] * v_b[0] + R[r][1] * v_b[1] + R[r][2] * v_b[2]
+        for r in range(3)})
+
+
+# The float Jacobian of the GP quad's residual r = R mu(R^T v) in (q, v)
+# (``csrc/vde.cu:gp_quad_jacobian``): H = R G and dr/dv = H R^T, 9 dot
+# products of 3 each (45 + 45); the 4 matrices dR/dq_i, whose 30 non-zero
+# entries come from 7 scalars (2 q_i, -4 q_x, -4 q_y, -4 q_z); over those
+# entries (dR/dq_i)^T v and (dR/dq_i) mu, 30 multiplies and 18 adds each
+# (96); H (dR/dq_i)^T v, 4 x 3 dot products, and their adds to
+# (dR/dq_i) mu (60 + 12).
+GP_QUAD_JACOBIAN_OPS = 45 + 45 + 7 + 96 + 72
+
+
+def gp_quad_vde_flops_per_stage(n, D=GP_QUAD_DIMS, d=GP_QUAD_FEATS, nx=13,
+                                nu=4):
+    """The least operations of one stage of c6's sweep, as the kernel's
+    design needs them: the quad's own sweep (``experiments.opcount``), plus
+    for each of RK4's 4 evaluations, in float, the rotations (R, v_b, R mu
+    and the adds into the rows: :func:`quad_rotations`'s primal over the
+    quad's), the GP's means and gradients (:func:`gp_ops`, less its D adds
+    into a row, which R mu replaces), the residual's Jacobian in (q, v)
+    (``GP_QUAD_JACOBIAN_OPS``), and its lift by one contraction of the 7
+    entries per tangent and output, 7 multiplies, 6 adds and the add to
+    the row's tangent. At n=32: 4 x (55 + 1,065 + 585 + 265 + 714) over the
+    quad's 12,151."""
+    import torch
+
+    from ad_mpc_tpu_torch.experiments.opcount import dyn_counts
+    from ad_mpc_tpu_torch.models.quadrotor import quad_dynamics_lane
+
+    p = torch.zeros((1, 0))
+    quad = lambda x, u, p: quad_dynamics_lane(x, u)
+    rotations = (dyn_counts(quad_rotations, nx, nu, p[0]).primal
+                 - dyn_counts(quad, nx, nu, p[0]).primal)
+    primal, grad = gp_ops(n, D, d)
+    lift = D * (nx + nu) * (2 * 7)
+    gp = rotations + primal - D + grad + GP_QUAD_JACOBIAN_OPS + lift
+    return sweep_flops_per_stage(quad, nx, nu, p) + 4 * gp
+
+
+def gp_quad_rk4_flops_per_row(n, D=GP_QUAD_DIMS, d=GP_QUAD_FEATS, nx=13, nu=4):
+    """The least operations of c6's RK4 map for one row: the quad's with
+    the rotations (:func:`quad_rotations`) plus each of the 4 evaluations'
+    GP means without gradients."""
+    import torch
+
+    from ad_mpc_tpu_torch.experiments.opcount import dyn_counts, rk4_flops
+
+    primal, _ = gp_ops(n, D, d)
+    counts = dyn_counts(quad_rotations, nx, nu, torch.zeros(0))
+    return rk4_flops(counts, nx) + 4 * (primal - D)
 
 
 def lq_flops_per_stage_iter(nx, nu):
@@ -201,15 +284,65 @@ def max_err(got, want, atol, rtol=0.0):
     return float(d.max()), ok
 
 
-def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None):
+def chunked(fn, *args, chunk=2048):
+    """``fn`` over chunks of ``chunk`` scenarios, outputs concatenated: the
+    float64 plain versions at B=16384 would take tens of GB at once."""
+    import torch
+
+    outs = [fn(*(a[i:i + chunk] for a in args))
+            for i in range(0, args[0].shape[0], chunk)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.cat(outs)
+    return tuple(torch.cat(o) for o in zip(*outs))
+
+
+def anchored(key, name, got, plain, dyn, args, atol, rows):
+    """Each output of ``got`` held by ``testing.f64_anchored`` (by rows
+    where ``rows`` says so) against the float64 answer of the plain version
+    ``plain(dyn, *args)``, with the spread of its float32 answers on
+    ``args`` and on ``SPREAD_RUNS`` copies of the inputs and of the GP
+    table each moved by about an ulp (``testing.perturbed``,
+    ``testing.table_perturbed``); returns (max |got - float32 plain|,
+    numbers for the record)."""
+    from ad_mpc_tpu_torch.testing import (
+        SPREAD_FACTOR, SPREAD_RUNS, f64_anchored, perturbed, table_perturbed)
+
+    want64 = plain(dyn, *(a.double() for a in args))
+    runs = [plain(dyn, *args)] + [
+        plain(table_perturbed(dyn, s), *perturbed(args, s))
+        for s in range(SPREAD_RUNS)]
+    rec = {"f64_err": 0.0, "f32_spread": 0.0, "spread_ratio": 0.0}
+    for i, (g, w64, by_rows) in enumerate(zip(got, want64, rows)):
+        err, spread, ratio, ok = f64_anchored(g, [r[i] for r in runs], w64,
+                                              atol, by_rows)
+        check(ok, f"{key} kernel at {name}, output {i}: a "
+              f"{'row' if by_rows else 'entry'} lies further from the float64 "
+              f"plain version than {atol} + {SPREAD_FACTOR} x the float32 plain "
+              f"version's spread there (ratio {ratio:.2f})")
+        rec = {k: max(rec[k], v) for k, v in
+               zip(rec, (err, spread, ratio))}
+    err32 = max(float((g - w).abs().max()) for g, w in zip(got, runs[0]))
+    print(f"{key} {name}: from the float64 plain version kernel "
+          f"{rec['f64_err']:.3e}, float32 plain runs up to "
+          f"{rec['f32_spread']:.3e}; largest (err - {atol}) / spread "
+          f"{rec['spread_ratio']:.3f} (<= {SPREAD_FACTOR}); kernel vs "
+          f"float32 plain {err32:.3e}")
+    return err32, rec
+
+
+def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None,
+             anchor=()):
     """The VDE kernel against ``vde_plain`` at ``atol`` for each case of
-    ``cases`` ({name: (dynamics, ps)}); device time by the profiler, warm
-    and with the inputs out of L2, beside the CUDA-event time; registers
-    and spills of the first case's functor. Returns the kernels-line
-    numbers (times of the first case). The bound counts
-    ``flops_per_stage``, by default :func:`sweep_flops_per_stage` of the
-    first case."""
-    from ad_mpc_tpu_torch.experiments import device_ms
+    ``cases`` ({name: (dynamics, ps)}), the cases named in ``anchor`` by
+    :func:`anchored` instead; device time by CUDA-graph replay
+    (``experiments.graph_ms``, the row's ``ms``), beside the profiler's
+    (``profiler_ms``) and the CUDA events' around back-to-back launches
+    (``events_ms``), and by the profiler with the inputs out of L2
+    (``cold_ms``); registers and spills of the first case's functor.
+    Returns the kernels-line numbers (times of the first case). The bound
+    counts ``flops_per_stage``, by default :func:`sweep_flops_per_stage` of
+    the first case."""
+    from ad_mpc_tpu_torch.experiments import device_ms, graph_ms
     from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
 
@@ -219,16 +352,22 @@ def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None):
     for name, (dyn, ps) in cases.items():
         vde = make_vde(dyn, dt, N, nx, nu, ps.shape[-1], device="cuda")
         got = vde(xs, us, ps)
-        want = vde_plain(dyn, dt, 1, xs, us, ps)
-        torch.cuda.synchronize()
-        errs = [max_err(g, w, atol) for g, w in zip(got, want)]
-        err = max(e for e, _ in errs)
-        check(all(ok for _, ok in errs),
-              f"{key} kernel disagrees with its plain version at {name}: "
-              f"max |err| {err:.3e} > {atol}")
-        row = rows[name] = {
+        plain = lambda d, *a: chunked(lambda *c: vde_plain(d, dt, 1, *c), *a)
+        extra = {}
+        if name in anchor:
+            err, extra = anchored(key, name, got, plain, dyn, (xs, us, ps),
+                                  atol, (True, True, False))
+        else:
+            want = plain(dyn, xs, us, ps)
+            errs = [max_err(g, w, atol) for g, w in zip(got, want)]
+            err = max(e for e, _ in errs)
+            check(all(ok for _, ok in errs),
+                  f"{key} kernel disagrees with its plain version at {name}: "
+                  f"max |err| {err:.3e} > {atol}")
+        row = rows[name] = extra | {
             "max_abs_err": err,
-            "ms": device_ms(lambda: vde(xs, us, ps), 50),
+            "ms": graph_ms(lambda: vde(xs, us, ps)),
+            "profiler_ms": device_ms(lambda: vde(xs, us, ps), 50),
             "events_ms": time_ms(torch, lambda: vde(xs, us, ps), 50),
             "plain_ms": time_ms(
                 torch, lambda: vde_plain(dyn, dt, 1, xs, us, ps), 3),
@@ -237,7 +376,8 @@ def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None):
             row["cold_ms"] = device_ms(lambda: vde(xs, us, ps), 20, cold=True,
                                        kernel="vde_kernel")
         print(f"{key} {name}: max|err| {err:.3e}, kernel {row['ms']:.5f} ms "
-              f"device ({row['events_ms']:.5f} ms by events, back to back), "
+              f"by graph replay ({row['profiler_ms']:.5f} ms by the profiler, "
+              f"{row['events_ms']:.5f} ms by events, back to back), "
               f"plain {row['plain_ms']:.3f} ms, launches (comparison "
               f"instance) {vde.launches}")
     dyn, ps = next(iter(cases.values()))
@@ -331,11 +471,13 @@ def phase_vde_quad(torch, np, out):
     return vde_case(torch, out, "vde_quad", cases, 0.1, xs, us, 3e-5)
 
 
-def rk4_case(torch, out, key, cases, dt, xs, us, atol, flops_per_row=None):
+def rk4_case(torch, out, key, cases, dt, xs, us, atol, flops_per_row=None,
+             anchor=()):
     """Both modes of the tangent-free RK4 entry (the KKT defect over every
     stage, and the plant step with u a strided view ``us[:, 0]``) against
     ``integrators.discrete_step`` at ``atol``, for each case of ``cases``
-    ({name: (dynamics, ps)}); device times warm and, at the first case,
+    ({name: (dynamics, ps)}), the cases named in ``anchor`` by
+    :func:`anchored` instead; device times warm and, at the first case,
     cold (the bytes of either mode fit the 50 MB L2); registers and
     spills of the first case's functor. The bound counts
     ``flops_per_row``, by default the first case's operations as
@@ -354,16 +496,25 @@ def rk4_case(torch, out, key, cases, dt, xs, us, atol, flops_per_row=None):
         rk4 = make_rk4(dyn, dt, nx, nu, ps.shape[-1], device="cuda")
         modes = {
             "defect": (lambda: rk4.defect(xs, us, ps),
-                       lambda: discrete_step(dyn, dt, 1, xs[:, :-1], us,
-                                             ps[:, None]) - xs[:, 1:]),
+                       lambda d, a, b, c: discrete_step(d, dt, 1, a[:, :-1], b,
+                                                        c[:, None]) - a[:, 1:],
+                       (xs, us, ps)),
             "step": (lambda: rk4(x, u, ps),
-                     lambda: discrete_step(dyn, dt, 1, x, u, ps)),
+                     lambda d, a, b, c: discrete_step(d, dt, 1, a, b, c),
+                     (x, u, ps)),
         }
-        for mode, (kernel, plain) in modes.items():
-            err, ok = max_err(kernel(), plain(), atol)
-            check(ok, f"{key} {mode} disagrees with discrete_step at {name}: "
-                  f"max |err| {err:.3e} > {atol}")
-            rows[mode, name] = {
+        for mode, (kernel, plain_of, args) in modes.items():
+            plain = lambda: plain_of(dyn, *args)
+            extra = {}
+            if name in anchor:
+                err, extra = anchored(f"{key} {mode}", name, (kernel(),),
+                                      lambda *a: (plain_of(*a),), dyn, args,
+                                      atol, (False,))
+            else:
+                err, ok = max_err(kernel(), plain(), atol)
+                check(ok, f"{key} {mode} disagrees with discrete_step at {name}: "
+                      f"max |err| {err:.3e} > {atol}")
+            rows[mode, name] = extra | {
                 "max_abs_err": err, "ms": device_ms(kernel, 50),
                 "plain_ms": time_ms(torch, plain, 5)}
             if name == first:
@@ -426,6 +577,50 @@ def phase_rk4_quad(torch, np, out):
               for a in quad_traj(np.random.default_rng(14), B, 10))
     cases = {"p_dim=0": (QuadDynamics(), torch.zeros((B, 0), device="cuda"))}
     return rk4_case(torch, out, "rk4_quad", cases, 0.1, xs, us, 3e-5)
+
+
+def gp_quad_cases(torch, B):
+    """c6's GP-quad with the bench's synthetic 32-point ensemble and with
+    the fitted 60-point ``gp_flagship_c1`` model."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
+
+    ps = torch.zeros((B, 0), device="cuda")
+    return {"n=32": (GPQuadDynamics(quad_fleet.make_quad_gp_ensemble()), ps),
+            "fitted n=60": (GPQuadDynamics(quad_fleet.fitted_ensemble()), ps)}
+
+
+def phase_vde_gp_quad(torch, np, out):
+    from ad_mpc_tpu_torch.testing import quad_traj
+
+    B = 16384
+    xs, us = (torch.as_tensor(a).cuda()
+              for a in quad_traj(np.random.default_rng(13), B, 10))
+    cases = gp_quad_cases(torch, B)
+    row = vde_case(torch, out, "vde_gp_quad", cases, 0.1, xs, us, 3e-5,
+                   gp_quad_vde_flops_per_stage(GP_QUAD_POINTS),
+                   anchor=("fitted n=60",))
+    # The fitted model's own bound (60 points), against its warm time.
+    fit = out["vde_gp_quad"]["cases"]["fitted n=60"]
+    bms, by = bound_ms(out["vde_gp_quad"]["bytes"],
+                       B * 10 * gp_quad_vde_flops_per_stage(60))
+    check(bms <= fit["ms"], f"vde_gp_quad fitted: {fit['ms']:.5f} ms is under "
+          f"its bound {bms:.5f} ms: the count is wrong")
+    fit |= {"bound_ms": bms, "bound_by": by}
+    print(f"vde_gp_quad fitted n=60 bound {bms:.4f} ms ({by}), "
+          f"{100 * bms / fit['ms']:.0f}% of it warm")
+    return row
+
+
+def phase_rk4_gp_quad(torch, np, out):
+    from ad_mpc_tpu_torch.testing import quad_traj
+
+    B = 16384
+    xs, us = (torch.as_tensor(a).cuda()
+              for a in quad_traj(np.random.default_rng(14), B, 10))
+    return rk4_case(torch, out, "rk4_gp_quad", gp_quad_cases(torch, B), 0.1,
+                    xs, us, 3e-5, gp_quad_rk4_flops_per_row(GP_QUAD_POINTS),
+                    anchor=("fitted n=60",))
 
 
 def tick_qps(fleet, batch, n_nodes):
@@ -636,6 +831,31 @@ def phase_c5(torch, out, card):
         f"c5 ({quad_fleet.QUAD_SQP_ITERS} Gauss-Newton iterations)",
         quad_fleet.rti_vs_converged_quad(rows[256][1]), quad_fleet.RTI_GATE)
     out["c5"] = {str(B): r for B, (r, _) in rows.items()}
+    return rows[16384][0]["launches"]
+
+
+def phase_c6(torch, out, card):
+    """c6: the GP-quad fleet with the bench's synthetic ensemble at
+    B=256/1024/4096/16384, RTI on the B=256 fleet, then the c6-fitted fleet
+    at B=4096/16384 (bench.py:798-856)."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+
+    ens = quad_fleet.make_quad_gp_ensemble()
+    rows = fleet_ladder(
+        "c6", lambda: quad_fleet.build_quad_fleet(device="cuda", ensemble=ens),
+        (256, 1024, 4096, 16384), C5_WARMUP, TICKS, quad_fleet.GATES,
+        quad_fleet.LAUNCHES_PER_TICK, card)
+    out["c6_rti_vs_converged_u0"] = rti_check(
+        "c6", quad_fleet.rti_vs_converged_quad(rows[256][1], ensemble=ens),
+        quad_fleet.RTI_GATE)
+    out["c6"] = {str(B): r for B, (r, _) in rows.items()}
+    fitted = quad_fleet.fitted_ensemble()
+    rows_f = fleet_ladder(
+        "c6-fitted", lambda: quad_fleet.build_quad_fleet(device="cuda",
+                                                         ensemble=fitted),
+        (4096, 16384), C5_WARMUP, TICKS, quad_fleet.FITTED_GATES,
+        quad_fleet.LAUNCHES_PER_TICK, card)
+    out["c6_fitted"] = {str(B): r for B, (r, _) in rows_f.items()}
     return rows[16384][0]["launches"]
 
 
@@ -873,6 +1093,9 @@ def main(argv=None):
     rk4_q = phase_rk4_quad(torch, np, out)
     lq_q = phase_lq_quad(torch, np, out)
     launches_q = phase_c5(torch, out, card)
+    vde_gq = phase_vde_gp_quad(torch, np, out)
+    rk4_gq = phase_rk4_gp_quad(torch, np, out)
+    launches_c6 = phase_c6(torch, out, card)
     lane = phase_lane_chain(torch, out)
     lane_launches = phase_mxu(torch, out)
     phase_long_horizon(out)
@@ -901,6 +1124,8 @@ def main(argv=None):
         kernel_row("rk4_pacejka", vde_src, rk4_c2, launches_c4["rk4"], rk4_p),
         kernel_row("vde_gp_bicycle", vde_src, vde_tpu, launches_c3["vde"], vde_g),
         kernel_row("rk4_gp_bicycle", vde_src, rk4_c2, launches_c3["rk4"], rk4_g),
+        kernel_row("vde_gp_quad", vde_src, vde_tpu, launches_c6["vde"], vde_gq),
+        kernel_row("rk4_gp_quad", vde_src, rk4_c5, launches_c6["rk4"], rk4_gq),
     ]
     out["kernels"] = kernels
     if args.out:

@@ -18,7 +18,8 @@ import torch
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
 from ad_mpc_tpu_torch.experiments import capture, long_horizon, mxu_riccati, quad_fleet
-from ad_mpc_tpu_torch.experiments.c2_kernels import c5_bits, digest
+from ad_mpc_tpu_torch.experiments.c2_kernels import c3_c4_bits, c5_bits, digest
+from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
 from ad_mpc_tpu_torch.ops import _build
@@ -30,8 +31,9 @@ from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.ops.cuda_vde import _entry, make_rk4, make_vde, vde_plain
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
 from ad_mpc_tpu_torch.testing import (
-    BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, gp_bicycle_inputs, lq_case,
-    pacejka_inputs, quad_traj, random_lq, random_traj)
+    BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, SPREAD_RUNS, f64_anchored,
+    gp_bicycle_inputs, lq_case, pacejka_inputs, perturbed, quad_traj,
+    random_lq, random_traj, table_perturbed)
 
 pytestmark = pytest.mark.gpu
 
@@ -526,6 +528,87 @@ def test_c3_c4_ticks_on_card_match_plain(cuda, config):
     torch.testing.assert_close(u_g, u_c, atol=1e-3, rtol=0)
     torch.testing.assert_close(x_g, x_c, atol=1e-4, rtol=1e-5)
     assert abs(lat_g - lat_c) < 1e-4
+
+
+# sha256 of the c3 and c4 functors' outputs on the fixed draws of
+# ``experiments/c2_kernels.py:c3_c4_bits``, as the kernels gave them before
+# the GP-quad functor was added (that script run on that tree).
+C3_C4_BITS = {"vde_gp_bicycle": "d61ba90e3c0ede6f", "rk4_gp_bicycle": "f0f9cd2cfa3b8a28",
+              "vde_pacejka": "52c56946f655b919", "rk4_pacejka": "c25859d3cf9ff011"}
+
+
+def test_c3_c4_kernels_keep_their_bits(cuda):
+    assert c3_c4_bits(cuda) == C3_C4_BITS
+
+
+def _gp_quad(fitted):
+    ens = (quad_fleet.fitted_ensemble() if fitted
+           else quad_fleet.make_quad_gp_ensemble())
+    return GPQuadDynamics(ens)
+
+
+@pytest.mark.parametrize("fitted", [False, True], ids=["n32", "fitted_n60"])
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_gp_quad_kernels_match_plain(cuda, B, fitted):
+    """c6's functor: the VDE sweep and both modes of the RK4 map against
+    their plain versions at 3e-5 on the synthetic 32-point ensemble; on the
+    fitted 60-point model, whose float32 rounding alone moves a step by
+    about 1e-4 (``tests/test_torch_gp_quad.py``), against the float64 plain
+    versions, each row of A and Bm and each entry of c and of the RK4 map
+    within 3e-5 plus 4 times the float32 plain versions' spread there, on
+    the inputs and on copies of the inputs and of the GP table moved by an
+    ulp (``testing.f64_anchored``)."""
+    N, dyn = 10, _gp_quad(fitted)
+    xs, us, ps = _quad_traj(B, N, cuda)
+    vde = make_vde(dyn, 0.1, N, 13, 4, 0, device=cuda)
+    rk4 = make_rk4(dyn, 0.1, 13, 4, 0, device=cuda)
+    got = (*vde(xs, us, ps), rk4.defect(xs, us, ps), rk4(xs[:, 0], us[:, 0], ps))
+    assert vde.launches == 1 and rk4.launches == 2
+
+    def plain(dyn, xs, us, ps):
+        return (*vde_plain(dyn, 0.1, 1, xs, us, ps),
+                discrete_step(dyn, 0.1, 1, xs[:, :-1], us, ps[:, None]) - xs[:, 1:],
+                discrete_step(dyn, 0.1, 1, xs[:, 0], us[:, 0], ps))
+
+    args = (xs, us, ps)
+    want = plain(dyn, *args)
+    if fitted:
+        want64 = plain(dyn, *(a.double() for a in args))
+        runs = [want] + [plain(table_perturbed(dyn, s), *perturbed(args, s))
+                         for s in range(SPREAD_RUNS)]
+        for i, (g, w64) in enumerate(zip(got, want64)):
+            err, spread, ratio, ok = f64_anchored(
+                g, [r[i] for r in runs], w64, 3e-5, rows=i < 2)
+            assert ok, (i, err, spread, ratio)
+    else:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=3e-5, rtol=0)
+    if not fitted:  # the RK4 map's defect is the sweep's c
+        torch.testing.assert_close(got[3], got[2], atol=3e-5, rtol=0)
+    assert torch.equal(vde(xs, us, ps)[0], got[0])  # a relaunch repeats its bits
+
+
+def test_c6_ticks_on_card_match_plain(cuda):
+    """Three c6 ticks (the synthetic ensemble) through the kernels agree
+    with the plain path on the CPU, u0 within 1e-3; per tick the sweep and
+    the QP launch twice and the RK4 map twice."""
+    ens = quad_fleet.make_quad_gp_ensemble()
+    runs = {}
+    for dev in ("cpu", cuda):
+        tick, init, solver, _ = quad_fleet.build_quad_fleet(device=dev,
+                                                            ensemble=ens)
+        carry = init(RAGGED_B)
+        for _ in range(3):
+            carry, (kkt, lat) = tick(carry)
+        runs[str(dev)] = (carry[0].cpu(), carry[5].us[:, 0].cpu(), kkt.cpu(),
+                          float(lat), solver)
+    (x_c, u_c, kkt_c, lat_c, _), (x_g, u_g, kkt_g, lat_g, solver) = runs.values()
+    assert fleet.launches(solver) == {
+        k: 3 * n for k, n in quad_fleet.LAUNCHES_PER_TICK.items()}
+    torch.testing.assert_close(u_g, u_c, atol=1e-3, rtol=0)
+    torch.testing.assert_close(x_g, x_c, atol=1e-4, rtol=1e-5)
+    assert abs(lat_g - lat_c) < 1e-4
+    torch.testing.assert_close(kkt_g, kkt_c, rtol=1e-2, atol=1e-6)
 
 
 def test_long_horizon_replay_matches_eager(cuda):

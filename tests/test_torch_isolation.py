@@ -39,11 +39,12 @@ def test_port_imports_no_jax():
     res = _run(["-c", _PROBE], REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 36  # every module of the port was imported
+    assert n_modules >= 38  # every module of the port was imported
     for m in ("models.quadrotor", "experiments.quad_fleet",
               "experiments.quad_kernels", "utils.math", "models.pacejka",
               "models.gp_bicycle", "learned.gp", "learned.ensemble",
-              "learned.lane", "experiments.bicycle_kernels"):
+              "learned.lane", "experiments.bicycle_kernels", "models.gp_quad",
+              "experiments.gp_quad_anchor"):
         assert f"ad_mpc_tpu_torch.{m}" in res.stdout.split()
 
 
