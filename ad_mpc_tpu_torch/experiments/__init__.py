@@ -44,48 +44,7 @@ def tf32(on: bool):
         torch.backends.cuda.matmul.allow_tf32 = old
 
 
-def device_us(evt):
-    """Device microseconds of a ``torch.profiler`` key average."""
-    return getattr(evt, "self_device_time_total",
-                   getattr(evt, "self_cuda_time_total", 0.0))
-
-
 FLUSH_BYTES = 128 * 2**20  # written between calls to evict the H100's 50 MB L2
-PROFILE_TRIES = 3
-
-
-def device_ms(fn, reps, cold=False, kernel=None):
-    """Device time per call of ``fn``: the summed duration of the kernels
-    it launches, by ``torch.profiler``, over ``reps`` calls after one warm
-    call. Unlike CUDA events around back-to-back calls, it leaves out the
-    gaps in which the card waits for the host. ``kernel``: count only the
-    kernels whose name holds it. ``cold``: write ``FLUSH_BYTES`` between
-    calls, so every call finds its inputs out of L2 (the write is not
-    counted; ``kernel`` is then required)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    if cold and not kernel:
-        raise ValueError("a cold time names the kernel it counts")
-    flush = (torch.empty(FLUSH_BYTES // 4, device="cuda") if cold else None)
-    fn()
-    torch.cuda.synchronize()
-    # Now and then the profiler hands back a trace without the card's
-    # activity for a window that launched kernels: such a window is timed
-    # again, up to PROFILE_TRIES times.
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                if cold:
-                    flush.fill_(1.0)
-                fn()
-            torch.cuda.synchronize()
-        us = sum(device_us(e) for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and (kernel is None or kernel in e.key))
-        if us > 0:
-            return us / 1e3 / reps
-    raise RuntimeError("the profiler recorded no device time"
-                       + (f" for {kernel}" if kernel else ""))
 
 
 class DeviceWindow:
@@ -152,21 +111,33 @@ def time_replays(block, x0, *, rounds=5, target_s=0.6, counter=None):
     return Replays(min(ts), max(ts) / min(ts), ref, 2 + rounds * n, captured)
 
 
-def graph_ms(fn, inner=20, rounds=5, target_s=0.3):
+def graph_ms(fn, inner=20, rounds=5, target_s=0.3, cold=False):
     """Device time per call of ``fn`` by CUDA-graph replay: ``inner`` calls
     captured in one graph (:func:`time_replays`), so neither the host's
-    launch rate nor the profiler enters. Warm: inputs that fit the L2 stay
-    there. ``fn`` launches on the current stream and never waits for the
-    card."""
+    launch rate nor a profiler enters. Warm: inputs that fit the L2 stay
+    there. ``cold``: ``FLUSH_BYTES`` written before each call in the graph,
+    so every call finds its inputs out of L2; a graph of the writes alone is
+    replayed too and its time subtracted. ``fn`` launches on the current
+    stream and never waits for the card."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda") if cold else None
 
-    def block(x):
-        for _ in range(inner):
-            fn()
-        return x
+    def timed(body):
+        def block(x):
+            for _ in range(inner):
+                body()
+            return x
 
-    t = time_replays(block, torch.zeros(1, device="cuda"), rounds=rounds,
-                     target_s=target_s)
-    return 1e3 * t.s / inner
+        return time_replays(block, torch.zeros(1, device="cuda"), rounds=rounds,
+                            target_s=target_s).s
+
+    if not cold:
+        return 1e3 * timed(fn) / inner
+
+    def flushed():
+        flush.fill_(1.0)
+        fn()
+
+    return 1e3 * (timed(flushed) - timed(lambda: flush.fill_(1.0))) / inner
 
 
 def tick_qp_inputs(tick, init, solver, batch, ticks=3):

@@ -10,7 +10,7 @@ tangents in one pass, 5 + 4 or 3 x 3) and ``..._ROW_WARPS`` (warps per
 block, each with an 8,960 B output tile) for both functors. For each
 functor and variant: registers and spills of its VDE and RK4 instantiations from
 ``ptxas``, device times of the sweep and of the RK4 map's defect by
-``torch.profiler`` (50 launches), the largest errors against ``vde_plain``
+CUDA-graph replay (``experiments.graph_ms``), the largest errors against ``vde_plain``
 and ``discrete_step`` (held at 2e-5), and whether the sweep's bits are the
 first variant's. The inputs are the smoke's
 (``testing.pacejka_inputs``, ``testing.gp_bicycle_inputs``).
@@ -24,7 +24,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from ad_mpc_tpu_torch.experiments import card, device_ms, require_cuda, tf32
+from ad_mpc_tpu_torch.experiments import card, graph_ms, require_cuda, tf32
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde, vde_plain
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
@@ -70,9 +70,8 @@ def variants(B=16384, N=30, dt=0.05, variants=VARIANTS):
                 "rk4_max_abs_err": float((defect() - want_c).abs().max()),
                 "bits_as_default": all(torch.equal(g, f)
                                        for g, f in zip(got, first)),
-                "ms": device_ms(lambda: vde(xs, us, ps), 50,
-                                kernel="vde_kernel"),
-                "rk4_defect_ms": device_ms(defect, 50, kernel="rk4_kernel"),
+                "ms": graph_ms(lambda: vde(xs, us, ps)),
+                "rk4_defect_ms": graph_ms(defect),
             }
         out[key] = rows
     return out

@@ -1,8 +1,9 @@
 """Bits and device times of the c2 kernels (the bicycle VDE sweep and the
 7x2 LQ kernel), bits of the c5 kernels (the quad VDE sweep, the quad RK4
 map and the 13x4 LQ kernel) and of the c3 and c4 functors (the GP-bicycle's
-and the Pacejka's VDE sweep and RK4 map), of whichever ``ad_mpc_tpu_torch``
-is imported, so that two trees can be compared on one card in one call:
+and the Pacejka's VDE sweep and RK4 map), and device times of the 13x4 LQ
+kernel, of whichever ``ad_mpc_tpu_torch`` is imported, so that two trees
+can be compared on one card in one call:
 
     python ad_mpc_tpu_torch/experiments/c2_kernels.py [--out PATH]
     PYTHONPATH=<other tree> python ad_mpc_tpu_torch/experiments/c2_kernels.py
@@ -15,9 +16,11 @@ Pacejka). Prints one JSON line: the package's path; the sha256 digests of
 the kernels' outputs on the fixed draws of
 ``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits``,
 ``test_c5_kernels_keep_their_bits`` and ``test_c3_c4_kernels_keep_their_bits``;
-device ms by
-``torch.profiler`` at c2's B=16384 (the sweep on ``random_traj``, N=30,
-over 50 launches; the LQ kernel on the third c2 tick's QPs over 10).
+device ms by CUDA-graph replay (:func:`replay_ms`, written here with torch
+alone so that it times an older tree too) at c2's B=16384 (the sweep on
+``random_traj``, N=30; the 7x2 LQ kernel on the third c2 tick's QPs) and
+of the 13x4 LQ kernel on the QPs of the third c5 tick at B=16384 and
+B=1024, warm and cold (:func:`c5_lq_ms`).
 """
 
 from __future__ import annotations
@@ -91,18 +94,65 @@ def c3_c4_bits(dev):
     return out
 
 
-def profiled_ms(fn, reps, kernel):
-    from torch.profiler import ProfilerActivity, profile
+FLUSH_BYTES = 128 * 2**20  # written before each call when cold (the L2 is 50 MB)
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+
+def replay_ms(fn, inner=10, cold=False, rounds=5):
+    """Device ms per call of ``fn``: ``inner`` calls captured in one CUDA
+    graph after a warm-up on a side stream, the least of ``rounds`` replays
+    timed by CUDA events. ``cold``: ``FLUSH_BYTES`` written before each
+    call in the graph, and a graph of the writes alone subtracted."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda") if cold else None
+
+    def per_replay(body):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        graph.replay()
         torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total", 0.0) for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key)
-    return us / 1e3 / reps
+        times = []
+        for _ in range(rounds):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return min(times)
+
+    def calls(with_fn):
+        def body():
+            for _ in range(inner):
+                if cold:
+                    flush.fill_(1.0)
+                if with_fn:
+                    fn()
+        return body
+
+    t = per_replay(calls(True))
+    if cold:
+        t -= per_replay(calls(False))
+    return t / inner
+
+
+def c5_lq_ms(dev):
+    """The 13x4 LQ kernel on the QPs of the last QP of the third c5 tick at
+    B=16384 and B=1024: ms warm and cold by graph replay."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet, tick_qp_inputs
+
+    out = {}
+    for B in (16384, 1024):
+        tick, init, solver, _ = quad_fleet.build_quad_fleet(device=dev)
+        args = tick_qp_inputs(tick, init, solver, B)
+        run = lambda: solver.qp(*args)
+        out[str(B)] = {"ms": replay_ms(run, 5), "cold_ms": replay_ms(run, 5, cold=True)}
+    return out
 
 
 def main(argv=None):
@@ -133,7 +183,7 @@ def main(argv=None):
     xs, us = (torch.as_tensor(a, device=dev)
               for a in random_traj(np.random.default_rng(3), B, 30, 7, 2))
     ps = torch.ones((B, 1), device=dev)
-    res["vde_ms"] = profiled_ms(lambda: vde(xs, us, ps), 50, "vde_kernel")
+    res["vde_ms"] = replay_ms(lambda: vde(xs, us, ps), 20)
     tick, init, solver, _ = fleet.build_fleet(bicycle, fleet.switch_on,
                                               device=dev)
     captured = []
@@ -142,8 +192,8 @@ def main(argv=None):
     for _ in range(3):
         carry, _ = tick(carry)
     hook.remove()
-    res["lq_ipm_ms"] = profiled_ms(lambda: solver.qp(*captured[-1]), 10,
-                                   "lq_ipm_kernel")
+    res["lq_ipm_ms"] = replay_ms(lambda: solver.qp(*captured[-1]), 5)
+    res["lq_ipm_13x4_c5_tick"] = c5_lq_ms(dev)
     res["device"] = torch.cuda.get_device_name(0)
     line = json.dumps(res)
     print(line)

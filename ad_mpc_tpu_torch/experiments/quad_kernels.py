@@ -7,9 +7,9 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
    variant of its traits, ``-DQUAD_TANGENTS_PER_PASS`` (the 17 tangents per
    pass) and ``-DQUAD_ROW_WARPS`` (warps per block, each with a 29,952 B
    output tile), all ``nvcc`` started together: registers and spills from
-   ``ptxas``, device time by ``torch.profiler`` over 50 launches, the
-   largest error against ``vde_plain`` (held at 3e-5) and whether its bits
-   are the default build's.
+   ``ptxas``, device time by CUDA-graph replay (``experiments.graph_ms``),
+   the largest error against ``vde_plain`` (held at 3e-5) and whether its
+   bits are the default build's.
 2. The same for the GP-quad functor of c6 (``GPQuadDyn``), on the
    synthetic 32-point ensemble and the fitted 60-point one:
    ``-DGP_QUAD_TANGENTS_PER_PASS`` and ``-DGP_QUAD_ROW_WARPS`` (the first
@@ -17,12 +17,13 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
    the later passes at every width). Each variant is held to ``vde_plain``
    (3e-5 on the synthetic ensemble; on the fitted one its distance is
    printed).
-3. The 13x4 LQ kernel (``csrc/lq_ipm.cu``) on the QPs of the third c5 tick
-   at B=16384, for every number of scenarios per block that fits: resident
-   blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), device
-   time over 10 launches, and whether its bits are those of the geometry
-   ``lq_geometry`` picks (a scenario's arithmetic does not depend on its
-   block).
+3. The 13x4 LQ kernel (``csrc/lq_ipm_wide.cuh``) on the QPs of the third
+   c5 tick at B=16384, for every number of scenarios per block that fits:
+   resident blocks and scenarios per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared bytes per
+   scenario, device time by graph replay, and whether its bits are those of
+   the geometry ``lq_geometry`` picks (a scenario's arithmetic does not
+   depend on its block).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ad_mpc_tpu_torch.experiments import (
-    card, device_ms, quad_fleet, require_cuda, tf32, tick_qp_inputs)
+    card, graph_ms, quad_fleet, require_cuda, tf32, tick_qp_inputs)
 from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ops import _build
@@ -87,7 +88,7 @@ def vde_variants(B=16384, N=10, dt=0.1, variants=VDE_VARIANTS, gp=False):
                                    for g, w in zip(got, want)),
                 "bits_as_default": all(torch.equal(g, f)
                                        for g, f in zip(got, first)),
-                "ms": device_ms(lambda: vde(xs, us, ps), 50, kernel="vde_kernel"),
+                "ms": graph_ms(lambda: vde(xs, us, ps)),
             }
     return rows
 
@@ -96,7 +97,7 @@ def lq_teams(B=16384):
     tick, init, solver, _ = quad_fleet.build_quad_fleet(device="cuda")
     args = tick_qp_inputs(tick, init, solver, B)
     qp = solver.qp
-    default = qp.geometry.teams
+    default = qp.geometry_for(B).teams
     ref = qp(*args)
     rows = {}
     for s in range(1, MAX_TEAMS + 1):
@@ -106,11 +107,12 @@ def lq_teams(B=16384):
         except ValueError:
             continue
         got = qp(*args)
-        rows[s] = {"threads": geo.threads, "block_bytes": geo.block_bytes,
-                   "blocks_per_sm": qp.occupancy(),
-                   "bits_as_default": all(torch.equal(g, r) for g, r in zip(got, ref)),
-                   "ms": device_ms(lambda: qp(*args), 10, kernel="lq_ipm_kernel")}
-        rows[s]["scenarios_per_sm"] = s * rows[s]["blocks_per_sm"]
+        row = rows[s] = {
+            "threads": geo.threads, "block_bytes": geo.block_bytes,
+            "scenario_bytes": 4 * geo.pitch, "blocks_per_sm": qp.occupancy(),
+            "bits_as_default": all(torch.equal(g, r) for g, r in zip(got, ref)),
+            "ms": graph_ms(lambda: qp(*args), inner=5)}
+        row["scenarios_per_sm"] = s * row["blocks_per_sm"]
     qp.teams = None
     return {"default_teams": default, "rows": rows}
 

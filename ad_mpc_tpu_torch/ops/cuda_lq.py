@@ -2,12 +2,14 @@
 
 Replaces ``ad_mpc_tpu/ops/pallas_lq.py:_lq_kernel_rolled`` and its
 stage-unrolled twin ``_lq_kernel`` (built by ``make_lq_solver``; the
-Pallas wrapper takes it for N < 16, as at the quad's N=10). The kernel is
-``csrc/lq_ipm.cu``, instantiated for the shapes in :data:`SHAPES`: a team
-of :func:`team_lanes` lanes runs one scenario's IPM (8 at nx=7, 16 at
-nx=13), S teams to a block, with the whole iterate in shared memory.
-:func:`lq_geometry` picks S and the shared bytes per scenario here, so that
-the CPU tests reach it; the kernel checks them against its own layout.
+Pallas wrapper takes it for N < 16, as at the quad's N=10). The kernels
+are ``csrc/lq_ipm.cu`` (7x2: a team of 8 lanes per scenario, lane i on
+row i) and ``csrc/lq_ipm_wide.cuh`` (13x4: a team of 16 lanes per
+scenario, each on a 4x4 tile of the stage's 16x16 products), one for each
+shape in :data:`SHAPES`, S teams to a block, with the whole iterate in
+shared memory. :func:`lq_geometry` picks S and the shared bytes per
+scenario here, so that the CPU tests reach it; the kernel checks them
+against its own layout.
 
 Pallas baked the bounds into the trace as Python constants; here they are a
 by-value list of the active (finite) cone entries, and buffers of the module
@@ -30,12 +32,14 @@ from ad_mpc_tpu_torch.ops.qp_ipm import BoundSpec, solve_lq_ocp
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 
 MAX_CONES = 32  # LQ_MAX_CONES in csrc/lq_ipm.cu
-SHAPES = ((7, 2), (13, 4))  # (nx, nu) of the kernel's instantiations
-MAX_TEAMS = 8  # scenarios per block at most (LQ_MAX_TEAMS)
+SHAPES = ((7, 2), (13, 4))  # (nx, nu) of the kernels
+MAX_TEAMS = 8  # scenarios per block at most (LQ_MAX_TEAMS, lq_wide::MAX_TEAMS)
+WIDE = 16  # padded row width and team lanes of the 13x4 kernel (lq_wide::W)
 SMEM_BLOCK_MAX = 232448  # bytes of shared memory an H100 block may use
 SMEM_SM = 233472  # bytes of shared memory on one H100 SM
 SMEM_BLOCK_RESERVED = 1024  # bytes the system keeps for each resident block
 MAX_BLOCKS_SM = 32  # resident blocks on one SM at most
+SMS = 132  # streaming multiprocessors of an H100 SXM
 
 
 def _align4(n):
@@ -43,31 +47,45 @@ def _align4(n):
 
 
 def team_lanes(nx):
-    """Lanes of the team that runs one scenario, one per state row
-    (``lq_team`` in csrc/lq_ipm.cu): 8, 4 teams to a warp, up to nx=8, and
-    16, 2 teams to a warp, above."""
-    return 8 if nx <= 8 else 16
+    """Lanes of the team that runs one scenario (``lq_team`` in
+    csrc/lq_ipm.cu): 8, one per state row, 4 teams to a warp, up to nx=8;
+    16, one per 4x4 tile of a 16x16 product, 2 teams to a warp, above."""
+    return 8 if nx <= 8 else WIDE
 
 
 def header_floats(nx, nu):
-    """Shared floats of a block's header: Q, QN, R and the cone list."""
-    return (2 * nx * nx + nu * nu + 7 * MAX_CONES + 31) & ~31
+    """Shared floats of a block's header: Q, QN (at 13x4 padded to 16x16),
+    R and the cone list."""
+    w = WIDE if nx > 8 else nx
+    return (2 * w * w + nu * nu + 7 * MAX_CONES + 31) & ~31
 
 
 def scenario_floats(N, nx, nu, nc):
-    """Shared floats of one scenario (``Layout`` in csrc/lq_ipm.cu, which
-    rejects a smaller pitch): the iterate and the Newton step, the gains K
-    and kf of every stage, the cone variables and the references under the
-    cones, two stage buffers, the team's tile and a ring of a team's width
-    of stages' cone weights and gradients, padded to the team's width mod
-    32 floats so that the teams of a warp start on different banks."""
+    """Shared floats of one scenario (``Layout`` in csrc/lq_ipm.cu and
+    ``lq_wide::Layout`` in csrc/lq_ipm_wide.cuh, which reject a smaller
+    pitch): the iterate and the Newton step, the gains K and kf of every
+    stage, the cone variables and the references under the cones, two stage
+    buffers, the team's tiles and a ring of 8 or 16 stages' cone weights
+    and gradients, padded to the team's width mod 32 floats so that the
+    teams of a warp start on different banks. At 13x4 the state rows, A's
+    rows and the tiles are 16 wide, and q and r stay resident."""
     team = team_lanes(nx)
+    ring = 2 * team * max(nc, 1)
+    if nx > 8:
+        W = WIDE
+        nst = _align4(W * (N + 1) + nu * N)
+        tiles = 2 * W * W + 2 * nu * W + nu * nu + 2 * W + _align4(nu)
+        stage = nx * W + nx * nu
+        raw = (2 * nst + N * nu * W + _align4(4 * nc * N) + _align4(nc * N)
+               + _align4(nx * (N + 1) + nu * N) + ring + tiles
+               + 2 * stage)
+        return raw + (team - raw) % 32
     nst = _align4((N + 1) * nx + N * nu)
     gain = _align4(nu * nx + nu)
     stage = _align4(nx * nx) + _align4(nx * nu) + 2 * _align4(nx) + _align4(nu)
     tile = _align4(nx * nx) + _align4(nx * nu) + _align4(nx)
     raw = (2 * nst + N * gain + _align4(4 * nc * N) + _align4(nc * N)
-           + 2 * stage + tile + 2 * team * max(nc, 1))
+           + 2 * stage + tile + ring)
     return raw + (team - raw) % 32
 
 
@@ -81,15 +99,18 @@ class Geometry(NamedTuple):
         return -(-batch // self.teams)
 
 
-def lq_geometry(N, nx, nu, nc, teams=None):
+def lq_geometry(N, nx, nu, nc, teams=None, batch=None):
     """The launch geometry: the number of scenarios per block, at most
-    ``MAX_TEAMS``, that keeps the most scenarios resident on an SM by
-    shared memory (the kernel is latency-bound, so these set its rate), the
-    larger on a tie; or ``teams`` scenarios per block when given. Teams of
-    16 lanes fill whole warps: with an odd number of them a block's last
-    warp issues for one team at full cost (at c5, 4 teams per block ran
-    faster than 7, though 7 keep one scenario more resident; PERF.md,
-    ``experiments/quad_kernels.py``)."""
+    ``MAX_TEAMS``, that keeps the most scenarios resident on an SM by shared
+    memory (these set the kernel's rate), the larger on a tie; or ``teams``
+    scenarios per block when given. Teams of 16 lanes (13x4) fill whole
+    warps: with an odd number of them a block's last warp issues for one
+    team at full cost. At 13x4, given the ``batch``, the number with the
+    least time by a model in which an SM works through the scenarios dealt
+    to it (blocks dealt round-robin to ``SMS`` SMs) at a rate that grows
+    with the scenarios it holds at once, then the fewest scenarios on the
+    busiest SM, then the larger (PERF.md, ``experiments/quad_kernels.py``:
+    blocks of more than 8 scenarios, one to an SM, ran slower)."""
     team = team_lanes(nx)
     pitch = scenario_floats(N, nx, nu, nc)
     nbytes = lambda s: 4 * (header_floats(nx, nu) + s * pitch)
@@ -103,6 +124,13 @@ def lq_geometry(N, nx, nu, nc, teams=None):
     if teams is None:
         whole = [s for s in fits if team * s % 32 == 0] if team == 16 else []
         teams = max(whole or fits, key=lambda s: (resident(s), s))
+        if batch and whole:
+            def cost(s):
+                blocks = -(-batch // s)
+                load = s * -(-blocks // SMS)  # scenarios on the busiest SM
+                return load / min(resident(s), load), load, -s
+
+            teams = min(whole, key=cost)
     return Geometry(teams, team * teams, pitch, nbytes(teams))
 
 
@@ -118,6 +146,10 @@ class _LqBounds(ctypes.Structure):
 
 
 def _lib():
+    """The loaded kernels, typed; at first load each kernel is allowed a
+    block's whole shared memory on the current device (``lq_ipm_prepare``),
+    so that no launch sets an attribute and a launch may be captured in a
+    CUDA graph."""
     lib = _build.load("lq_ipm")
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -125,8 +157,15 @@ def _lib():
         lib.lq_ipm.restype = I
         lib.lq_ipm_occupancy.argtypes = [I] * 6
         lib.lq_ipm_occupancy.restype = I
+        lib.lq_ipm_scenario_floats.argtypes = [I] * 4
+        lib.lq_ipm_scenario_floats.restype = I
+        lib.lq_ipm_prepare.argtypes = []
+        lib.lq_ipm_prepare.restype = I
         lib.error_string.argtypes = [I]
         lib.error_string.restype = ctypes.c_char_p
+        err = lib.lq_ipm_prepare()
+        if err:
+            raise RuntimeError(f"lq_ipm_prepare: {lib.error_string(err).decode()}")
         lib._typed = True
     return lib
 
@@ -210,13 +249,19 @@ class LQSolver(nn.Module):
 
     @property
     def geometry(self):
-        """The kernel's launch geometry (:func:`lq_geometry`)."""
-        return lq_geometry(self.N, self.nx, self.nu, self._bounds.n, self.teams)
+        """The kernel's launch geometry with no batch given
+        (:func:`lq_geometry`)."""
+        return self.geometry_for(None)
 
-    def occupancy(self):
-        """Blocks of :attr:`geometry` resident on one SM of the card, by
-        ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
-        lib, geo = _lib(), self.geometry
+    def geometry_for(self, batch):
+        """The launch geometry of a batch of ``batch`` scenarios."""
+        return lq_geometry(self.N, self.nx, self.nu, self._bounds.n, self.teams,
+                           batch)
+
+    def occupancy(self, batch=None):
+        """Blocks of the geometry of ``batch`` resident on one SM of the
+        card, by ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+        lib, geo = _lib(), self.geometry_for(batch)
         n = lib.lq_ipm_occupancy(self.N, self.nx, self.nu, self._bounds.n,
                                  geo.teams, geo.pitch)
         if n < 0:
@@ -248,7 +293,8 @@ class LQSolver(nn.Module):
         if self.Q.device != A.device:
             raise ValueError(f"LQSolver weights on {self.Q.device}, "
                              f"inputs on {A.device}")
-        lib, geo, dev = _lib(), self.geometry, A.device
+        geo, dev = self.geometry_for(B), A.device  # refuses a horizon that does not fit
+        lib = _lib()
         dx = torch.empty((B, N + 1, nx), dtype=torch.float32, device=dev)
         du = torch.empty((B, N, nu), dtype=torch.float32, device=dev)
         alpha = torch.empty((B,), dtype=torch.float32, device=dev)

@@ -12,7 +12,7 @@ iterations) or the c6 GP-quad tick (the same with the bench's synthetic
 32-point ensemble, ``quad_fleet.make_quad_gp_ensemble``). For each batch
 size: 5 warm-up ticks, then ``--ticks`` ticks under ``torch.profiler``
 (CPU and CUDA activities). Prints the device time per tick of each kernel
-(the port's two kernels and PyTorch's own), the tick's wall time after a
+(the port's three kernels and PyTorch's own), the tick's wall time after a
 ``synchronize``, and the device's busy share of that window: summed kernel
 time over wall time (one stream, so kernels do not overlap).
 """
@@ -27,7 +27,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ad_mpc_tpu_torch import fleet
-from ad_mpc_tpu_torch.experiments import device_us, quad_fleet
+from ad_mpc_tpu_torch.experiments import quad_fleet
+
+
+def device_us(evt):
+    """Device microseconds of a ``torch.profiler`` key average."""
+    return getattr(evt, "self_device_time_total",
+                   getattr(evt, "self_cuda_time_total", 0.0))
+
 
 def _c4():
     dyn, p_of, v_cap = fleet.make_pacejka()

@@ -10,13 +10,14 @@ Phases, each of which must pass:
    (B=16384, N=30) with the bicycle at switch 1 and 0.3, held against its
    plain PyTorch version on the card at atol 2e-5; its device time by
    CUDA-graph replay of 20 launches (``experiments.graph_ms``, the row's
-   ``ms``), beside ``torch.profiler``'s and the CUDA events' around
-   back-to-back launches; then kernel phase RK4:
-   both modes of the sweep's tangent-free RK4 entry (the KKT defect over
-   B=16384, N=30, and the plant step over 16384 vehicles with u a strided
-   view) held against ``integrators.discrete_step`` at atol 2e-5, at
-   switch 1 and 0.3, with their device times warm and cold (128 MB
-   written between launches, so the bytes come from HBM, not the L2);
+   ``ms``), beside the CUDA events' around back-to-back launches; then
+   kernel phase RK4: both modes of the sweep's tangent-free RK4 entry (the
+   KKT defect over B=16384, N=30, and the plant step over 16384 vehicles
+   with u a strided view) held against ``integrators.discrete_step`` at
+   atol 2e-5, at switch 1 and 0.3. Every kernel time is taken by graph
+   replay, warm and cold (cold: 128 MB written before each launch in the
+   graph, so the bytes come from HBM, not the L2, and the writes' own
+   replay time subtracted);
 3. kernel phase LQ: the fused interior-point QP kernel on the QPs of the
    third c2 tick at B=16384 and at B=1024 (N=30, 12 iterations), held
    against the plain batched IPM at atol 3e-4 / rtol 1e-3 on dx and du in
@@ -46,7 +47,9 @@ Phases, each of which must pass:
    kernel phase RK4 quad (both modes against ``discrete_step`` at 3e-5,
    warm and cold), kernel phase LQ 13x4 (``lq_case`` on the QPs of the
    third c5 tick at B=16384, strict, and B=1024, and on random unit-box
-   problems at B=16384, 18 iterations), then the c5 fleet
+   problems at B=16384, 18 iterations; the two tick cases timed warm and
+   cold, with the kernel's registers and spills, threads and shared bytes
+   per scenario and resident scenarios per SM), then the c5 fleet
    (``experiments.quad_fleet``) at B=256, 1024, 4096 and 16384, 20 warm-up
    and 20 timed ticks, with ``quad_fleet.LAUNCHES_PER_TICK`` (two
    Gauss-Newton iterations: the sweep and the QP twice, the RK4 map
@@ -71,7 +74,7 @@ Phases, each of which must pass:
    fp32 ``torch.bmm`` at 1e-5 of max |out|, a relaunch repeating its
    bits; its launch geometry (blocks, threads and shared bytes per block,
    resident blocks per SM); its device time warm and cold and that of the
-   bmm chain (``library_ms``) by ``torch.profiler``;
+   bmm chain (``library_ms``);
 7. MXU micro and macro (``experiments.mxu_riccati``, each arm timed by
    CUDA-graph replay): every output finite, the lane arm's output after
    50 renormalised applications no further from its float64 counterpart
@@ -335,14 +338,14 @@ def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None,
     """The VDE kernel against ``vde_plain`` at ``atol`` for each case of
     ``cases`` ({name: (dynamics, ps)}), the cases named in ``anchor`` by
     :func:`anchored` instead; device time by CUDA-graph replay
-    (``experiments.graph_ms``, the row's ``ms``), beside the profiler's
-    (``profiler_ms``) and the CUDA events' around back-to-back launches
-    (``events_ms``), and by the profiler with the inputs out of L2
-    (``cold_ms``); registers and spills of the first case's functor.
+    (``experiments.graph_ms``, the row's ``ms``), beside the CUDA events'
+    around back-to-back launches (``events_ms``), and by graph replay with
+    the inputs out of L2 (``cold_ms``); registers and spills of the first
+    case's functor.
     Returns the kernels-line numbers (times of the first case). The bound
     counts ``flops_per_stage``, by default :func:`sweep_flops_per_stage` of
     the first case."""
-    from ad_mpc_tpu_torch.experiments import device_ms, graph_ms
+    from ad_mpc_tpu_torch.experiments import graph_ms
     from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
 
@@ -367,17 +370,15 @@ def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None,
         row = rows[name] = extra | {
             "max_abs_err": err,
             "ms": graph_ms(lambda: vde(xs, us, ps)),
-            "profiler_ms": device_ms(lambda: vde(xs, us, ps), 50),
             "events_ms": time_ms(torch, lambda: vde(xs, us, ps), 50),
             "plain_ms": time_ms(
                 torch, lambda: vde_plain(dyn, dt, 1, xs, us, ps), 3),
         }
         if len(rows) == 1:
-            row["cold_ms"] = device_ms(lambda: vde(xs, us, ps), 20, cold=True,
-                                       kernel="vde_kernel")
+            row["cold_ms"] = graph_ms(lambda: vde(xs, us, ps), cold=True)
         print(f"{key} {name}: max|err| {err:.3e}, kernel {row['ms']:.5f} ms "
-              f"by graph replay ({row['profiler_ms']:.5f} ms by the profiler, "
-              f"{row['events_ms']:.5f} ms by events, back to back), "
+              f"by graph replay ({row['events_ms']:.5f} ms by events, back "
+              f"to back), "
               f"plain {row['plain_ms']:.3f} ms, launches (comparison "
               f"instance) {vde.launches}")
     dyn, ps = next(iter(cases.values()))
@@ -482,7 +483,7 @@ def rk4_case(torch, out, key, cases, dt, xs, us, atol, flops_per_row=None,
     spills of the first case's functor. The bound counts
     ``flops_per_row``, by default the first case's operations as
     :func:`sweep_flops_per_stage` counts them."""
-    from ad_mpc_tpu_torch.experiments import device_ms
+    from ad_mpc_tpu_torch.experiments import graph_ms
     from ad_mpc_tpu_torch.experiments.opcount import dyn_counts, rk4_flops
     from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
@@ -515,11 +516,10 @@ def rk4_case(torch, out, key, cases, dt, xs, us, atol, flops_per_row=None,
                 check(ok, f"{key} {mode} disagrees with discrete_step at {name}: "
                       f"max |err| {err:.3e} > {atol}")
             rows[mode, name] = extra | {
-                "max_abs_err": err, "ms": device_ms(kernel, 50),
+                "max_abs_err": err, "ms": graph_ms(kernel),
                 "plain_ms": time_ms(torch, plain, 5)}
             if name == first:
-                rows[mode, name]["cold_ms"] = device_ms(
-                    kernel, 50, cold=True, kernel="rk4_kernel")
+                rows[mode, name]["cold_ms"] = graph_ms(kernel, cold=True)
     dyn, ps = cases[first]
     pd = ps.shape[-1]
     res = _build.functor_resources("vde", "rk4_kernel", dyn.cuda_functor)
@@ -535,7 +535,7 @@ def rk4_case(torch, out, key, cases, dt, xs, us, atol, flops_per_row=None,
         r = rows[mode, first]
         err = max(rows[mode, n]["max_abs_err"] for n in cases)
         print(f"{key} {mode}: max|err| {err:.3e}, kernel {r['ms']:.5f} ms "
-              f"device warm, {r['cold_ms']:.5f} ms cold ({100 * bms / r['cold_ms']:.0f}% "
+              f"warm by graph replay, {r['cold_ms']:.5f} ms cold ({100 * bms / r['cold_ms']:.0f}% "
               f"of the bound), plain {r['plain_ms']:.3f} ms, bound {bms:.5f} ms "
               f"({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.3f} GFLOP)")
     print(f"{key}: rk4_kernel<{dyn.cuda_functor}> {res['registers']} registers, "
@@ -642,12 +642,24 @@ def quad_tick_qps(batch):
     return solver.qp, tick_qp_inputs(tick, init, solver, batch)
 
 
+def lq_resources(nx):
+    """Registers and spills of the LQ kernel of shape nx (7x2 or 13x4) from
+    the ``-Xptxas -v`` report of ``csrc/lq_ipm.cu``."""
+    from ad_mpc_tpu_torch.ops import _build
+
+    tag = "lq_ipm_kernelILi7ELi2E" if nx == 7 else "lq_wide18lq_ipm_wide_kernel"
+    found = [r for e, r in _build.ptxas_resources("lq_ipm").items() if tag in e]
+    check(len(found) == 1, f"{len(found)} ptxas entries of the {nx}-state LQ kernel")
+    return found[0]
+
+
 def lq_cases(torch, out, key, cases, cold=()):
     """``lq_case`` on each of ``cases`` ({name: (solver, inputs, strict)}),
-    with its launch geometry, its time against its bound and, for the
-    names in ``cold``, its time with the inputs out of L2. Returns the
-    rows."""
-    from ad_mpc_tpu_torch.experiments import device_ms
+    with its launch geometry, its time against its bound by CUDA-graph
+    replay and, for the names in ``cold``, its time with the inputs out of
+    L2; the kernel's registers and spills. Returns the rows."""
+    from ad_mpc_tpu_torch.experiments import graph_ms
+    from ad_mpc_tpu_torch.ops.cuda_lq import team_lanes
     from ad_mpc_tpu_torch.testing import SPREAD_FACTOR, lq_case
 
     rows = {}
@@ -660,28 +672,30 @@ def lq_cases(torch, out, key, cases, cold=()):
                        + B * ((N + 1) * nx + N * nu + 1))
         n_flops = B * N * qp.iters * lq_flops_per_stage_iter(nx, nu)
         bms, by = bound_ms(n_bytes, n_flops)
-        geo = qp.geometry
+        geo = qp.geometry_for(B)
+        per_sm = qp.occupancy(B)
         row |= {"N": N, "nx": nx, "nu": nu,
-                "ms": time_ms(torch, lambda: qp(*args), 10),
+                "ms": graph_ms(lambda: qp(*args), inner=5),
+                "events_ms": time_ms(torch, lambda: qp(*args), 10),
                 "plain_ms": time_ms(torch, plain, 2), "bytes": n_bytes,
                 "flops": n_flops, "bound_ms": bms, "bound_by": by,
                 "geometry": geo._asdict() | {"blocks": geo.blocks(B)},
-                "blocks_per_sm": qp.occupancy()}
+                "threads_per_scenario": team_lanes(nx),
+                "shared_bytes_per_scenario": 4 * geo.pitch,
+                "blocks_per_sm": per_sm, "scenarios_per_sm": per_sm * geo.teams,
+                } | lq_resources(nx)
         if name in cold:
-            row["device_ms"] = device_ms(lambda: qp(*args), 20,
-                                         kernel="lq_ipm_kernel")
-            row["cold_ms"] = device_ms(lambda: qp(*args), 20, cold=True,
-                                       kernel="lq_ipm_kernel")
+            row["cold_ms"] = graph_ms(lambda: qp(*args), inner=5, cold=True)
         rows[name] = row
         print(f"LQ {name} geometry: {geo.teams} scenarios and {geo.threads} "
-              f"threads per block, {geo.block_bytes} shared bytes per block "
-              f"({4 * geo.pitch} per scenario), {geo.blocks(B)} blocks, "
-              f"{row['blocks_per_sm']} resident per SM "
-              f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
-        cold_txt = (f" (device {row['device_ms']:.4f} ms warm, "
-                    f"{row['cold_ms']:.4f} ms cold: "
-                    f"{100 * bms / row['cold_ms']:.0f}% of the bound)"
-                    if "cold_ms" in row else "")
+              f"threads per block ({team_lanes(nx)} per scenario), "
+              f"{geo.block_bytes} shared bytes per block ({4 * geo.pitch} per "
+              f"scenario), {geo.blocks(B)} blocks, {per_sm} resident per SM "
+              f"({row['scenarios_per_sm']} scenarios; "
+              f"cudaOccupancyMaxActiveBlocksPerMultiprocessor); "
+              f"{row['registers']} registers, {row['spill_stores']} B spill "
+              f"stores, {row['spill_loads']} B spill loads")
+        cold_txt = (f", {row['cold_ms']:.4f} ms cold" if "cold_ms" in row else "")
         print(f"LQ {name} B={B} N={N} {nx}x{nu}: {row['agree']}/{B} scenarios "
               f"agree (max|err| {row['max_abs_err']:.3e}); outside tolerance of the "
               f"float64 solution: kernel {row['kernel_misses_f64']}, plain "
@@ -689,8 +703,10 @@ def lq_cases(torch, out, key, cases, cold=()):
               f"{SPREAD_FACTOR}; plain on the CPU {row['control_factor']:.3f}); "
               f"fixed-tolerance misses {row['fixed_tol_misses']} (plain on the "
               f"CPU {row['control_fixed_tol_misses']}); "
-              f"deterministic {row['deterministic']}; kernel {row['ms']:.4f} ms"
-              f"{cold_txt}, plain {row['plain_ms']:.3f} ms, bound {bms:.4f} ms "
+              f"deterministic {row['deterministic']}; kernel {row['ms']:.4f} ms "
+              f"warm by graph replay{cold_txt} ({row['events_ms']:.4f} ms by "
+              f"events, back to back; {100 * bms / row.get('cold_ms', row['ms']):.1f}%"
+              f" of the bound), plain {row['plain_ms']:.3f} ms, bound {bms:.4f} ms "
               f"({by}: {n_bytes / 1e6:.1f} MB, {n_flops / 1e9:.2f} GFLOP)")
     out[key] = rows
     return rows
@@ -720,8 +736,10 @@ def phase_lq(torch, np, out):
                                            *BOUNDS["unit"](7, 2), iters=12),
                             rand(1000, 10), False),
     }
-    # Row 3's case (the stage-unrolled twin's N=10) fits L2: time it cold.
-    return lq_cases(torch, out, "lq", cases, cold=("random_N10_unit",))["c2_tick"]
+    # The main path's case and row 3's 7x2 case (the stage-unrolled twin's
+    # N=10), which fits L2, are timed cold too.
+    return lq_cases(torch, out, "lq", cases,
+                    cold=("c2_tick", "random_N10_unit"))["c2_tick"]
 
 
 def phase_lq_quad(torch, np, out):
@@ -740,7 +758,8 @@ def phase_lq_quad(torch, np, out):
                                                 *BOUNDS["unit"](13, 4), iters=18),
                                  rand, False),
     }
-    return lq_cases(torch, out, "lq_13x4", cases)["c5_tick"]
+    return lq_cases(torch, out, "lq_13x4", cases,
+                    cold=("c5_tick", "c5_tick_B1024"))["c5_tick"]
 
 
 def fleet_ladder(config, build, batches, warmup, ticks, gates, per_tick, card):
@@ -860,7 +879,7 @@ def phase_c6(torch, out, card):
 
 
 def phase_lane_chain(torch, out):
-    from ad_mpc_tpu_torch.experiments import device_ms
+    from ad_mpc_tpu_torch.experiments import graph_ms
     from ad_mpc_tpu_torch.experiments.mxu_riccati import bmm_chain, inputs
     from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.ops.cuda_chain import (
@@ -895,18 +914,17 @@ def phase_lane_chain(torch, out):
     with_tf32 = lambda: bmm_chain(A, X, chain)
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        tf32_ms = device_ms(with_tf32, 50)
+        tf32_ms = graph_ms(with_tf32)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
     row = {
         "max_abs_err": err, "max_rel_err": err / scale,
         "max_rel_err_vs_bmm_f32": err_lib / scale,
-        "ms": device_ms(lambda: lane(a, x), 50),
-        "cold_ms": device_ms(lambda: lane(a, x), 50, cold=True,
-                             kernel="lane_chain_kernel"),
+        "ms": graph_ms(lambda: lane(a, x)),
+        "cold_ms": graph_ms(lambda: lane(a, x), cold=True),
         "events_ms": time_ms(torch, lambda: lane(a, x), 200),
         "plain_ms": time_ms(torch, lambda: lane_chain_plain(a, x, chain), 3),
-        "library_ms": device_ms(lambda: bmm_chain(A, X, chain), 50),
+        "library_ms": graph_ms(lambda: bmm_chain(A, X, chain)),
         "library_tf32_ms": tf32_ms,
         "bytes": n_bytes, "flops": n_flops, "bound_ms": bms, "bound_by": by,
         "geometry": geo._asdict(), "blocks_per_sm": per_sm,
@@ -917,7 +935,7 @@ def phase_lane_chain(torch, out):
     check(all(n == "0" for n in spills), "lane_chain spills registers")
     print(f"lane_chain B={B} chain={chain}: max|err| {err:.3e} ({err / scale:.2e}"
           f" of max|out|; vs fp32 bmm {err_lib / scale:.2e}); kernel "
-          f"{row['ms']:.5f} ms device ({row['events_ms']:.5f} ms by events, "
+          f"{row['ms']:.5f} ms by graph replay ({row['events_ms']:.5f} ms by events, "
           f"back to back; cold {row['cold_ms']:.5f} ms, "
           f"{100 * bms / row['cold_ms']:.0f}% of the bound), plain "
           f"{row['plain_ms']:.3f} ms, 12 x torch.bmm fp32 "
@@ -1118,8 +1136,8 @@ def main(argv=None):
                    lane),
         kernel_row("vde_quad", vde_src, vde_tpu, launches_q["vde"], vde_q),
         kernel_row("rk4_quad", vde_src, rk4_c5, launches_q["rk4"], rk4_q),
-        kernel_row("lq_ipm_13x4", lq_src, "ad_mpc_tpu/ops/pallas_lq.py:468",
-                   launches_q["lq_ipm"], lq_q),
+        kernel_row("lq_ipm_13x4", "ad_mpc_tpu_torch/csrc/lq_ipm_wide.cuh",
+                   "ad_mpc_tpu/ops/pallas_lq.py:468", launches_q["lq_ipm"], lq_q),
         kernel_row("vde_pacejka", vde_src, vde_tpu, launches_c4["vde"], vde_p),
         kernel_row("rk4_pacejka", vde_src, rk4_c2, launches_c4["rk4"], rk4_p),
         kernel_row("vde_gp_bicycle", vde_src, vde_tpu, launches_c3["vde"], vde_g),

@@ -26,6 +26,7 @@ from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.assoc_riccati import lqr_solve_assoc
 from ad_mpc_tpu_torch.ops.cuda_chain import (
     chain_geometry, lane_chain_plain, make_lane_chain, to_lanes)
+from ad_mpc_tpu_torch.ops import cuda_lq
 from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.ops.cuda_vde import _entry, make_rk4, make_vde, vde_plain
@@ -369,6 +370,85 @@ def test_lq_13x4_kernel_matches_plain(cuda, B):
     row, ok, _ = lq_case(qp, args, strict=B <= RAGGED_B)
     assert ok, row
     assert qp.launches == 2  # the case and its relaunch
+
+
+def _mixed_13x4_bounds():
+    """Soft and hard, one- and two-sided input bounds and state bounds (one
+    soft): every kind of cone, 10 entries, where the quad has 8 hard ones."""
+    nx, nu = 13, 4
+    u = dict(lb=np.array([-0.2, 0.0, -np.inf, -0.5]),
+             ub=np.array([0.3, np.inf, 0.4, 0.5]),
+             soft=np.array([True, False, True, False]), zl=np.full(nu, 10.0),
+             zu=np.full(nu, 10.0), Zl=np.full(nu, 1.0), Zu=np.zeros(nu))
+    lbx, ubx = np.full(nx, -np.inf), np.full(nx, np.inf)
+    lbx[0], ubx[0], lbx[12], ubx[5] = -0.3, 0.3, -0.2, 0.25
+    soft = np.zeros(nx, bool)
+    soft[5] = True
+    x = dict(lb=lbx, ub=ubx, soft=soft, zl=np.full(nx, 5.0), zu=np.full(nx, 5.0),
+             Zl=np.zeros(nx), Zu=np.full(nx, 2.0))
+    return u, x
+
+
+@pytest.mark.parametrize("bounds", ["unit", "mixed"])
+@pytest.mark.parametrize("N", [10, 24])
+def test_lq_13x4_kernel_matches_plain_at_horizons(cuda, N, bounds):
+    """The 13x4 kernel against its plain version at 3e-4 / 1e-3
+    (``tests/test_pallas_lq.py``'s tolerance) at a ragged B, at the quad's
+    N=10 and at N=24 (where the ring of cone weights is refilled
+    mid-sweep): with the quad's hard input box every
+    scenario against the float32 run; with every kind of cone, where a few
+    of these random problems flip an active bound between two correct
+    float32 runs (6 and 9 of 37 in a CPU emulation of the kernel), each
+    scenario against the float64 solution within 4x its own float32 spread
+    (``testing.lq_case``)."""
+    Q, R = QUAD_LQ_WEIGHTS
+    bnd = _mixed_13x4_bounds() if bounds == "mixed" else BOUNDS["unit"](13, 4)
+    qp = make_lq_solver(N, 13, 4, Q, R, 10 * Q, *bnd, iters=18, device=cuda)
+    assert RAGGED_B % qp.geometry_for(RAGGED_B).teams
+    assert qp.occupancy(RAGGED_B) >= 1
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(N), RAGGED_B, N, 13, 4)]
+    row, ok, _ = lq_case(qp, args, strict=bounds == "unit")
+    assert ok, row
+
+
+def test_lq_13x4_graph_replay_matches_eager(cuda):
+    """At c5's B=16384 geometry (8 scenarios per block) the kernel launches
+    under CUDA-graph capture (the wrapper sets no attribute there) and every
+    replay gives the eager launch's bits; only the capture counts."""
+    qp = _quad_qp(cuda)
+    assert qp.geometry_for(16384).teams == 8
+    args = [torch.as_tensor(a, device=cuda)
+            for a in random_lq(np.random.default_rng(3), 16384, 10, 13, 4)]
+    eager = qp(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        qp(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qp(*args)
+    assert qp.launches == 3
+    for _ in range(2):
+        for o in out:
+            o.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, e) for o, e in zip(out, eager))
+    assert qp.launches == 3
+
+
+@pytest.mark.parametrize("shape", [(7, 2), (13, 4)])
+def test_lq_layout_matches_the_kernel(cuda, shape):
+    """``cuda_lq.scenario_floats`` mirrors the kernels' own layouts
+    (``Layout``, ``lq_wide::Layout``), which the C entry reports."""
+    nx, nu = shape
+    lib = cuda_lq._lib()
+    for N in (10, 24, 40):
+        for nc in (0, 8, 32):
+            assert lib.lq_ipm_scenario_floats(N, nx, nu, nc) == \
+                cuda_lq.scenario_floats(N, nx, nu, nc)
 
 
 def test_quad_kernels_repeat_their_bits(cuda):

@@ -146,22 +146,76 @@ def test_lq_13x4_matches_jax_unrolled_kernel():
 
 
 def test_lq_geometry_13x4_matches_the_kernel_layout():
-    """c5's QP (N=10, 8 cones) in the layout of ``csrc/lq_ipm.cu``: a team
-    of 16 lanes, a header of 608 floats (Q, QN, R, the cone list, to 32),
-    2,352 floats per scenario (16 mod 32: the 2 teams of a warp on other
-    banks), blocks of whole warps within the H100's 232,448 bytes."""
+    """c5's QP (N=10, 8 cones) in the layout of ``csrc/lq_ipm_wide.cuh``: a
+    team of 16 lanes (one per 4x4 tile of the 16x16 products), a header of
+    768 floats (Q and QN padded to 16x16, R, the cone list, to 32), 3,152
+    floats per scenario (16 mod 32: the 2 teams of a warp 16 banks apart),
+    and 8 scenarios per block of 128 threads, 2 blocks and 16 scenarios
+    resident on an SM within the H100's 233,472 bytes."""
     assert cuda_lq.team_lanes(13) == 16 and cuda_lq.team_lanes(7) == 8
-    assert cuda_lq.header_floats(13, 4) == 608
+    assert cuda_lq.header_floats(13, 4) == 768
+    # lq_wide::Layout at N=10, 8 cones: the iterate and the step (rows of
+    # 16), the gains [K | kf] (4x16 a stage), the cone variables and
+    # references, q and r, the ring of 16 stages' weights and gradients, the
+    # tiles (P, [PA | p], (P Bm)^T, [H_ux | Bm^T p], H_uu, q_k, wx_k, r_k)
+    # and two stage buffers (A in rows of 16, Bm).
+    nst = 16 * 11 + 4 * 10
+    parts = (2 * nst + 10 * 64 + 4 * 8 * 10 + 8 * 10 + 184 + 2 * 16 * 8
+             + (2 * 256 + 2 * 64 + 16 + 2 * 16 + 4) + 2 * (13 * 16 + 13 * 4))
     geo = lq_geometry(10, 13, 4, 8)
-    assert geo.pitch == 2352 and geo.pitch % 32 == 16
-    # Whole warps: 4 teams (2 warps, 5 blocks and 20 scenarios per SM by
-    # shared memory), not 7 (3.5 warps, 21 scenarios).
-    assert (geo.teams, geo.threads) == (4, 64)
-    assert geo.block_bytes == 4 * (608 + geo.teams * 2352) <= cuda_lq.SMEM_BLOCK_MAX
+    assert geo.pitch == parts + (16 - parts) % 32 == 3152
+    assert geo.pitch % 32 == 16
+    assert (geo.teams, geo.threads) == (8, 128)
+    assert geo.block_bytes == 4 * (768 + 8 * 3152) <= cuda_lq.SMEM_BLOCK_MAX
+    assert cuda_lq.SMEM_SM // (geo.block_bytes + cuda_lq.SMEM_BLOCK_RESERVED) == 2
     # The 7x2 layout is unchanged: 2,312 floats at c2 (N=30, 6 cones).
     assert lq_geometry(30, 7, 2, 6).pitch == 2312
     with pytest.raises(ValueError):
-        lq_geometry(10, 13, 4, 8, teams=99)
+        lq_geometry(10, 13, 4, 8, teams=9)
+
+
+def test_lq_geometry_13x4_spreads_a_small_batch():
+    """Given the batch, the 13x4 geometry models an SM's time as the
+    scenarios dealt to it over the scenarios it holds at once: 2 per block
+    up to B=264 (one block on each of 128 SMs at B=256), 8 per block from
+    c5's B=1024 (128 blocks, not 57 of 18); the 7x2 geometry keeps its 8."""
+    teams = lambda B: lq_geometry(10, 13, 4, 8, batch=B).teams
+    assert [teams(B) for B in (1, 37, 256, 1024, 4096, 16384)] == [2, 2, 2, 8, 8, 8]
+    assert lq_geometry(10, 13, 4, 8, batch=256).blocks(256) == 128
+    assert lq_geometry(30, 7, 2, 6, batch=256).teams == 8
+    assert lq_geometry(10, 13, 4, 8, teams=4, batch=16384).teams == 4
+
+
+def test_lq_geometry_13x4_over_horizons():
+    """The 13x4 layout at N=10..40 (the rolled twin's range) with the quad's
+    8 cones: every horizon fits, in whole warps, the scenarios resident on
+    an SM falling from 16 to 6 as the iterate and the gains grow with N;
+    the first horizon whose one scenario overflows a block is refused by
+    ``lq_geometry`` and by the wrapper before any launch."""
+    resident = {}
+    for N in range(10, 41):
+        geo = lq_geometry(N, 13, 4, 8)
+        assert geo.block_bytes <= cuda_lq.SMEM_BLOCK_MAX
+        assert geo.threads % 32 == 0 and geo.pitch % 32 == 16
+        blocks = cuda_lq.SMEM_SM // (geo.block_bytes + cuda_lq.SMEM_BLOCK_RESERVED)
+        resident[N] = geo.teams * blocks
+    assert resident[10] == 16 and resident[40] == 6
+    assert all(resident[N + 1] <= resident[N] for N in range(10, 40))
+    fits = lambda N: 4 * (cuda_lq.header_floats(13, 4) + cuda_lq.scenario_floats(
+        N, 13, 4, 8)) <= cuda_lq.SMEM_BLOCK_MAX
+    n_max = max(N for N in range(10, 1000) if fits(N))
+    assert n_max > 40 and not fits(n_max + 1)
+    assert lq_geometry(n_max, 13, 4, 8).teams == 1
+    with pytest.raises(ValueError):
+        lq_geometry(n_max + 1, 13, 4, 8)
+    Q, R = QUAD_LQ_WEIGHTS
+    qp = make_lq_solver(n_max + 1, 13, 4, Q, R, 10 * Q, *BOUNDS["unit"](13, 4),
+                        iters=1, device="cpu")
+    args = [torch.as_tensor(a) for a in
+            random_lq(np.random.default_rng(0), 1, n_max + 1, 13, 4)]
+    with pytest.raises(ValueError):
+        qp._launch(*args)
+    assert qp.launches == 0
 
 
 def test_lq_refuses_shapes_it_has_no_kernel_for():
