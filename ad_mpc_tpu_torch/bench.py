@@ -19,14 +19,18 @@ c6-fitted rows at B=4096/16384 with the fitted ``gp_flagship_c1`` model
 (``quad_fleet.fitted_ensemble``: 60 points); the batch-1 latency row
 against the 20 ms budget;
 the lane-chain micro (``experiments.mxu_riccati.micro``) and the
-long-horizon Riccati micro (``experiments.long_horizon.micro``). Every
+long-horizon Riccati micro (``experiments.long_horizon.micro``); the
+single-vehicle AD path: ``ad_closed_loop`` (20 s on the oval at N=40:
+tracking RMSE, solve p50/p99) and the deployment loop at 50 Hz
+(``deployment_loop_50hz``, ``…_pipelined``, ``deployment_aggr_nolagcomp``
+and ``deployment_aggr_lagcomp``, as ``bench.py:884-915`` runs them). Every
 fleet row gets the analytic operations per solve and its share of the FP32
-peak, and is held to its config's quality gates.
+peak, and is held to its config's quality gates; the AD rows to their
+tracking-RMSE gates (``AD_GATES``).
 
-Not ported, so not here: the deployment loop and the shard-invariance
-row. The result goes to ``--out`` only; the last line of
-standard output is a one-line summary. Exits 1 when a gate fails or a row
-raises.
+Not ported, so not here: the shard-invariance row. The result goes to
+``--out`` only; the last line of standard output is a one-line summary.
+Exits 1 when a gate fails or a row raises.
 """
 
 from __future__ import annotations
@@ -52,6 +56,27 @@ RTI_GATES = {"rti_vs_converged_u0": fleet.RTI_GATES["c2"],
              "c4_rti_vs_converged_u0": fleet.RTI_GATES["c4"],
              "c5_rti_vs_converged_u0": quad_fleet.RTI_GATE,
              "c6_rti_vs_converged_u0": quad_fleet.RTI_GATE}
+
+# The AD rows' tracking-RMSE gates [m]: the closed loop at
+# ``tests/test_mpc_closed_loop.py:20``'s limit, the deployment rows at
+# ``tests/test_runtime.py:190,233``'s; and the deployment rows' arguments
+# (``bench.py:884-915``).
+AD_GATES = {"ad_closed_loop": ("rmse_pos", 0.5),
+            "deployment_loop_50hz": ("tracking_rmse_m", 1.0),
+            "deployment_loop_50hz_pipelined": ("tracking_rmse_m", 1.0),
+            "deployment_aggr_nolagcomp": ("tracking_rmse_m", 1.0),
+            "deployment_aggr_lagcomp": ("tracking_rmse_m", 1.0)}
+DEPLOY_ROWS = {
+    "deployment_loop_50hz": dict(ticks=400, base_port=49800),
+    "deployment_loop_50hz_pipelined": dict(ticks=400, base_port=49804,
+                                           pipelined=True),
+    "deployment_aggr_nolagcomp": dict(ticks=700, base_port=49808, pipelined=True,
+                                      lag_compensation=False, v_target=12.0,
+                                      track_radius=15.0),
+    "deployment_aggr_lagcomp": dict(ticks=700, base_port=49812, pipelined=True,
+                                    lag_compensation=True, v_target=12.0,
+                                    track_radius=15.0),
+}
 
 # Hand-counted operations of the continuous dynamics (``bench.py:523-529``).
 DYN_FLOPS = {"c2_": 90,  # blended-tire bicycle
@@ -115,6 +140,10 @@ def gate_failures(detail):
         d_u0 = detail.get(key)
         if d_u0 is not None and not d_u0 <= lim:
             failures.append(f"{key}={d_u0:.3e}>{lim}")
+    for key, (metric, lim) in AD_GATES.items():
+        row = detail.get(key)
+        if row is not None and not row[metric] <= lim:
+            failures.append(f"{key}.{metric}={row[metric]:.3e}>{lim}")
     for name, err in detail["errors"].items():
         failures.append(f"{name} raised: {err[:120]}")
     return failures
@@ -230,6 +259,26 @@ def run(log=lambda s: print(s, file=sys.stderr)):
             detail.setdefault("latency_warnings", []).append(
                 f"compute p99 {lat['p99_compute']:.2f} ms over budget")
 
+    def run_ad():
+        from ad_mpc_tpu_torch.experiments.ad_closed_loop import run_closed_loop
+        from ad_mpc_tpu_torch.experiments.deployment_loop import (
+            run_deployment_loop)
+
+        cl = run_closed_loop(device="cuda")
+        detail["ad_closed_loop"] = {k: getattr(cl, k) for k in (
+            "rmse_pos", "mean_opt_ms", "p50_opt_ms", "p99_opt_ms", "v_mean",
+            "n_steps", "launches")}
+        log(f"# AD closed loop N=40: rmse={cl.rmse_pos:.3f} m, solve "
+            f"p50={cl.p50_opt_ms:.3f} ms p99={cl.p99_opt_ms:.3f} ms")
+        if cl.p99_opt_ms > 20.0:
+            detail.setdefault("latency_warnings", []).append(
+                f"AD closed-loop solve p99 {cl.p99_opt_ms:.2f} ms over budget")
+        for key, kw in DEPLOY_ROWS.items():
+            d = detail[key] = run_deployment_loop(device="cuda", **kw)
+            log(f"# {key}: rmse={d['tracking_rmse_m']:.3f} m, tick "
+                f"p50={d['tick_p50_ms']:.2f} ms p99={d['tick_p99_ms']:.2f} ms, "
+                f"missed {d['missed_deadlines']}/{d['ticks']}")
+
     with tf32(False):
         guarded("c2_dynamic_bicycle", run_c2)
         guarded("c2_n40", run_c2_n40)
@@ -243,13 +292,15 @@ def run(log=lambda s: print(s, file=sys.stderr)):
         guarded("c5_quad", run_c5)
         guarded("c6_gp_quad", run_c6)
         guarded("latency", run_lat)
+        guarded("ad_path", run_ad)
         detail["mxu_riccati_micro"] = guarded("mxu_riccati", mxu_riccati.micro)
         detail["long_horizon_riccati"] = guarded("long_horizon_riccati",
                                                  long_horizon.micro)
     annotate_roofline(detail)
     failures = gate_failures(detail)
     detail["quality_gates"] = {"pass": not failures, "failures": failures,
-                               "gates": GATES, "rti_gates": RTI_GATES}
+                               "gates": GATES, "rti_gates": RTI_GATES,
+                               "ad_gates": AD_GATES}
     return detail
 
 

@@ -4,6 +4,10 @@ Port of ``ad_mpc_tpu/models/bicycle.py:22-114``. The dynamics is written
 entrywise with entries leading (``x[3]``, ``torch.stack``), so one
 definition evaluates ``(nx,)`` vectors, ``(nx, B)`` batches and
 ``(nx, N, B)`` slabs alike — the lane contract of the fused VDE kernel.
+It also evaluates sequences of Python floats (``math`` in place of
+``torch``, a list out): the host plant's scalar path
+(``sim/simulator.py``), where a tensor operation's overhead would cost
+more than the arithmetic.
 
 State  x = [p_x, p_y, psi, v_x, v_y, psi_dot, delta]
 Input  u = [a, delta_dot]   (longitudinal acceleration, steering rate)
@@ -13,6 +17,7 @@ Param  switch in [0, 1]     (0 = kinematic model, 1 = dynamic linear-tire)
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import NamedTuple
 
 import torch
@@ -48,10 +53,10 @@ NU = 2
 def blend_switch(v_x, params: BicycleParams):
     """Velocity-based blend factor in [0,1]: 0 below blend_min (kinematic),
     1 above blend_max (dynamic)."""
-    return torch.clamp(
-        (v_x - params.blend_min) / (params.blend_max - params.blend_min),
-        0.0, 1.0,
-    )
+    s = (v_x - params.blend_min) / (params.blend_max - params.blend_min)
+    if isinstance(s, torch.Tensor):
+        return torch.clamp(s, 0.0, 1.0)
+    return min(max(s, 0.0), 1.0)
 
 
 def lateral_tire_forces(x, params: BicycleParams):
@@ -75,33 +80,34 @@ def bicycle_dynamics(x, u, params: BicycleParams = BicycleParams(), switch=None)
     s = blend_switch(v_x, params) if switch is None else switch
 
     f_fy, f_ry = lateral_tire_forces(x, params)
+    on_tensors = isinstance(psi, torch.Tensor)
+    cos, sin = (torch.cos, torch.sin) if on_tensors else (math.cos, math.sin)
 
-    p_x_dot = v_x * torch.cos(psi) - v_y * torch.sin(psi)
-    p_y_dot = v_x * torch.sin(psi) + v_y * torch.cos(psi)
+    p_x_dot = v_x * cos(psi) - v_y * sin(psi)
+    p_y_dot = v_x * sin(psi) + v_y * cos(psi)
 
-    v_x_dyn = a - (f_fy * torch.sin(delta)) / params.mass + v_y * psi_dot
+    v_x_dyn = a - (f_fy * sin(delta)) / params.mass + v_y * psi_dot
     v_x_kin = a
 
     wheelbase = params.l_f + params.l_r
-    v_y_dyn = (f_ry + f_fy * torch.cos(delta)) / params.mass - v_x * psi_dot
+    v_y_dyn = (f_ry + f_fy * cos(delta)) / params.mass - v_x * psi_dot
     v_y_kin = (delta_dot * v_x + delta * a) * params.l_r / wheelbase
 
     psi_dd_dyn = (
-        params.l_f * f_fy * torch.cos(delta) - params.l_r * f_ry
+        params.l_f * f_fy * cos(delta) - params.l_r * f_ry
     ) / params.iz
     psi_dd_kin = (delta_dot * v_x + delta * a) / wheelbase
 
-    return torch.stack(
-        [
-            p_x_dot,
-            p_y_dot,
-            psi_dot,
-            s * v_x_dyn + (1 - s) * v_x_kin,
-            s * v_y_dyn + (1 - s) * v_y_kin,
-            s * psi_dd_dyn + (1 - s) * psi_dd_kin,
-            delta_dot,
-        ]
-    )
+    rows = [
+        p_x_dot,
+        p_y_dot,
+        psi_dot,
+        s * v_x_dyn + (1 - s) * v_x_kin,
+        s * v_y_dyn + (1 - s) * v_y_kin,
+        s * psi_dd_dyn + (1 - s) * psi_dd_kin,
+        delta_dot,
+    ]
+    return torch.stack(rows) if on_tensors else rows
 
 
 class BicycleParamsC(ctypes.Structure):

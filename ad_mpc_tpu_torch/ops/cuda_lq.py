@@ -221,14 +221,16 @@ class LQSolver(nn.Module):
         super().__init__()
         self.N, self.nx, self.nu = N, nx, nu
         self.iters, self.reg, self.tau_min = iters, float(reg), float(tau_min)
-        f32 = lambda m: torch.as_tensor(np.asarray(m, np.float32))
-        self.register_buffer("Q", f32(Q))
-        self.register_buffer("R", f32(R))
-        self.register_buffer("QN", f32(QN))
+        # The kernel reads float32 weights; the plain version keeps them in
+        # float64 and rounds them to its inputs' dtype.
+        as_t = lambda m, dt: torch.as_tensor(np.asarray(m, dt))
+        for name, m in (("Q", Q), ("R", R), ("QN", QN)):
+            self.register_buffer(name, as_t(m, np.float32))
+            self.register_buffer(f"{name}64", as_t(m, np.float64))
         for g, bd in (("u", u_bounds), ("x", x_bounds)):
             for k in BoundSpec._fields:
-                self.register_buffer(f"{g}_{k}", torch.as_tensor(
-                    np.asarray(bd[k], bool if k == "soft" else np.float32)))
+                self.register_buffer(f"{g}_{k}", as_t(
+                    bd[k], bool if k == "soft" else np.float64))
         cones = cone_entries(u_bounds, x_bounds)
         if len(cones) > MAX_CONES:
             raise ValueError(f"{len(cones)} bound entries > {MAX_CONES}")
@@ -243,8 +245,8 @@ class LQSolver(nn.Module):
         f = lambda t: t.to(A.device, t.dtype if t.dtype == torch.bool else A.dtype)
         spec = lambda g: BoundSpec(*(f(getattr(self, f"{g}_{k}"))
                                      for k in BoundSpec._fields))
-        return lq_plain(A, Bm, c, q, r, u_ref, x_ref, f(self.Q), f(self.R),
-                        f(self.QN), spec("u"), spec("x"), self.iters,
+        return lq_plain(A, Bm, c, q, r, u_ref, x_ref, f(self.Q64), f(self.R64),
+                        f(self.QN64), spec("u"), spec("x"), self.iters,
                         self.reg, self.tau_min, lqr_fn)
 
     @property

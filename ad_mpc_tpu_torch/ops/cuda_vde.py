@@ -105,8 +105,11 @@ class VDE(nn.Module):
 
     ``forward(xs, us, ps)`` takes batch-first float32 tensors xs (B,N+1,nx),
     us (B,N,nu), ps (B,p_dim) and returns (A (B,N,nx,nx), Bm (B,N,nx,nu),
-    c (B,N,nx)). ``launches`` counts kernel launches; ``defines`` are the
-    ``-D`` macros the kernel is built with (none on the main path).
+    c (B,N,nx)). N is the horizon the sweep was made for; a launch takes
+    its horizon from ``us``, so that N one-stage scenarios (B=N, N=1) run a
+    horizon with a parameter row per stage. ``launches`` counts kernel
+    launches; ``defines`` are the ``-D`` macros the kernel is built with
+    (none on the main path).
     """
 
     def __init__(self, f, dt, N, nx, nu, p_dim, rk4_steps=1):
@@ -129,7 +132,7 @@ class VDE(nn.Module):
         return self._launch(xs, us, ps)
 
     def _launch(self, xs, us, ps):
-        B, N, nx, nu = xs.shape[0], self.N, self.nx, self.nu
+        (B, N), nx, nu = us.shape[:2], self.nx, self.nu
         _check_shape("VDE", self.f, nx, nu)
         fn, error_string = _entry(self.f, defines=self.defines)
         for name, t, shape in (("xs", xs, (B, N + 1, nx)),

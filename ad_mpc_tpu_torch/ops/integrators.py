@@ -22,6 +22,17 @@ def rk4_step(f, x, u, dt):
     return x + (dt / 6.0) * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
+def rk4_step_floats(f, x, u, dt):
+    """:func:`rk4_step` on lists of Python floats, in the same operation
+    order: the host plant's scalar path, where ``f`` returns a list."""
+    k1 = f(x, u)
+    k2 = f([a + 0.5 * dt * k for a, k in zip(x, k1)], u)
+    k3 = f([a + 0.5 * dt * k for a, k in zip(x, k2)], u)
+    k4 = f([a + dt * k for a, k in zip(x, k3)], u)
+    return [a + (dt / 6.0) * (b + 2 * c + 2 * d + e)
+            for a, b, c, d, e in zip(x, k1, k2, k3, k4)]
+
+
 def discretize(f, dt, n_steps: int = 1):
     """Discrete map F(x, u) integrating f over dt with ``n_steps`` RK4
     sub-steps."""
@@ -49,6 +60,25 @@ def rollout(F, x0, us):
     for u in us:
         xs.append(F(xs[-1], u))
     return torch.stack(xs)
+
+
+def rollout_p(F, x0, us, ps):
+    """Roll a parameterized discrete map ``F(x, u, p)`` with per-stage
+    parameters: (nx,), (N, nu), (N, p_dim) -> states (N+1, nx)."""
+    xs = [x0]
+    for u, p in zip(us, ps):
+        xs.append(F(xs[-1], u, p))
+    return torch.stack(xs)
+
+
+def linearize_p(F, xs, us, ps):
+    """Stage-wise linearization of a parameterized discrete map with
+    per-stage parameters ps (N, p_dim): (A, B, c) as :func:`linearize`."""
+    xk = xs[:-1]
+    A = vmap(jacfwd(F, argnums=0))(xk, us, ps).to(xs.dtype)
+    B = vmap(jacfwd(F, argnums=1))(xk, us, ps).to(xs.dtype)
+    c = vmap(F)(xk, us, ps) - xs[1:]
+    return A, B, c
 
 
 def linearize(F, xs, us):

@@ -243,3 +243,72 @@ def lq_case(qp, args, strict):
           and all(bool(g.isfinite().all()) for g in got)
           and bool(((got[2] >= 0) & (got[2] <= 1)).all()))
     return row, ok, plain
+
+
+def bike_instance(rng, N, dt, switch=None):
+    """One single-vehicle bicycle problem (x0 (7,), yref_x (N+1,7),
+    yref_u (N,2), p (1,)), float64 numpy, as ``tests/test_acados_parity.py
+    :_random_bike_instance`` draws it: an arc at 5-14 m/s with a lateral
+    offset, the car perturbed around its start. p is the blend switch at
+    x0's speed, 0 at these speeds, or ``switch``."""
+    from ad_mpc_tpu_torch.models.bicycle import BicycleParams, blend_switch
+
+    v = rng.uniform(5.0, 14.0)
+    kmax = min(0.05, 6.0 / v**2)
+    kappa = rng.uniform(-1.0, 1.0) * kmax
+    s = v * np.arange(N + 1) * dt
+    if abs(kappa) > 1e-6:
+        x, y, psi = np.sin(kappa * s) / kappa, (1 - np.cos(kappa * s)) / kappa, kappa * s
+    else:
+        x, y, psi = s, np.zeros_like(s), np.zeros_like(s)
+    yref = np.zeros((N + 1, 7))
+    yref[:, 0] = x
+    yref[:, 1] = y + rng.uniform(-1.5, 1.5)  # lateral offset
+    yref[:, 2] = psi
+    yref[:, 3] = v
+    x0 = np.zeros(7)
+    x0[0] = rng.uniform(-0.5, 0.5)
+    x0[1] = rng.uniform(-0.5, 0.5)
+    x0[2] = rng.uniform(-0.15, 0.15)
+    x0[3] = v * rng.uniform(0.85, 1.15)
+    x0[4] = rng.uniform(-0.3, 0.3)
+    x0[5] = rng.uniform(-0.2, 0.2)
+    x0[6] = rng.uniform(-0.3, 0.3)
+    p = np.array([blend_switch(float(x0[3]), BicycleParams())
+                  if switch is None else switch])
+    return x0, yref, np.zeros((N, 2)), p
+
+
+def rti_oracle_distance(path, device, backend="auto", solves=30):
+    """max |u0 - u0_oracle| after ``solves`` RTI re-solves without shift on
+    the committed oracle instance at ``path`` (npz: x0, yref, yref_u,
+    params, us_oracle; N=20, dt=0.05), in float32, with the spec of
+    ``tests/test_acados_parity.py:test_rti_converges_to_oracle`` (one
+    Gauss-Newton iteration, 40 IPM iterations). Returns (distance, the
+    solver's kernel launches)."""
+    import dataclasses
+
+    import torch
+
+    from ad_mpc_tpu_torch.control.mpc import bicycle_spec
+    from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
+    from ad_mpc_tpu_torch.ocp.solver import SQPSolver
+
+    with np.load(path) as z:
+        fix = {k: z[k] for k in z.files}
+    N = fix["yref_u"].shape[0]
+    spec = dataclasses.replace(
+        bicycle_spec(t_horizon=0.05 * N, n_nodes=N, sqp_iters=25, qp_iters=40),
+        sqp_iters=1)
+    solver = SQPSolver(spec, BicycleDynamics(), p_dim=1, device=device,
+                       backend=backend)
+    t = lambda k: torch.as_tensor(fix[k], dtype=torch.float32, device=device)
+    x0, yref, yref_u, params = t("x0"), t("yref"), t("yref_u"), t("params")
+    state = solver.init_state(x0)
+    for _ in range(solves):
+        res = solver.solve(x0, yref, yref_u, params, state)
+        state = res.state  # no shift: the problem is fixed
+    d = float(np.max(np.abs(res.us[0].double().cpu().numpy() - fix["us_oracle"][0])))
+    launches = {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches,
+                "rk4": solver.rk4.launches}
+    return d, launches

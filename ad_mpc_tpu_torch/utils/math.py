@@ -1,9 +1,9 @@
-"""Math helpers (port of ``ad_mpc_tpu/utils/math.py:56-140, 246-256``).
+"""Math helpers (port of ``ad_mpc_tpu/utils/math.py:56-140, 216-256``).
 
 Quaternions are ``[w, x, y, z]`` (Hamilton convention), as in the JAX
 package. The quaternion helpers broadcast over leading batch axes; only
 those that :func:`ad_mpc_tpu_torch.models.quadrotor.quad_dynamics` needs
-are ported.
+are ported, and the angle helpers of the reference layer.
 """
 
 from __future__ import annotations
@@ -71,3 +71,28 @@ def yaw_wrap_reference(psi_ref, psi0):
     up = (psi0 > 0) & (psi0 - math.pi > psi_ref)
     dt = psi_ref.dtype
     return psi_ref - 2 * math.pi * down.to(dt) + 2 * math.pi * up.to(dt)
+
+
+def wrap_to_pi(angle):
+    """Wrap angle(s) to [-pi, pi) (reference ``bound_angle_within_pi``):
+    ``(angle + pi) mod 2 pi - pi`` with the modulo as ``jnp.remainder``
+    computes it, the truncated remainder moved into the divisor's sign."""
+    a = torch.as_tensor(angle) + math.pi
+    two_pi = 2.0 * math.pi
+    r = torch.fmod(a, two_pi)
+    r = torch.where((r != 0) & (r < 0), r + two_pi, r)
+    return r - math.pi
+
+
+def unwrap_angles(angles, dim=-1):
+    """``np.unwrap``: remove jumps larger than pi along ``dim``."""
+    d = torch.diff(angles, dim=dim)
+    correction = torch.cumsum(wrap_to_pi(d) - d, dim=dim)
+    zero = torch.zeros_like(angles.narrow(dim, 0, 1))
+    return angles + torch.cat([zero, correction], dim=dim)
+
+
+def fix_angle_reference(angle_ref, angle_init):
+    """Shift a reference angle sequence by multiples of 2 pi so that it
+    starts within pi of ``angle_init`` and has no 2 pi jumps."""
+    return angle_init + unwrap_angles(wrap_to_pi(angle_ref - angle_init))

@@ -705,3 +705,144 @@ def test_long_horizon_replay_matches_eager(cuda):
                 graph.replay()
                 torch.cuda.synchronize()
                 assert torch.equal(x, ref)
+
+
+# The single-vehicle AD path: SQPSolver, BicycleMPC and the closed loop at
+# B=1 through the VDE, LQ and RK4 kernels.
+
+def _ad_solvers(device, N, qp_iters, **spec_kw):
+    """(kernels, plain on the card, spec) for the bicycle at horizon N."""
+    import dataclasses
+
+    from ad_mpc_tpu_torch.ocp.solver import SQPSolver
+
+    spec = dataclasses.replace(
+        bicycle_spec(t_horizon=0.05 * N, n_nodes=N, qp_iters=qp_iters), **spec_kw)
+    dyn = fleet.dynamic_bicycle
+    return (SQPSolver(spec, dyn, p_dim=1, device=device, backend="cuda"),
+            SQPSolver(spec, dyn, p_dim=1, device=device, backend="plain"), spec)
+
+
+def _ad_problem(device, N, seed=11):
+    from ad_mpc_tpu_torch.testing import bike_instance
+
+    return [torch.as_tensor(a, dtype=torch.float32, device=device)
+            for a in bike_instance(np.random.default_rng(seed), N, 0.05)]
+
+
+@pytest.mark.parametrize("N,qp_iters", [(40, 18), (20, 10)])
+def test_ad_solver_b1_kernels_match_plain(cuda, N, qp_iters):
+    """One RTI solve at B=1: each kernel held to its plain version on the
+    inputs the solve gave it (the sweep at 2e-5, the QP by ``lq_case``,
+    strict), u0 within 1e-3 of the plain solver's, and one launch of each
+    kernel per solve."""
+    kern, plain, _ = _ad_solvers(cuda, N, qp_iters)
+    x0, yref, yu, p = _ad_problem(cuda, N)
+    st = plain.init_state(x0)
+    seen = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, a, k=k: seen.setdefault(k, a))
+             for k, m in (("vde", kern.vde), ("qp", kern.qp))]
+    try:
+        got = kern.solve(x0, yref, yu, p, st)
+    finally:
+        for h in hooks:
+            h.remove()
+    want = plain.solve(x0, yref, yu, p, st)
+    assert fleet.launches(kern) == {"vde": 1, "lq_ipm": 1, "rk4": 1}
+    assert fleet.launches(plain) == {"vde": 0, "lq_ipm": 0, "rk4": 0}
+    for g, w in zip(kern.vde(*seen["vde"]), kern.vde.plain(*seen["vde"])):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+    row, ok, _ = lq_case(kern.qp, seen["qp"], strict=True)
+    assert ok, row
+    assert float((got.us[0] - want.us[0]).abs().max()) < 1e-3
+    assert abs(float(got.kkt_residual) - float(want.kkt_residual)) < 1e-5
+
+
+def test_ad_per_stage_route_gives_the_broadcast_bits(cuda):
+    """Per-stage p runs the sweep and the defect as N one-stage scenarios:
+    with every row equal to the broadcast p, the solve gives the B=1
+    launch's bits."""
+    N = 40
+    kern, _, _ = _ad_solvers(cuda, N, 18)
+    x0, yref, yu, p = _ad_problem(cuda, N, seed=12)
+    st = kern.init_state(x0)
+    one = kern.solve(x0, yref, yu, p, st)
+    rows = kern.solve(x0, yref, yu, p.expand(N, 1).contiguous(), st)
+    assert torch.equal(one.us, rows.us) and torch.equal(one.xs, rows.xs)
+    assert torch.equal(one.kkt_residual, rows.kkt_residual)
+    xs, us = st.xs[None].contiguous(), st.us[None].contiguous()
+    b1 = kern.vde(xs, us, p[None])
+    pairs = torch.stack([st.xs[:-1], st.xs[1:]], dim=1)
+    stages = kern.vde(pairs, st.us[:, None].contiguous(), p.expand(N, 1).contiguous())
+    assert all(torch.equal(a[0], b[:, 0]) for a, b in zip(b1, stages))
+
+
+def test_ad_point_reference_mode_on_card(cuda):
+    """Full SQP with the line search (10 Gauss-Newton iterations, 6
+    candidates): u0 within 1e-3 of the plain solver's; per solve 10 sweeps,
+    10 QPs, and N RK4 launches per iteration plus the defect."""
+    N = 20
+    kern, plain, _ = _ad_solvers(cuda, N, 18, sqp_iters=10, ls_steps=6)
+    x0, yref, yu, p = _ad_problem(cuda, N, seed=13)
+    st = plain.init_state(x0)
+    got, want = kern.solve(x0, yref, yu, p, st), plain.solve(x0, yref, yu, p, st)
+    assert fleet.launches(kern) == {"vde": 10, "lq_ipm": 10, "rk4": 10 * N + 1}
+    assert float((got.us[0] - want.us[0]).abs().max()) < 1e-3
+
+
+def test_ad_fused_step_makes_no_host_sync(cuda):
+    """The node's fused step (solve, shift, gates, backup selection,
+    steering command) runs with every host synchronisation an error."""
+    from ad_mpc_tpu_torch.control.mpc import BicycleMPC
+
+    N = 40
+    mpc = BicycleMPC(spec=bicycle_spec(), device=cuda)
+    x0, yref, _, _ = _ad_problem(cuda, N, seed=14)
+    packed = torch.cat([x0[None], yref]).contiguous()
+    step = mpc.make_fused_step()
+    carry = mpc.fused_init(x0)
+    step(packed, *carry)  # first call outside: allocator warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            out, *carry = step(packed, *carry)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert out.shape == (4,) and bool(torch.isfinite(out).all())
+    mpc.set_reference(yref.cpu().numpy())
+    us, _, ok = mpc.optimize(x0.cpu())
+    assert us.shape == (N, 2)
+
+
+def test_ad_closed_loop_on_card(cuda):
+    """40 ticks of the oval at N=40 through the kernels: the track is held
+    and every tick launched the sweep, the QP and the defect once (plus the
+    cold start's N RK4 rollout steps)."""
+    from ad_mpc_tpu_torch.experiments.ad_closed_loop import run_closed_loop
+
+    res = run_closed_loop(sim_time=2.0, device=cuda)
+    assert res.rmse_pos < 0.5
+    assert res.launches == {"vde": 40, "lq_ipm": 40, "rk4": 40 + 40}
+
+
+def test_sqp_solver_cuda_refuses_float64(cuda):
+    from ad_mpc_tpu_torch.ocp.solver import SQPSolver
+
+    with pytest.raises(ValueError, match="float32"):
+        SQPSolver(bicycle_spec(n_nodes=20, t_horizon=1.0), fleet.dynamic_bicycle,
+                  p_dim=1, dtype=torch.float64, device=cuda)
+
+
+def test_ad_rti_converges_to_oracle_on_card(cuda):
+    """``tests/test_acados_parity.py:test_rti_converges_to_oracle`` through
+    the kernels: 30 RTI re-solves without shift on the committed oracle
+    instance end within 1e-3 of the oracle's u0."""
+    import os
+
+    from ad_mpc_tpu_torch.testing import rti_oracle_distance
+
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "oracle_bike_n20.npz")
+    d, launches = rti_oracle_distance(path, cuda, backend="cuda")
+    assert d < 1e-3, d
+    assert launches == {"vde": 30, "lq_ipm": 30, "rk4": 30 + 20}
