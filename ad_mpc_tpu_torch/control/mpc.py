@@ -1,9 +1,9 @@
-"""MPC problem specs and the AD controller facade (port of
-``ad_mpc_tpu/control/mpc.py:26-192, 194-218``).
-
-:func:`bicycle_spec`, :func:`quad_spec` and :class:`BicycleMPC` are
-ported; ``QuadMPC`` (the dual-state GP with per-stage parameters and
-per-solve cluster selection) is not yet.
+"""MPC problem specs and the controller facades (port of
+``ad_mpc_tpu/control/mpc.py``): :func:`bicycle_spec` and
+:class:`BicycleMPC` for the AD vehicle, :func:`quad_spec` and
+:class:`QuadMPC` for the quadrotor (nominal, RDRv drag, a GP residual, and
+the dual-state GP with per-stage parameters and per-solve cluster
+selection).
 """
 
 from __future__ import annotations
@@ -14,13 +14,25 @@ from typing import Optional
 import numpy as np
 import torch
 
+from torch import nn
+from torch.func import vmap
+
 from ad_mpc_tpu_torch.control import safety
+from ad_mpc_tpu_torch.learned.ensemble import (
+    GPEnsemble, QuadResidual, body_frame_features, on_device, predict,
+    select_cluster)
+from ad_mpc_tpu_torch.learned.lane import add_rows
 from ad_mpc_tpu_torch.models.bicycle import (
     BicycleDynamics,
     BicycleParams,
     blend_switch,
 )
-from ad_mpc_tpu_torch.ocp.solver import SolverState, SQPSolver
+from ad_mpc_tpu_torch.models.gp_quad import (
+    GPQuadDualDynamics, GPQuadDynamics, dual_gp_rows)
+from ad_mpc_tpu_torch.models.quadrotor import (
+    QuadDragDynamics, QuadDynamics, QuadrotorParams, quad_drag_rows,
+    quad_dynamics_lane)
+from ad_mpc_tpu_torch.ocp.solver import SolverState, SQPSolver, resolve_backend
 from ad_mpc_tpu_torch.ocp.spec import OCPSpec
 
 
@@ -194,3 +206,214 @@ def quad_spec(
         sqp_iters=sqp_iters,
         qp_iters=qp_iters,
     )
+
+
+def _per_vector(fn, x, u):
+    """``fn(x, u)`` of one state (13,) and input (4,), on entries-leading
+    tensors of any trailing shape: vmapped over the broadcast trailing
+    axes."""
+    if x.dim() == 1 and u.dim() == 1:
+        return fn(x, u)
+    shape = torch.broadcast_shapes(x.shape[1:], u.shape[1:])
+    xs = x.expand(x.shape[0], *shape).reshape(x.shape[0], -1).T
+    us = u.expand(u.shape[0], *shape).reshape(u.shape[0], -1).T
+    return vmap(fn)(xs, us).T.reshape(x.shape[0], *shape)
+
+
+class QuadModel(nn.Module):
+    """QuadMPC's dynamics for any combination of its options, on the plain
+    backend only (no functor): the quad, plus the RDRv drag
+    (``rdrv_d``), plus ``residual_fn(x, u)`` of one state (vmapped over the
+    trailing axes), plus the dual-state GP of ``ensemble`` (``p_dim = 1 +
+    2D``; else 0)."""
+
+    nx, nu = 13, 4
+
+    def __init__(self, params: QuadrotorParams = QuadrotorParams(),
+                 rdrv_d=None, residual_fn=None,
+                 ensemble: Optional[GPEnsemble] = None):
+        super().__init__()
+        self.params, self.residual_fn, self.ensemble = params, residual_fn, ensemble
+        self.D = (None if rdrv_d is None else
+                  [[float(v) for v in row] for row in np.asarray(rdrv_d, float)])
+        self.p_dim = 0 if ensemble is None else 1 + 2 * len(ensemble.out_idx)
+
+    def forward(self, x, u, p):
+        xd = quad_dynamics_lane(x, u, None, self.params)
+        if self.D is not None:
+            xd = add_rows(xd, quad_drag_rows(x, self.D))
+        if self.residual_fn is not None:
+            xd = xd + _per_vector(self.residual_fn, x, u)
+        if self.ensemble is not None:
+            xd = add_rows(xd, dual_gp_rows(self.ensemble, x, p))
+        return xd
+
+
+def quad_dynamics_for(params: QuadrotorParams = QuadrotorParams(), rdrv_d=None,
+                      residual_fn=None, ensemble=None):
+    """The dynamics of a QuadMPC mode: the one with a CUDA functor where the
+    mode has one, else :class:`QuadModel` (plain backend only).
+
+    ============================================  ==========================
+    mode                                          dynamics (functor)
+    ============================================  ==========================
+    nominal                                       QuadDynamics (QuadDyn)
+    ``rdrv_d=D``                                  QuadDragDynamics
+    ``residual_fn=quad_residual_fn(ens)``, one    GPQuadDynamics (GPQuadDyn:
+    cluster                                       the cluster is 0 at every
+                                                  evaluation)
+    ``ensemble=ens``                              GPQuadDualDynamics
+    ============================================  ==========================
+    """
+    if residual_fn is None and ensemble is None:
+        return (QuadDynamics(params) if rdrv_d is None
+                else QuadDragDynamics(rdrv_d, params))
+    if rdrv_d is None and residual_fn is None:
+        return GPQuadDualDynamics(ensemble, params)
+    if (rdrv_d is None and ensemble is None and isinstance(residual_fn, QuadResidual)
+            and residual_fn.ensemble.n_clusters == 1):
+        return GPQuadDynamics(residual_fn.ensemble, params)
+    return QuadModel(params, rdrv_d, residual_fn, ensemble)
+
+
+class QuadMPC:
+    """Quadrotor MPC facade (port of ``ad_mpc_tpu/control/mpc.py:221-400``):
+    one :class:`SQPSolver` over the dynamics of the mode
+    (:func:`quad_dynamics_for`), a quaternion retraction of the warm start,
+    and a solver-health watchdog.
+
+    GP mode (``ensemble`` given) is the reference's dual-state mechanism:
+    ``optimize(x0, gp_x0=...)`` evaluates the GP at node 0 on a second
+    (EKF) state estimate through a per-stage parameter row ``[trigger, mu0
+    (D), cluster (D)]`` with the trigger 1 at node 0 only; the cluster is
+    picked per solve by nearest centroid at the warm start's horizon
+    midpoint and pinned for the solve. Both run on the solver's device,
+    with the ensemble copied there once; ``last_cluster`` is kept as a
+    tensor and fetched when it is read.
+
+    ``device``/``backend``/``dtype`` are the solver's. On ``backend="cuda"``
+    a mode without a functor (any other combination of ``rdrv_d``,
+    ``residual_fn`` and ``ensemble``, a residual other than
+    ``quad_residual_fn`` of a one-cluster ensemble) raises
+    ``NotImplementedError``; the plain backend takes them all.
+    """
+
+    HEALTH_LIMIT = 100.0  # m/s: a larger |v| in the iterate is a divergence
+
+    def __init__(self, params: QuadrotorParams = QuadrotorParams(),
+                 spec: Optional[OCPSpec] = None, rdrv_d=None, residual_fn=None,
+                 ensemble: Optional[GPEnsemble] = None, dtype=torch.float32,
+                 device="cuda", backend: str = "auto"):
+        self.params = params
+        self.spec = spec if spec is not None else quad_spec()
+        self.ensemble = ensemble
+        self.n_resets = 0  # solver-health resets (observability)
+        self._last_cluster = None
+        self.device, self.dtype = torch.device(device), dtype
+        dyn = quad_dynamics_for(params, rdrv_d, residual_fn, ensemble)
+        if (resolve_backend(backend, device) == "cuda"
+                and getattr(dyn, "cuda_entry", None) is None):
+            raise NotImplementedError(
+                "QuadMPC on backend='cuda' runs the nominal, rdrv_d, "
+                "quad_residual_fn of a one-cluster ensemble and ensemble "
+                "modes alone; this combination needs the parameter-routed GP "
+                "functor (ROADMAP Queue B1 (a)) or backend='plain'")
+        self.solver = SQPSolver(self.spec, dyn, p_dim=dyn.p_dim, dtype=dtype,
+                                device=device, backend=backend)
+        N = self.spec.n_nodes
+        if ensemble is not None:
+            self._ens = on_device(ensemble, dtype, self.device)
+            self._trigger = torch.zeros((N, 1), dtype=dtype, device=self.device)
+            self._trigger[0, 0] = 1.0
+        self._no_params = torch.zeros((0,), dtype=dtype, device=self.device)
+        self.state: Optional[SolverState] = None
+        self._yref_x = None
+        self._yref_u = None
+
+    def _tensor(self, a):
+        return torch.as_tensor(a, device=self.device).to(self.dtype)
+
+    @property
+    def last_cluster(self):
+        """The cluster per output dim of the last GP-mode solve (numpy), or
+        None."""
+        c = self._last_cluster
+        return None if c is None else c.cpu().numpy()
+
+    def set_reference(self, x_ref, u_ref=None):
+        """x_ref: (M, 13) state reference, one row tiled over the horizon,
+        else padded or truncated to N+1 rows by repeating the last row."""
+        N = self.spec.n_nodes
+        x_ref = np.atleast_2d(np.asarray(x_ref, dtype=float))
+        if x_ref.shape[0] == 1:
+            x_ref = np.tile(x_ref, (N + 1, 1))
+        if u_ref is None:
+            u_ref = np.zeros((x_ref.shape[0], 4))
+        u_ref = np.atleast_2d(np.asarray(u_ref, dtype=float))
+        while x_ref.shape[0] < N + 1:
+            x_ref = np.vstack([x_ref, x_ref[-1:]])
+            u_ref = np.vstack([u_ref, u_ref[-1:]])
+        self._yref_x = self._tensor(x_ref[: N + 1])
+        self._yref_u = self._tensor(u_ref[:N])
+
+    def _stage_params(self, x0, gp_x0):
+        """(N, 1+2D) per-stage rows of the GP mode, or the empty p."""
+        if self.ensemble is None:
+            return self._no_params
+        ens, N = self._ens, self.spec.n_nodes
+        z_mid = body_frame_features(self.state.xs[N // 2], ens.feat_idx)
+        cl = select_cluster(ens, z_mid)
+        self._last_cluster = cl
+        x_gp = x0 if gp_x0 is None else self._tensor(gp_x0)
+        mu0 = predict(ens, body_frame_features(x_gp, ens.feat_idx), cluster_idx=cl)
+        row = torch.cat([mu0, cl.to(mu0.dtype)])
+        return torch.cat([self._trigger, row.expand(N, -1)], dim=1)
+
+    def _warm_start(self, x0):
+        """The solve's warm start: the cold start from x0, or the RTI
+        retraction of the stored iterate's quaternions back to unit norm
+        before linearizing (the OCP treats q as 4 free states; at one
+        Gauss-Newton iteration the norm can drift far off). The
+        max(norm, 1e-8) guard keeps a zero quaternion finite, which the
+        JAX package divides by unguarded."""
+        if self.state is None:
+            self.state = self.solver.init_state(x0)
+            return
+        xs = self.state.xs.clone()
+        qs = xs[:, 3:7]
+        xs[:, 3:7] = qs / torch.linalg.norm(qs, dim=1, keepdim=True).clamp(min=1e-8)
+        self.state = self.state._replace(xs=xs)
+
+    @staticmethod
+    def _health(res):
+        """inf when an entry of us or xs is not finite, else max |v|."""
+        ok = torch.isfinite(res.us).all() & torch.isfinite(res.xs).all()
+        return torch.where(ok, res.xs[:, 7:10].abs().max(),
+                           torch.full_like(res.xs[0, 0], float("inf")))
+
+    def optimize(self, x0, gp_x0=None):
+        """One solve; returns (us (N,4), xs (N+1,13)) on the solver's device.
+        ``gp_x0``: a second (EKF) state estimate used only for the node-0 GP
+        evaluation; the dynamics and the x0 bound use ``x0``. The watchdog's
+        one scalar fetch is the solve's only host synchronization."""
+        x0 = self._tensor(x0)
+        self._warm_start(x0)
+        params = self._stage_params(x0, gp_x0)
+        res = self.solver.solve(x0, self._yref_x, self._yref_u, params, self.state)
+        if not float(self._health(res)) < self.HEALTH_LIMIT:
+            # A non-finite or implausible iterate would poison every later
+            # warm start: reset to the current state and re-solve once.
+            self.n_resets += 1
+            self.state = self.solver.init_state(x0)
+            res = self.solver.solve(x0, self._yref_x, self._yref_u, params,
+                                    self.state)
+            if not float(self._health(res)) < self.HEALTH_LIMIT:
+                # Still pathological from a cold start: keep no iterate (the
+                # next solve starts fresh); the caller gets this output.
+                self.state = None
+                return res.us, res.xs
+        self.state = self.solver.shift(res.state)
+        return res.us, res.xs
+
+    def reset(self):
+        self.state = None

@@ -46,7 +46,7 @@ def gp_ensemble(ens) -> GPEnsemble:
     """The port's :class:`GPEnsemble` from the JAX package's: its arrays as
     float64 numpy (the port keeps them on the host), ``n_valid`` as int32,
     ``out_idx`` and ``feat_idx`` as they are."""
-    f64 = lambda a: np.asarray(a, np.float64)
+    f64 = lambda a: np.array(a, np.float64)
     return GPEnsemble(
         x_train=f64(ens.x_train), k_inv_y=f64(ens.k_inv_y),
         len_scale=f64(ens.len_scale), sigma_f=f64(ens.sigma_f),

@@ -66,8 +66,11 @@
 //     entries per evaluation).
 // The dynamics is a __device__ functor templated on the scalar type, with
 // one pair of C entries per functor (vde_<model>, rk4_<model>): the blended
-// bicycle, the quadrotor, the Pacejka bicycle, the GP-augmented bicycle and
-// the GP-augmented quadrotor.
+// bicycle, the quadrotor, the Pacejka bicycle, the GP-augmented bicycle, the
+// GP-augmented quadrotor, the quadrotor with the RDRv drag and the
+// dual-state GP quadrotor of QuadMPC (its GP table in a device buffer whose
+// pointer rides in the struct, staged into dynamic shared memory once per
+// block: more than one cluster does not fit the 4 KB of kernel parameters).
 // A functor states NX, NU, NP (parameter entries it reads; a launch with
 // fewer is refused, and NP = 0 never reads ps), TANGENTS_PER_PASS and
 // ROW_WARPS, and a per-thread context Ctx built once from the scenario's
@@ -81,9 +84,9 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (no --use_fast_math: IEEE sinf/cosf/atanf/expf and
 //        division). -D<MODEL>_TANGENTS_PER_PASS=n and -D<MODEL>_ROW_WARPS=n
-//        (MODEL: QUAD, PACEJKA, GP_BICYCLE, GP_QUAD) override a functor's
-//        traits (the measurements of experiments/quad_kernels.py and
-//        experiments/bicycle_kernels.py).
+//        (MODEL: QUAD, PACEJKA, GP_BICYCLE, GP_QUAD, QUAD_DRAG, GP_QUAD_DUAL)
+//        override a functor's traits (the measurements of
+//        experiments/quad_kernels.py and experiments/bicycle_kernels.py).
 
 #include <cuda_runtime.h>
 
@@ -117,6 +120,18 @@
 #endif
 #ifndef GP_QUAD_ROW_WARPS
 #define GP_QUAD_ROW_WARPS 2
+#endif
+#ifndef QUAD_DRAG_TANGENTS_PER_PASS
+#define QUAD_DRAG_TANGENTS_PER_PASS 3
+#endif
+#ifndef QUAD_DRAG_ROW_WARPS
+#define QUAD_DRAG_ROW_WARPS 1
+#endif
+#ifndef GP_QUAD_DUAL_TANGENTS_PER_PASS
+#define GP_QUAD_DUAL_TANGENTS_PER_PASS 3
+#endif
+#ifndef GP_QUAD_DUAL_ROW_WARPS
+#define GP_QUAD_DUAL_ROW_WARPS 2
 #endif
 
 constexpr int WARP = 32;
@@ -610,6 +625,69 @@ constexpr int GP_QUAD_EVAL = GP_QUAD_DIMS * (1 + GP_QUAD_FEATS);
 // Evaluations a sweep's cache holds: one RK4 step.
 constexpr int GP_QUAD_CACHE_EVALS = 4;
 
+// R(q) of the quaternion q = (w, x, y, z), in float or as duals.
+template <class T>
+DI void rot_matrix(const T* q, T (*R)[3]) {
+  const T &qw = q[0], &qx = q[1], &qy = q[2], &qz = q[3];
+  R[0][0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+  R[0][1] = 2.0f * (qx * qy - qw * qz);
+  R[0][2] = 2.0f * (qx * qz + qw * qy);
+  R[1][0] = 2.0f * (qx * qy + qw * qz);
+  R[1][1] = 1.0f - 2.0f * (qx * qx + qz * qz);
+  R[1][2] = 2.0f * (qy * qz - qw * qx);
+  R[2][0] = 2.0f * (qx * qz - qw * qy);
+  R[2][1] = 2.0f * (qy * qz + qw * qx);
+  R[2][2] = 1.0f - 2.0f * (qx * qx + qy * qy);
+}
+
+// The means cache of a GP quad's sweep (GPQuadDyn, GPQuadDualDyn): the
+// thread's slot of shared memory, a column of GP_QUAD_EVAL floats per
+// evaluation (STRIDE apart), which the first pass fills and the later
+// passes read, since the means depend on the primal alone.
+struct GPQuadCache {
+  float* cache = nullptr;  // the thread's slot, or none
+  int evals = 0;           // evaluations per pass
+  mutable int calls = 0;   // evaluations so far
+
+  // The slot, when a pass's evaluations fit it.
+  DI void use(float* slot, int n) {
+    if (n <= GP_QUAD_CACHE_EVALS) {
+      cache = slot;
+      evals = n;
+    }
+  }
+
+  // The means and gradients that means(mu, g) computes: computed, or, in a
+  // sweep's later passes, read from the slot.
+  template <class T, int STRIDE, class Means>
+  DI void means_of(const Means& means, float* mu, float (*g)[GP_QUAD_FEATS]) const {
+    if (std::is_same<T, float>::value || cache == nullptr) {
+      means(mu, g);
+      return;
+    }
+    const int e = calls++;
+    float* slot = cache + (e % evals) * GP_QUAD_EVAL * STRIDE;
+    if (e < evals) {
+      means(mu, g);
+#pragma unroll
+      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
+        slot[d * STRIDE] = mu[d];
+#pragma unroll
+        for (int k = 0; k < GP_QUAD_FEATS; ++k)
+          slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE] = g[d][k];
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
+        mu[d] = slot[d * STRIDE];
+#pragma unroll
+        for (int k = 0; k < GP_QUAD_FEATS; ++k)
+          g[d][k] = slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE];
+      }
+    }
+  }
+};
+
 // The residual r = R(q) mu(v_b), v_b = R(q)^T v, of the GP quad at the
 // primal, and its Jacobian J (3 x 7) with respect to (q_w, q_x, q_y, q_z,
 // v_x, v_y, v_z), in float, from R, the means mu and their gradients G
@@ -665,22 +743,12 @@ struct GPQuadDyn {
   static constexpr int ROW_WARPS = GP_QUAD_ROW_WARPS;
   static constexpr bool STAGES = true;
   static constexpr int CACHE_FLOATS = GP_QUAD_CACHE_EVALS * GP_QUAD_EVAL;
-  struct Ctx {
-    float* cache = nullptr;  // the thread's slot, or none
-    int evals = 0;           // evaluations per pass
-    mutable int calls = 0;   // evaluations so far
-  };
+  using Ctx = GPQuadCache;
   GPQuadParamsC P;
 
   DI Ctx context(const float*) const { return Ctx{}; }
 
-  // The thread's slot, when a pass's evaluations fit it.
-  DI void use_cache(Ctx& c, float* slot, int evals) const {
-    if (evals <= GP_QUAD_CACHE_EVALS) {
-      c.cache = slot;
-      c.evals = evals;
-    }
-  }
+  DI void use_cache(Ctx& c, float* slot, int evals) const { c.use(slot, evals); }
 
   DI void stage() const {
     const float* src = &P.X[0][0][0];
@@ -697,38 +765,6 @@ struct GPQuadDyn {
           P.n, P.inv_l[d], P.y_mean[d], z, g[d]);
   }
 
-  // The means and gradients at v_b: computed, or, in a sweep's later
-  // passes, read from the thread's slot.
-  template <class T>
-  DI void means_of(const Ctx& c, const float* vb, float* mu,
-                   float (*g)[GP_QUAD_FEATS]) const {
-    constexpr int STRIDE = ROW_WARPS * WARP;
-    if (std::is_same<T, float>::value || c.cache == nullptr) {
-      means(vb, mu, g);
-      return;
-    }
-    const int e = c.calls++;
-    float* slot = c.cache + (e % c.evals) * GP_QUAD_EVAL * STRIDE;
-    if (e < c.evals) {
-      means(vb, mu, g);
-#pragma unroll
-      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
-        slot[d * STRIDE] = mu[d];
-#pragma unroll
-        for (int k = 0; k < GP_QUAD_FEATS; ++k)
-          slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE] = g[d][k];
-      }
-    } else {
-#pragma unroll
-      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
-        mu[d] = slot[d * STRIDE];
-#pragma unroll
-        for (int k = 0; k < GP_QUAD_FEATS; ++k)
-          g[d][k] = slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE];
-      }
-    }
-  }
-
   template <class T>
   DI void operator()(const T* x, const T* u, const Ctx& c, T* xd) const {
     quad_xdot(P.quad, x, u, xd);
@@ -737,18 +773,14 @@ struct GPQuadDyn {
     for (int i = 0; i < 4; ++i) q[i] = value(x[3 + i]);
 #pragma unroll
     for (int i = 0; i < 3; ++i) v[i] = value(x[7 + i]);
-    float R[3][3] = {
-        {1.0f - 2.0f * (q[2] * q[2] + q[3] * q[3]), 2.0f * (q[1] * q[2] - q[0] * q[3]),
-         2.0f * (q[1] * q[3] + q[0] * q[2])},
-        {2.0f * (q[1] * q[2] + q[0] * q[3]), 1.0f - 2.0f * (q[1] * q[1] + q[3] * q[3]),
-         2.0f * (q[2] * q[3] - q[0] * q[1])},
-        {2.0f * (q[1] * q[3] - q[0] * q[2]), 2.0f * (q[2] * q[3] + q[0] * q[1]),
-         1.0f - 2.0f * (q[1] * q[1] + q[2] * q[2])}};
+    float R[3][3];
+    rot_matrix(q, R);
     float vb[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) vb[r] = R[0][r] * v[0] + R[1][r] * v[1] + R[2][r] * v[2];
     float mu[GP_QUAD_DIMS], g[GP_QUAD_DIMS][GP_QUAD_FEATS];
-    means_of<T>(c, vb, mu, g);
+    c.means_of<T, ROW_WARPS * WARP>(
+        [&](float* m, float (*gm)[GP_QUAD_FEATS]) { means(vb, m, gm); }, mu, g);
     float res[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) res[r] = R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2];
@@ -763,6 +795,218 @@ struct GPQuadDyn {
     }
   }
 };
+
+// The RDRv linear drag of ad_mpc_tpu/models/quadrotor.py:90-92 on the
+// velocity rows, t = R(q) D R(q)^T v, with D a 3x3 matrix, entrywise in the
+// order of models/quadrotor.py:quad_drag_rows: v_b = R^T v, w = D v_b,
+// t = R w, every product carried as duals of (q, v). On an H100 at
+// B=16384, N=10 (PERF.md section 6) these duals at 3 tangents per pass
+// spill nothing; a float-Jacobian lift (as gp_quad_jacobian lifts the GP
+// quad's residual) tied with them at 3 per pass (0.4216 against 0.4241 ms)
+// and spilled 2,520 B at 6, where the duals spilled 3,244 B.
+template <class T>
+DI void quad_drag_terms(const float (&D)[3][3], const T* x, T* t) {
+  T R[3][3], vb[3], w[3];
+  rot_matrix(x + 3, R);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) vb[k] = R[0][k] * x[7] + R[1][k] * x[8] + R[2][k] * x[9];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) w[r] = D[r][0] * vb[0] + D[r][1] * vb[1] + D[r][2] * vb[2];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) t[r] = R[r][0] * w[0] + R[r][1] * w[1] + R[r][2] * w[2];
+}
+
+struct QuadDragParamsC {  // by value from the wrapper (models/quadrotor.py)
+  QuadParamsC quad;
+  float D[3][3];  // the RDRv drag matrix
+};
+
+// The quadrotor with the RDRv drag of the QuadMPC's rdrv_d mode
+// (ad_mpc_tpu/control/mpc.py:286-290); p is not read.
+struct QuadDragDyn {
+  static constexpr int NX = 13, NU = 4, NP = 0;
+  static constexpr int TANGENTS_PER_PASS = QUAD_DRAG_TANGENTS_PER_PASS;
+  static constexpr int ROW_WARPS = QUAD_DRAG_ROW_WARPS;
+  static constexpr bool STAGES = false;
+  static constexpr int CACHE_FLOATS = 0;
+  using Ctx = const float*;
+  QuadDragParamsC P;
+
+  DI Ctx context(const float* p) const { return p; }
+
+  template <class T>
+  DI void operator()(const T* x, const T* u, const float*, T* xd) const {
+    quad_xdot(P.quad, x, u, xd);
+    T t[3];
+    quad_drag_terms(P.D, x, t);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + t[r];
+  }
+};
+
+// Capacity of GPQuadDualDyn's table: clusters x points of each output dim.
+constexpr int GP_DUAL_CLUSTERS = 16, GP_DUAL_POINTS = 512;
+// Floats of the largest table (gp_dual_table_floats at the capacity).
+constexpr int GP_DUAL_TABLE_MAX = 3 * (4 * GP_DUAL_POINTS + 4 * GP_DUAL_CLUSTERS);
+
+struct GPQuadDualParamsC {  // by value from the wrapper (models/gp_quad.py)
+  QuadParamsC quad;
+  const float* table;  // device: X, a, 1/l, y_mean (gp_dual_table)
+  int clusters, n;     // clusters, points per cluster (padded)
+  int d_out;           // D: p = [trigger, mu0 (D), cluster (D)]
+  int slot[3];         // the output k in p of body velocity r, or -1
+};
+
+// The table of GPQuadDualDyn, as the wrapper lays it out in device memory
+// and each block copies it to shared memory, padded to the 3 body
+// velocities as outputs and features (an unused output has a = 0 and
+// y_mean = 0, an unused feature 1/l = 0: exact zeros that leave the used
+// dims' arithmetic as it is): X (3, C, n, 3), a = k_inv_y sigma_f
+// (3, C, n), 1/l (3, C, 3), y_mean (3, C).
+struct GPDualTable {
+  const float* base;
+  int clusters, n;
+  DI const float* X(int d, int c) const { return base + (d * clusters + c) * n * 3; }
+  DI const float* a(int d, int c) const {
+    return base + 9 * clusters * n + (d * clusters + c) * n;
+  }
+  DI const float* inv_l(int d, int c) const {
+    return base + 12 * clusters * n + (d * clusters + c) * 3;
+  }
+  DI float y_mean(int d, int c) const {
+    return base[12 * clusters * n + 9 * clusters + d * clusters + c];
+  }
+};
+__host__ __device__ constexpr int gp_dual_table_floats(int clusters, int n) {
+  return 3 * clusters * (4 * n + 4);
+}
+
+// The layout a launch of GPQuadDualDyn may take: at least one output, a
+// p of 1 + 2D entries, a table within capacity, each output in one slot.
+static bool params_ok(const GPQuadDualParamsC& P, int pd) {
+  if (P.table == nullptr || P.d_out < 1 || P.d_out > 3 || pd != 1 + 2 * P.d_out ||
+      P.clusters < 1 || P.clusters > GP_DUAL_CLUSTERS || P.n < 1 ||
+      P.clusters * P.n > GP_DUAL_POINTS)
+    return false;
+  int seen = 0;
+  for (int r = 0; r < 3; ++r) {
+    if (P.slot[r] < -1 || P.slot[r] >= P.d_out) return false;
+    if (P.slot[r] >= 0) seen |= 1 << P.slot[r];
+  }
+  return seen == (1 << P.d_out) - 1;
+}
+template <class ParamsC>
+static bool params_ok(const ParamsC&, int) { return true; }
+
+// The quadrotor plus the dual-state GP of QuadMPC's ensemble mode
+// (ad_mpc_tpu/control/mpc.py:264-283): each scenario's p is [trigger,
+// mu0 (D), cluster (D)]. With trigger > 0.5 (node 0) the body-frame means
+// are the constants mu0, whose derivative in x is 0: the residual's
+// Jacobian is (dR/dq) mu0 alone, and no GP mean is computed, stored or
+// read. Otherwise each output's mean comes from the cluster its p names
+// (truncated as .astype(int32) truncates, clamped to the table as a JAX
+// gather clamps) at the body-frame velocities, lifted as GPQuadDyn lifts
+// it, its means cached by the first pass for the later ones. The table of
+// every cluster lies in dynamic shared memory (staged once per block), so
+// the scenarios of a block may each read another cluster.
+struct GPQuadDualDyn {
+  static constexpr int NX = 13, NU = 4, NP = 3;  // NP: the least p (D = 1)
+  static constexpr int TANGENTS_PER_PASS = GP_QUAD_DUAL_TANGENTS_PER_PASS;
+  static constexpr int ROW_WARPS = GP_QUAD_DUAL_ROW_WARPS;
+  static constexpr bool STAGES = false;
+  static constexpr int CACHE_FLOATS = GP_QUAD_CACHE_EVALS * GP_QUAD_EVAL;
+  struct Ctx : GPQuadCache {
+    const float* tab = nullptr;  // the staged table
+    bool trigger = false;
+    float mu0[3] = {0.0f, 0.0f, 0.0f};  // by body velocity
+    int cl[3] = {0, 0, 0};
+  };
+  GPQuadDualParamsC P;
+
+  DI Ctx context(const float* p) const {
+    Ctx c;
+    c.trigger = p[0] > 0.5f;
+#pragma unroll
+    for (int r = 0; r < 3; ++r) {
+      const int k = P.slot[r];
+      if (k >= 0) {
+        c.mu0[r] = p[1 + k];
+        c.cl[r] = min(max((int)p[1 + P.d_out + k], 0), P.clusters - 1);
+      }
+    }
+    return c;
+  }
+
+  __host__ __device__ int table_floats() const {
+    return gp_dual_table_floats(P.clusters, P.n);
+  }
+
+  DI void stage_to(float* dst) const {
+    const int len = table_floats();
+    for (int i = threadIdx.x; i < len; i += blockDim.x) dst[i] = P.table[i];
+  }
+
+  DI void use_table(Ctx& c, const float* tab) const { c.tab = tab; }
+
+  DI void use_cache(Ctx& c, float* slot, int evals) const { c.use(slot, evals); }
+
+  DI void means(const Ctx& c, const float* z, float* mu,
+                float (*g)[GP_QUAD_FEATS]) const {
+    const GPDualTable t{c.tab, P.clusters, P.n};
+#pragma unroll
+    for (int d = 0; d < 3; ++d)
+      mu[d] = gp_table_mean<GP_QUAD_FEATS>(t.X(d, c.cl[d]), t.a(d, c.cl[d]), P.n,
+                                           t.inv_l(d, c.cl[d]), t.y_mean(d, c.cl[d]),
+                                           z, g[d]);
+  }
+
+  template <class T>
+  DI void operator()(const T* x, const T* u, const Ctx& c, T* xd) const {
+    quad_xdot(P.quad, x, u, xd);
+    float q[4], v[3];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q[i] = value(x[3 + i]);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) v[i] = value(x[7 + i]);
+    float R[3][3];
+    rot_matrix(q, R);
+    float mu[GP_QUAD_DIMS], g[GP_QUAD_DIMS][GP_QUAD_FEATS];
+    if (c.trigger) {
+#pragma unroll
+      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
+        mu[d] = c.mu0[d];
+#pragma unroll
+        for (int k = 0; k < GP_QUAD_FEATS; ++k) g[d][k] = 0.0f;
+      }
+    } else {
+      float vb[3];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) vb[r] = R[0][r] * v[0] + R[1][r] * v[1] + R[2][r] * v[2];
+      c.means_of<T, ROW_WARPS * WARP>(
+          [&](float* m, float (*gm)[GP_QUAD_FEATS]) { means(c, vb, m, gm); }, mu, g);
+    }
+    float res[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r) res[r] = R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2];
+    if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+      for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + res[r];
+    } else {
+      float J[3][7];
+      gp_quad_jacobian(q, v, R, mu, g, J);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + gp_lift<7>(res[r], J[r], x + 3);
+    }
+  }
+};
+
+// A functor with a table in dynamic shared memory (GPQuadDualDyn): the
+// kernels stage it after their own shared memory and hand each thread's
+// context its address.
+template <class Dyn, class = void>
+struct dyn_table : std::false_type {};
+template <class Dyn>
+struct dyn_table<Dyn, std::void_t<decltype(&Dyn::table_floats)>> : std::true_type {};
 
 // ------------------------------------------------------------- kernels
 
@@ -892,9 +1136,16 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   constexpr int TILE_C = TILE_B + WARP * NX * NU;
   constexpr int TILE = vde_tile<Dyn>();
   static_assert(TILE % 4 == 0, "tiles start on 16 bytes");
-  extern __shared__ float4 smem[];  // ROW_WARPS tiles, then the functor's cache
+  // ROW_WARPS tiles, then the functor's cache, then its table (dyn_table)
+  extern __shared__ float4 smem[];
+  float* const table =
+      reinterpret_cast<float*>(smem) + ROW_WARPS * (TILE + WARP * Dyn::CACHE_FLOATS);
   if constexpr (Dyn::STAGES) {
     f.stage();
+    __syncthreads();
+  }
+  if constexpr (dyn_table<Dyn>::value) {
+    f.stage_to(table);
     __syncthreads();
   }
 
@@ -916,6 +1167,7 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   for (int i = 0; i < NU; ++i) u0[i] = us[row * NU + i];
 
   typename Dyn::Ctx ctx = f.context(ps + b * pd);
+  if constexpr (dyn_table<Dyn>::value) f.use_table(ctx, table);
   if constexpr (Dyn::CACHE_FLOATS > 0)
     f.use_cache(ctx, reinterpret_cast<float*>(smem) + ROW_WARPS * TILE + threadIdx.x,
                 4 * st.n);
@@ -943,8 +1195,13 @@ rk4_kernel(const float* __restrict__ xs, long long xs_b,
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
   __shared__ float4 smem[RK4_ROW_WARPS * WARP * NX / 4];
+  extern __shared__ float4 rk4_table[];  // a dyn_table functor's table
   if constexpr (Dyn::STAGES) {
     f.stage();
+    __syncthreads();
+  }
+  if constexpr (dyn_table<Dyn>::value) {
+    f.stage_to(reinterpret_cast<float*>(rk4_table));
     __syncthreads();
   }
 
@@ -964,7 +1221,10 @@ rk4_kernel(const float* __restrict__ xs, long long xs_b,
 #pragma unroll
   for (int i = 0; i < NU; ++i) u[i] = uk[i];
 
-  rk4_map(x, u, f.context(ps + b * ps_b), f, st);
+  typename Dyn::Ctx ctx = f.context(ps + b * ps_b);
+  if constexpr (dyn_table<Dyn>::value)
+    f.use_table(ctx, reinterpret_cast<const float*>(rk4_table));
+  rk4_map(x, u, ctx, f, st);
 
 #pragma unroll
   for (int i = 0; i < NX; ++i) tile[lane * NX + i] = defect ? x[i] - xk[NX + i] : x[i];
@@ -994,9 +1254,12 @@ static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
   const long long rows = (long long)batch * N;
   if (rows == 0) return cudaSuccess;
   constexpr int RW = Dyn::ROW_WARPS;
-  // A tile per warp, then CACHE_FLOATS per thread for the functor.
-  constexpr size_t bytes = sizeof(float) * RW * (vde_tile<Dyn>() + WARP * Dyn::CACHE_FLOATS);
-  if (bytes > 48 * 1024) {
+  // A tile per warp, then CACHE_FLOATS per thread for the functor, then its
+  // table (a dyn_table functor's limit is set once, by vde_prepare).
+  size_t bytes = sizeof(float) * RW * (vde_tile<Dyn>() + WARP * Dyn::CACHE_FLOATS);
+  if constexpr (dyn_table<Dyn>::value) {
+    bytes += sizeof(float) * f.table_floats();
+  } else if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return err;
@@ -1017,7 +1280,9 @@ static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
   const long long rows = (long long)batch * N;
   if (rows == 0) return cudaSuccess;
   const long long grid = (rows + RK4_ROW_WARPS * WARP - 1) / (RK4_ROW_WARPS * WARP);
-  rk4_kernel<Dyn><<<(unsigned)grid, RK4_ROW_WARPS * WARP, 0, (cudaStream_t)stream>>>(
+  size_t bytes = 0;
+  if constexpr (dyn_table<Dyn>::value) bytes = sizeof(float) * f.table_floats();
+  rk4_kernel<Dyn><<<(unsigned)grid, RK4_ROW_WARPS * WARP, bytes, (cudaStream_t)stream>>>(
       xs, xs_b, us, us_b, us_k, ps, ps_b, out, batch, N, defect,
       steps_of(dt, steps), f);
   return cudaGetLastError();
@@ -1036,12 +1301,14 @@ static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
 // rk4_<model>: out (batch, N, nx) = F(x_{b,k}, u_{b,k}; p_b), minus
 // x_{b,k+1} when defect != 0. Strides in floats: x_{b,k} at
 // xs + b*xs_b + nx*k, u_{b,k} at us + b*us_b + k*us_k, p_b at ps + b*ps_b;
-// each row's entries adjacent. The step mode is N = 1.
+// each row's entries adjacent. The step mode is N = 1. A parameter struct
+// that params_ok refuses (GPQuadDualDyn's layout) is refused likewise.
 #define VDE_ENTRIES(model, Dyn, ParamsC)                                      \
   int vde_##model(const float* xs, const float* us, const float* ps,         \
                   float* A, float* Bm, float* c, int batch, int N, int nx,   \
                   int nu, int pd, double dt, int rk4_steps, ParamsC params,  \
                   void* stream) {                                            \
+    if (!params_ok(params, pd)) return (int)cudaErrorInvalidValue;           \
     return (int)launch_vde(xs, us, ps, A, Bm, c, batch, N, nx, nu, pd, dt,   \
                            rk4_steps, Dyn{params}, stream);                  \
   }                                                                          \
@@ -1050,6 +1317,7 @@ static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
                   long long ps_b, float* out, int batch, int N, int nx,      \
                   int nu, int pd, int defect, double dt, int rk4_steps,      \
                   ParamsC params, void* stream) {                            \
+    if (!params_ok(params, pd)) return (int)cudaErrorInvalidValue;           \
     return (int)launch_rk4(xs, xs_b, us, us_b, us_k, ps, ps_b, out, batch,   \
                            N, nx, nu, pd, defect, dt, rk4_steps, Dyn{params}, \
                            stream);                                          \
@@ -1062,6 +1330,25 @@ VDE_ENTRIES(quad, QuadDyn, QuadParamsC)
 VDE_ENTRIES(pacejka, PacejkaDyn, PacejkaParamsC)
 VDE_ENTRIES(gp_bicycle, GPBicycleDyn, GPBicycleParamsC)
 VDE_ENTRIES(gp_quad, GPQuadDyn, GPQuadParamsC)
+VDE_ENTRIES(quad_drag, QuadDragDyn, QuadDragParamsC)
+VDE_ENTRIES(gp_quad_dual, GPQuadDualDyn, GPQuadDualParamsC)
+
+// At the library's first load: let the kernels of a dyn_table functor take
+// the shared memory of its largest table, so that no launch sets an
+// attribute and a launch may be captured in a CUDA graph.
+int vde_prepare() {
+  using Dyn = GPQuadDualDyn;
+  constexpr int table = GP_DUAL_TABLE_MAX;
+  const int vde_bytes = (int)(sizeof(float) * (Dyn::ROW_WARPS * (vde_tile<Dyn>() +
+                                                                 WARP * Dyn::CACHE_FLOATS) +
+                                               table));
+  cudaError_t err = cudaFuncSetAttribute(
+      vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize, vde_bytes);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaFuncSetAttribute(rk4_kernel<Dyn>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)(sizeof(float) * table));
+}
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 

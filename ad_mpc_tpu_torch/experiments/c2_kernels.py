@@ -1,7 +1,8 @@
 """Bits and device times of the c2 kernels (the bicycle VDE sweep and the
 7x2 LQ kernel), bits of the c5 kernels (the quad VDE sweep, the quad RK4
-map and the 13x4 LQ kernel) and of the c3 and c4 functors (the GP-bicycle's
-and the Pacejka's VDE sweep and RK4 map), and device times of the 13x4 LQ
+map and the 13x4 LQ kernel), of the c3 and c4 functors (the GP-bicycle's
+and the Pacejka's VDE sweep and RK4 map) and of the c6 functor (the GP
+quad's), and device times of the 13x4 LQ
 kernel, of whichever ``ad_mpc_tpu_torch`` is imported, so that two trees
 can be compared on one card in one call:
 
@@ -11,11 +12,13 @@ can be compared on one card in one call:
 Run as a file, it imports the package from ``PYTHONPATH`` (or the working
 directory), and uses only the c2 entry points of the package (none of the
 quad's helpers but in :func:`c5_bits`, which needs a tree with the quad,
-and :func:`c3_c4_bits`, which needs one with the GP bicycle and the
-Pacejka). Prints one JSON line: the package's path; the sha256 digests of
+:func:`c3_c4_bits`, which needs one with the GP bicycle and the Pacejka,
+and :func:`c6_bits`, which needs one with the GP quad and its fitted
+model). Prints one JSON line: the package's path; the sha256 digests of
 the kernels' outputs on the fixed draws of
 ``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits``,
-``test_c5_kernels_keep_their_bits`` and ``test_c3_c4_kernels_keep_their_bits``;
+``test_c5_kernels_keep_their_bits``, ``test_c3_c4_kernels_keep_their_bits``
+and ``test_c6_kernels_keep_their_bits``;
 device ms by CUDA-graph replay (:func:`replay_ms`, written here with torch
 alone so that it times an older tree too) at c2's B=16384 (the sweep on
 ``random_traj``, N=30; the 7x2 LQ kernel on the third c2 tick's QPs) and
@@ -91,6 +94,31 @@ def c3_c4_bits(dev):
         out[f"vde_{name}"] = digest(*vde(xs, us, ps))
         out[f"rk4_{name}"] = digest(rk4.defect(xs, us, ps),
                                     rk4(xs[:, 0], us[:, 0], ps))
+    return out
+
+
+def c6_bits(dev):
+    """Digests of the c6 functor's outputs on the fixed draws of
+    :func:`c5_bits` (B=37, N=10): the VDE sweep and both modes of the RK4
+    map of the GP quad with the synthetic 32-point ensemble and with the
+    fitted 60-point one."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import quad_traj
+
+    xs, us = (torch.as_tensor(a, device=dev)
+              for a in quad_traj(np.random.default_rng(8), 37, 10))
+    ps = torch.zeros((37, 0), device=dev)
+    out = {}
+    for name, ens in (("n32", quad_fleet.make_quad_gp_ensemble()),
+                      ("fitted", quad_fleet.fitted_ensemble())):
+        dyn = GPQuadDynamics(ens)
+        vde = make_vde(dyn, 0.1, 10, 13, 4, 0, device=dev)
+        rk4 = make_rk4(dyn, 0.1, 13, 4, 0, device=dev)
+        out[f"vde_gp_quad_{name}"] = digest(*vde(xs, us, ps))
+        out[f"rk4_gp_quad_{name}"] = digest(rk4.defect(xs, us, ps),
+                                            rk4(xs[:, 0], us[:, 0], ps))
     return out
 
 
@@ -177,6 +205,7 @@ def main(argv=None):
     res["bits"] = {"vde": digest(*vde(xs, us, ps)), "lq_ipm": digest(*qp(*lq_args))}
     res["bits_c5"] = c5_bits(dev)
     res["bits_c3_c4"] = c3_c4_bits(dev)
+    res["bits_c6"] = c6_bits(dev)
 
     # Device times at c2's B=16384.
     B = 16384

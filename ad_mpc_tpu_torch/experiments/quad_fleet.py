@@ -51,6 +51,9 @@ RTI_GATE = 1e-3  # max |u0_deployed - u0_converged|, c5 and c6
 # (results/model_fitting/256298c/gp_flagship_c1), carried across by
 # ``convert.save_gp_ensemble``.
 FITTED_NPZ = Path(__file__).resolve().parents[1] / "data" / "gp_flagship_c1.npz"
+# The flagship's fitted RDRv drag matrix (a copy of the JAX package's
+# results/experiments/gp_flagship/rdrv_d.npy).
+FITTED_RDRV = FITTED_NPZ.with_name("rdrv_d.npy")
 # Launches of each kernel per tick on the cuda backend, at QUAD_SQP_ITERS:
 # the sweep and the QP per iteration, the RK4 map for the KKT defect and
 # the plant step.
@@ -89,26 +92,31 @@ def make_quad_scenarios(batch, seed=0):
     return radius, speed, alt
 
 
-def make_quad_gp_ensemble(seed: int = 23, n: int = 32) -> GPEnsemble:
+def make_quad_gp_ensemble(seed: int = 23, n: int = 32,
+                          clusters: int = 1) -> GPEnsemble:
     """The bench's synthetic ensemble on the quad's velocity residual
     (``ad_mpc_tpu/experiments/quad_fleet.py:63-87``): per output dim 7, 8,
     9, one cluster of ``n`` body-frame velocities in [-5, 5]^3 with a
-    drag-like target, the same draw and solve as the JAX package's."""
+    drag-like target, the same draw and solve as the JAX package's.
+    ``clusters`` > 1 draws more clusters per dim after each dim's first,
+    cluster c's velocities shifted by 4 c m/s on every axis (a multi-cluster
+    ensemble for the dual-state GP's kernels)."""
     rng = np.random.default_rng(seed)
     gps = [[], [], []]
     for dim in range(3):
-        X = rng.uniform(-5.0, 5.0, (n, 3))
-        # Drag-like residual: quadratic in the dim's own body velocity.
-        y = -0.03 * X[:, dim] * np.abs(X[:, dim]) + 0.01 * X[:, (dim + 1) % 3]
-        ls = np.full(3, 2.5)
-        sf, sn = 0.05, 0.02
-        diff = (X[:, None, :] - X[None, :, :]) / ls
-        K = sf * np.exp(-0.5 * np.sum(diff * diff, axis=-1))
-        K += (sn**2 + 1e-6) * np.eye(n)
-        gps[dim].append(GPParams(
-            x_train=X, k_inv_y=np.linalg.solve(K, y - y.mean()),
-            len_scale=ls, sigma_f=sf, sigma_n=sn, y_mean=float(y.mean()),
-            centroid=X.mean(axis=0)))
+        for c in range(clusters):
+            X = rng.uniform(-5.0, 5.0, (n, 3)) + 4.0 * c
+            # Drag-like residual: quadratic in the dim's own body velocity.
+            y = -0.03 * X[:, dim] * np.abs(X[:, dim]) + 0.01 * X[:, (dim + 1) % 3]
+            ls = np.full(3, 2.5)
+            sf, sn = 0.05, 0.02
+            diff = (X[:, None, :] - X[None, :, :]) / ls
+            K = sf * np.exp(-0.5 * np.sum(diff * diff, axis=-1))
+            K += (sn**2 + 1e-6) * np.eye(n)
+            gps[dim].append(GPParams(
+                x_train=X, k_inv_y=np.linalg.solve(K, y - y.mean()),
+                len_scale=ls, sigma_f=sf, sigma_n=sn, y_mean=float(y.mean()),
+                centroid=X.mean(axis=0)))
     return GPEnsemble.from_gps(gps, out_idx=(7, 8, 9), feat_idx=(7, 8, 9))
 
 
@@ -116,6 +124,11 @@ def fitted_ensemble() -> GPEnsemble:
     """The fitted ``gp_flagship_c1`` ensemble (1 cluster, 60 points) of the
     bench's c6-fitted rows (``bench.py:833-854``)."""
     return load_npz(FITTED_NPZ)
+
+
+def fitted_rdrv_d() -> np.ndarray:
+    """The flagship's fitted 3x3 RDRv drag matrix D (QuadMPC's ``rdrv_d``)."""
+    return np.load(FITTED_RDRV)
 
 
 def build_quad_fleet(n_nodes=10, qp_iters=18, sqp_iters=QUAD_SQP_ITERS,

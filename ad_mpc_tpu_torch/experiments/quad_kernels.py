@@ -2,6 +2,7 @@
 c6's shapes (B=16384, N=10, nx=13, nu=4).
 
     python -m ad_mpc_tpu_torch.experiments.quad_kernels [--out PATH]
+        [--only quad,gp_quad,drag,dual,lq]
 
 1. The VDE sweep with the quad functor (``csrc/vde.cu``), built once per
    variant of its traits, ``-DQUAD_TANGENTS_PER_PASS`` (the 17 tangents per
@@ -17,7 +18,14 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
    the later passes at every width). Each variant is held to ``vde_plain``
    (3e-5 on the synthetic ensemble; on the fitted one its distance is
    printed).
-3. The 13x4 LQ kernel (``csrc/lq_ipm_wide.cuh``) on the QPs of the third
+3. The same for QuadMPC's two functors: the RDRv drag (``QuadDragDyn``,
+   ``-DQUAD_DRAG_TANGENTS_PER_PASS`` and ``-DQUAD_DRAG_ROW_WARPS``) and
+   the dual-state GP (``GPQuadDualDyn``,
+   ``-DGP_QUAD_DUAL_TANGENTS_PER_PASS``, ``-DGP_QUAD_DUAL_ROW_WARPS``) on
+   the fitted models, p drawn by ``testing.dual_gp_ps`` with the trigger on
+   every tenth scenario; each held to ``vde_plain`` (3e-5; the fitted GP's
+   distance printed).
+4. The 13x4 LQ kernel (``csrc/lq_ipm_wide.cuh``) on the QPs of the third
    c5 tick at B=16384, for every number of scenarios per block that fits:
    resident blocks and scenarios per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared bytes per
@@ -47,43 +55,67 @@ from ad_mpc_tpu_torch.testing import quad_traj
 # (tangents per pass, row warps); the first is the committed default.
 VDE_VARIANTS = ((6, 1), (4, 1), (9, 1), (17, 1), (6, 2), (6, 4))
 GP_VDE_VARIANTS = ((3, 2), (3, 1), (2, 1), (4, 1), (6, 1), (9, 1))
+DRAG_VARIANTS = ((3, 1), (4, 1), (6, 1), (3, 2))
+DUAL_VARIANTS = ((3, 2), (3, 1), (2, 2), (4, 1), (6, 1))
 
 
 def _defines(tpp, rw, model="QUAD"):
     return (f"{model}_TANGENTS_PER_PASS={tpp}", f"{model}_ROW_WARPS={rw}")
 
 
-def vde_variants(B=16384, N=10, dt=0.1, variants=VDE_VARIANTS, gp=False):
-    """One row per variant of the quad's (``gp``: the GP-quad's) traits."""
-    if gp:
-        from ad_mpc_tpu_torch.experiments.quad_fleet import (
-            fitted_ensemble, make_quad_gp_ensemble)
+def _cases(kind, B):
+    """{case: (dynamics, ps)} and the variants' names of one section."""
+    from ad_mpc_tpu_torch.experiments.quad_fleet import (
+        fitted_ensemble, fitted_rdrv_d, make_quad_gp_ensemble)
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics
+    from ad_mpc_tpu_torch.testing import dual_gp_ps
 
-        cases = {"n=32": GPQuadDynamics(make_quad_gp_ensemble()),
-                 "n=60": GPQuadDynamics(fitted_ensemble())}
-        defines = lambda v: _defines(*v, model="GP_QUAD")
-    else:
-        cases, defines = {"quad": QuadDynamics()}, lambda v: _defines(*v)
+    none = torch.zeros((B, 0), device="cuda")
+    if kind == "quad":
+        return {"quad": (QuadDynamics(), none)}, ("tpp", "rw")
+    if kind == "gp_quad":
+        return {"n=32": (GPQuadDynamics(make_quad_gp_ensemble()), none),
+                "n=60": (GPQuadDynamics(fitted_ensemble()), none)}, ("tpp", "rw")
+    if kind == "drag":
+        return {"drag": (QuadDragDynamics(fitted_rdrv_d()), none)}, ("tpp", "rw")
+    ens = fitted_ensemble()
+    ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(31), B, ens), device="cuda")
+    return {"dual n=60": (GPQuadDualDynamics(ens), ps)}, ("tpp", "rw")
+
+
+VARIANTS = {
+    "quad": (VDE_VARIANTS, lambda v: _defines(*v)),
+    "gp_quad": (GP_VDE_VARIANTS, lambda v: _defines(*v, model="GP_QUAD")),
+    "drag": (DRAG_VARIANTS, lambda v: _defines(*v, model="QUAD_DRAG")),
+    "dual": (DUAL_VARIANTS, lambda v: _defines(*v, model="GP_QUAD_DUAL")),
+}
+
+
+def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
+    """One row per variant of a functor's traits (``kind``: the quad, the
+    GP quad, the drag or the dual-state GP)."""
+    variants, defines = VARIANTS[kind]
     with ThreadPoolExecutor(len(variants)) as pool:
         list(pool.map(lambda v: _build.build_all(("vde",), defines(v)),
                       variants))
     xs, us = (torch.as_tensor(a, device="cuda")
               for a in quad_traj(np.random.default_rng(13), B, N))
-    ps = torch.zeros((B, 0), device="cuda")
+    cases, keys = _cases(kind, B)
     rows = {}
-    for case, dyn in cases.items():
+    for case, (dyn, ps) in cases.items():
         want = vde_plain(dyn, dt, 1, xs, us, ps)
         first = None
         for v in variants:
-            vde = make_vde(dyn, dt, N, 13, 4, 0, device="cuda")
+            vde = make_vde(dyn, dt, N, 13, 4, ps.shape[1], device="cuda")
             vde.defines = defines(v)
             got = vde(xs, us, ps)
             first = got if first is None else first
             res = _build.functor_resources("vde", "vde_kernel",
                                            dyn.cuda_functor, vde.defines)
-            name = "_".join(f"{k}{n}" for k, n in zip(("tpp", "rw"), v))
-            rows[f"{case} {name}" if gp else name] = res | dict(zip(
-                ("tangents_per_pass", "row_warps"), v)) | {
+            name = "_".join(f"{k}{n}" for k, n in zip(keys, v))
+            rows[f"{case} {name}" if len(cases) > 1 else name] = res | dict(
+                zip(keys, v)) | {
                 "max_abs_err": max(float((g - w).abs().max())
                                    for g, w in zip(got, want)),
                 "bits_as_default": all(torch.equal(g, f)
@@ -120,12 +152,18 @@ def lq_teams(B=16384):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the result to this JSON file")
+    ap.add_argument("--only", default="quad,gp_quad,drag,dual,lq",
+                    help="the sections to measure, comma-separated")
     args = ap.parse_args(argv)
     require_cuda("cuda")
+    only = args.only.split(",")
+    res = {"device": card()}
     with tf32(False):
-        res = {"device": card(), "vde": vde_variants(),
-               "vde_gp_quad": vde_variants(variants=GP_VDE_VARIANTS, gp=True),
-               "lq": lq_teams()}
+        for kind in ("quad", "gp_quad", "drag", "dual"):
+            if kind in only:
+                res[f"vde_{kind}"] = vde_variants(kind)
+        if "lq" in only:
+            res["lq"] = lq_teams()
     text = json.dumps(res, indent=1)
     print(text)
     if args.out:

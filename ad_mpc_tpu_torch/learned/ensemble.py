@@ -6,10 +6,12 @@ centroid, nearest-centroid selection, the posterior means of all output
 dims, the state-feature residual and the quadrotor's body-frame residual
 (the matrix form that ``lane.quad_lane_residual_terms`` is held to). The
 arrays stay on the host as float64 numpy (the constants a dynamics bakes
-in); the functions take them to the query's type and device.
-:func:`load_npz` reads an ensemble carried across from the JAX package
-(``convert.save_gp_ensemble``) with numpy alone. The posterior variance is
-not ported yet.
+in), or, after :func:`on_device`, as tensors on the card; the functions
+take them to the query's type and device, so that on the card's copy
+:func:`select_cluster`, :func:`predict` and :func:`body_frame_features`
+run with no host synchronization. :func:`load_npz` reads an ensemble
+carried across from the JAX package (``convert.save_gp_ensemble``) with
+numpy alone. The posterior variance is not ported yet.
 """
 
 from __future__ import annotations
@@ -79,7 +81,20 @@ class GPEnsemble(NamedTuple):
 
 
 def _as(a, z):
+    if isinstance(a, torch.Tensor):
+        return a.to(dtype=z.dtype, device=z.device)
     return torch.as_tensor(np.asarray(a), dtype=z.dtype, device=z.device)
+
+
+def on_device(ens: GPEnsemble, dtype, device) -> GPEnsemble:
+    """``ens`` with its float arrays as tensors of ``dtype`` on ``device``
+    (``n_valid`` and the index tuples as they are): one copy, so that the
+    functions of this module read them where they run."""
+    floats = ("x_train", "k_inv_y", "len_scale", "sigma_f", "sigma_n",
+              "y_mean", "centroids")
+    return ens._replace(**{k: torch.tensor(np.array(getattr(ens, k)),
+                                              dtype=dtype, device=device)
+                           for k in floats})
 
 
 def select_cluster(ens: GPEnsemble, z):
@@ -125,15 +140,20 @@ def body_frame_features(x, feat_idx):
     return torch.stack([x_body[i] for i in feat_idx])
 
 
-def quad_residual_fn(ens: GPEnsemble, fixed_cluster=None):
+class QuadResidual(NamedTuple):
     """Quadrotor residual ``residual(x, u)``: ``x_dot[7:10] += R(q)
     GP(z)`` with z the body-frame features; only the velocity rows may be
     outputs. ``fixed_cluster`` (D,) pins the cluster per dim; None selects
-    the nearest centroid at every evaluation."""
+    the nearest centroid at every evaluation. A callable that states its
+    ensemble, so that a controller can tell which dynamics it is."""
 
-    def residual(x, u):
+    ensemble: GPEnsemble
+    fixed_cluster: object = None
+
+    def __call__(self, x, u):
+        ens = self.ensemble
         z = body_frame_features(x, ens.feat_idx)
-        mu_body = predict(ens, z, cluster_idx=fixed_cluster)
+        mu_body = predict(ens, z, cluster_idx=self.fixed_cluster)
         full = [torch.zeros_like(x[0])] * 3
         for k, dim in enumerate(ens.out_idx):
             full[dim - 7] = mu_body[k]
@@ -141,7 +161,10 @@ def quad_residual_fn(ens: GPEnsemble, fixed_cluster=None):
         return torch.cat([torch.zeros_like(x[:7]), mu_world,
                           torch.zeros_like(x[10:])])
 
-    return residual
+
+def quad_residual_fn(ens: GPEnsemble, fixed_cluster=None) -> QuadResidual:
+    """The quadrotor's body-frame residual of ``ens`` (:class:`QuadResidual`)."""
+    return QuadResidual(ens, fixed_cluster)
 
 
 def load_npz(path) -> GPEnsemble:

@@ -1,4 +1,5 @@
-"""The GP-augmented quadrotor of bench config c6.
+"""The GP-augmented quadrotors: bench config c6 and QuadMPC's dual-state
+GP (:class:`GPQuadDualDynamics`, below).
 
 The counterpart of the dynamics closure that
 ``ad_mpc_tpu/experiments/quad_fleet.py:110-121`` builds from an ensemble:
@@ -21,12 +22,15 @@ from __future__ import annotations
 import ctypes
 
 import numpy as np
+import torch
 from torch import nn
 
 from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble
-from ad_mpc_tpu_torch.learned.lane import add_rows, quad_lane_residual_terms
+from ad_mpc_tpu_torch.learned.lane import (
+    _ens_cluster, _rot_rows, add_rows, lane_gp_mean, quad_lane_residual_terms)
 from ad_mpc_tpu_torch.models.quadrotor import (
     NU, NX, QuadDynamics, QuadParamsC, QuadrotorParams, quad_dynamics_lane)
+from ad_mpc_tpu_torch.ops import _build
 
 # Capacity of the functor's table (GP_QUAD_POINTS, GP_QUAD_DIMS,
 # GP_QUAD_FEATS of csrc/vde.cu) and the layout it serves.
@@ -111,3 +115,146 @@ class GPQuadDynamics(nn.Module):
             s.inv_l[k][:] = [float(v) for v in inv_l]
             s.y_mean[k] = float(ens.y_mean[k, 0])
         return s
+
+
+# Capacity of GPQuadDualDyn's table (GP_DUAL_CLUSTERS, GP_DUAL_POINTS of
+# csrc/vde.cu): clusters, and clusters x points per output dim.
+GP_DUAL_CLUSTERS, GP_DUAL_POINTS = 16, 512
+BODY_VELOCITIES = (7, 8, 9)
+
+
+class GPQuadDualParamsC(ctypes.Structure):
+    """``GPQuadDualParamsC`` of ``csrc/vde.cu``, passed to the kernel by
+    value: the quad's scalars, the device address of the padded table
+    (:meth:`GPQuadDualDynamics.cuda_table`), its clusters and points per
+    cluster, the ensemble's D and, per body velocity, its output's place
+    in p (or -1)."""
+
+    _fields_ = [
+        ("quad", QuadParamsC),
+        ("table", ctypes.c_void_p),
+        ("clusters", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("d_out", ctypes.c_int),
+        ("slot", ctypes.c_int * 3),
+    ]
+
+
+def dual_gp_rows(ens: GPEnsemble, x, p) -> dict:
+    """The dual-state GP residual of QuadMPC's ensemble mode
+    (``ad_mpc_tpu/control/mpc.py:264-283``), entrywise, by velocity row.
+
+    ``p = [trigger, mu0 (D), cluster (D)]`` (entries leading): where
+    ``p[0] > 0.5`` the body-frame means are the constants mu0, else each
+    output k's mean is its cluster's (``p[1+D+k]`` truncated, clamped to
+    the ensemble) lane mean (:func:`lane.lane_gp_mean`) at the body-frame
+    features (``x`` with its velocities rotated, ``R(q)^T v``). The means,
+    with zeros on the body velocities that are no output, are rotated back,
+    ``{7 + r: (R(q) mu)_r}``."""
+    D, C = len(ens.out_idx), ens.n_clusters
+    R = _rot_rows(x)
+    v_b = [R[0][k] * x[7] + R[1][k] * x[8] + R[2][k] * x[9] for k in range(3)]
+    z = [v_b[i - 7] if i in BODY_VELOCITIES else x[i] for i in ens.feat_idx]
+    trigger = p[0] > 0.5
+    mu = [torch.zeros_like(x[7])] * 3
+    for k, dim in enumerate(ens.out_idx):
+        means = [lane_gp_mean(*_ens_cluster(ens, k, c), z) for c in range(C)]
+        m = means[0]
+        if C > 1:
+            cl = torch.clamp(p[1 + D + k].to(torch.int64), 0, C - 1)
+            for c in range(1, C):
+                m = torch.where(cl == c, means[c], m)
+        mu[dim - 7] = torch.where(trigger, p[1 + k], m)
+    return {7 + r: R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2]
+            for r in range(3)}
+
+
+class GPQuadDualDynamics(nn.Module):
+    """``f(x, u, p)``: the quad (:func:`quad_dynamics_lane`) plus the
+    dual-state GP residual (:func:`dual_gp_rows`) of ``ensemble``, with
+    ``p_dim = 1 + 2D``: the dynamics of QuadMPC's ensemble mode.
+
+    On the card the ``GPQuadDualDyn`` functor of ``csrc/vde.cu`` computes
+    the same function (``cuda_entry``, ``cuda_rk4_entry``). Its table
+    (:meth:`cuda_table`) lies in a device buffer whose address rides in the
+    struct (:meth:`cuda_params`): every cluster, padded to the three body
+    velocities as outputs and features. It serves ``out_idx`` and
+    ``feat_idx`` within (7, 8, 9), up to :data:`GP_DUAL_CLUSTERS` clusters
+    and :data:`GP_DUAL_POINTS` points per output over all clusters.
+    """
+
+    nx, nu = NX, NU
+    cuda_functor = "GPQuadDualDyn"
+    cuda_entry = "vde_gp_quad_dual"
+    cuda_rk4_entry = "rk4_gp_quad_dual"
+
+    def __init__(self, ensemble: GPEnsemble,
+                 params: QuadrotorParams = QuadrotorParams()):
+        super().__init__()
+        self.ensemble = ensemble
+        self.params = params
+        self.p_dim = 1 + 2 * len(ensemble.out_idx)
+        self._device_table = None  # (tensor, struct), built at first use
+
+    def forward(self, x, u, p):
+        base = quad_dynamics_lane(x, u, None, self.params)
+        return add_rows(base, dual_gp_rows(self.ensemble, x, p))
+
+    def cuda_table(self) -> np.ndarray:
+        """The functor's padded table as float32 numpy: X (3, C, n, 3),
+        a = k_inv_y sigma_f (3, C, n), 1/l (3, C, 3), y_mean (3, C), flat,
+        by body velocity; zeros on the outputs and features that the
+        ensemble does not have. Refuses a layout the functor cannot hold."""
+        ens = self.ensemble
+        D, C, n, d = ens.x_train.shape
+        out, feat = tuple(ens.out_idx), tuple(ens.feat_idx)
+        body = set(BODY_VELOCITIES)
+        if (not set(out) <= body or not set(feat) <= body
+                or len(set(out)) != D or len(set(feat)) != d):
+            raise ValueError(
+                f"the GPQuadDualDyn functor serves distinct out_idx and "
+                f"feat_idx within {BODY_VELOCITIES}; got out_idx={out}, "
+                f"feat_idx={feat}")
+        if C > GP_DUAL_CLUSTERS or C * n > GP_DUAL_POINTS:
+            raise ValueError(
+                f"the GPQuadDualDyn functor holds {GP_DUAL_CLUSTERS} clusters "
+                f"and {GP_DUAL_POINTS} points per output over all clusters; "
+                f"got {C} clusters of {n} points ({C * n})")
+        X = np.zeros((3, C, n, 3))
+        a = np.zeros((3, C, n))
+        inv_l = np.zeros((3, C, 3))
+        y_mean = np.zeros((3, C))
+        cols = [dim - 7 for dim in feat]
+        for k, dim in enumerate(out):
+            r = dim - 7
+            X[r][..., cols] = ens.x_train[k]
+            a[r] = ens.k_inv_y[k] * ens.sigma_f[k][:, None]
+            inv_l[r][..., cols] = 1.0 / ens.len_scale[k]
+            y_mean[r] = ens.y_mean[k]
+        return np.concatenate([t.ravel() for t in (X, a, inv_l, y_mean)]
+                              ).astype(np.float32)
+
+    def cuda_layout(self) -> tuple:
+        """(clusters, points per cluster, D, the output k in p of each body
+        velocity or -1) of the functor's struct."""
+        ens = self.ensemble
+        slot = tuple(ens.out_idx.index(7 + r) if 7 + r in ens.out_idx else -1
+                     for r in range(3))
+        return ens.x_train.shape[1], ens.x_train.shape[2], len(ens.out_idx), slot
+
+    def cuda_params(self) -> GPQuadDualParamsC:
+        """The functor's struct, with the table copied once to the current
+        CUDA device (the module keeps the copy for the struct's address);
+        the layout is checked before the card is asked for."""
+        if self._device_table is None:
+            flat = self.cuda_table()
+            _build.require_card("cuda")
+            table = torch.as_tensor(
+                flat, device=torch.device("cuda", torch.cuda.current_device()))
+            s = GPQuadDualParamsC()
+            s.quad = QuadDynamics(self.params).cuda_params()
+            s.table = table.data_ptr()
+            s.clusters, s.n, s.d_out, slot = self.cuda_layout()
+            s.slot[:] = slot
+            self._device_table = (table, s)
+        return self._device_table[1]

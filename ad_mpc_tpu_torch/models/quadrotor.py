@@ -7,7 +7,8 @@ the matmul form on one state vector (with the optional RDRv drag matrix);
 (``x[3]``, ``torch.stack``), so it evaluates ``(13,)`` vectors and
 ``(13, N, B)`` slabs alike. The lane form is the plain version of the
 ``QuadDyn`` functor in ``csrc/vde.cu``, which keeps its order of
-operations.
+operations; :class:`QuadDragDynamics` adds the RDRv drag entrywise
+(:func:`quad_drag_rows`), the plain version of ``QuadDragDyn``.
 
 State  x = [p(3), q_wxyz(4), v_world(3), w_body(3)]
 Input  u in [0,1]^4  (normalized motor thrusts)
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ad_mpc_tpu_torch.learned.lane import _rot_rows, add_rows
 from ad_mpc_tpu_torch.utils.math import (
     quaternion_inverse,
     skew_symmetric,
@@ -147,6 +149,18 @@ def quad_dynamics_lane(x, u, p=None, params: QuadrotorParams = QuadrotorParams()
     ])
 
 
+def quad_drag_rows(x, D) -> dict:
+    """The RDRv drag ``R(q) D R(q)^T v`` of :func:`quad_dynamics` entrywise,
+    by velocity row: ``{7 + r: t_r}``, in the order of ``csrc/vde.cu:
+    quad_drag_terms`` (v_b = R^T v, w = D v_b, t = R w). ``D`` is a 3x3
+    array of Python floats."""
+    R = _rot_rows(x)
+    v_b = [R[0][k] * x[7] + R[1][k] * x[8] + R[2][k] * x[9] for k in range(3)]
+    w = [D[r][0] * v_b[0] + D[r][1] * v_b[1] + D[r][2] * v_b[2] for r in range(3)]
+    return {7 + r: R[r][0] * w[0] + R[r][1] * w[1] + R[r][2] * w[2]
+            for r in range(3)}
+
+
 def normalize_quat_state(x):
     """Renormalize the quaternion block of 13D states x (..., 13)."""
     q = x[..., 3:7]
@@ -204,3 +218,47 @@ class QuadDynamics(nn.Module):
         return QuadParamsC(P.max_thrust, P.mass, P.g, jxx, jyy, jzz, jyy - jzz,
                            jzz - jxx, jxx - jyy, arr(P.x_f), arr(P.y_f),
                            arr(P.z_l_tau))
+
+
+class QuadDragParamsC(ctypes.Structure):
+    """``QuadDragParamsC`` of ``csrc/vde.cu``, passed to the kernel by
+    value: the quad's scalars and the drag matrix D, row-major, each rounded
+    once to float32."""
+
+    _fields_ = [("quad", QuadParamsC), ("D", (ctypes.c_float * 3) * 3)]
+
+
+class QuadDragDynamics(nn.Module):
+    """``f(x, u, p) = quad_dynamics(x, u, params, rdrv_d=D)``, entrywise:
+    :func:`quad_dynamics_lane` plus :func:`quad_drag_rows`; ``p`` is ignored
+    (``p_dim=0``). The counterpart of QuadMPC's ``rdrv_d`` mode.
+
+    ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
+    ``csrc/vde.cu`` that run the VDE kernel and its RK4 kernel with the
+    ``QuadDragDyn`` functor (``cuda_functor``); ``cuda_params`` builds the
+    struct both take by value.
+    """
+
+    nx, nu, p_dim = NX, NU, 0
+    cuda_functor = "QuadDragDyn"
+    cuda_entry = "vde_quad_drag"
+    cuda_rk4_entry = "rk4_quad_drag"
+
+    def __init__(self, rdrv_d, params: QuadrotorParams = QuadrotorParams()):
+        super().__init__()
+        D = np.asarray(rdrv_d, np.float64)
+        if D.shape != (3, 3):
+            raise ValueError(f"rdrv_d must be 3x3, got {D.shape}")
+        self.D = [[float(v) for v in row] for row in D]
+        self.params = params
+
+    def forward(self, x, u, p):
+        return add_rows(quad_dynamics_lane(x, u, None, self.params),
+                        quad_drag_rows(x, self.D))
+
+    def cuda_params(self) -> QuadDragParamsC:
+        s = QuadDragParamsC()
+        s.quad = QuadDynamics(self.params).cuda_params()
+        for r in range(3):
+            s.D[r][:] = self.D[r]
+        return s

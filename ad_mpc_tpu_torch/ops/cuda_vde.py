@@ -46,18 +46,34 @@ def _entry_name(f, kind="cuda_entry"):
     return name
 
 
+def _lib(defines=()):
+    """The loaded ``csrc/vde.cu``; at first load the kernels of a functor
+    with its table in dynamic shared memory are allowed the largest table
+    (``vde_prepare``), so that no launch sets an attribute and a launch may
+    be captured in a CUDA graph."""
+    lib = _build.load("vde", defines)
+    if not getattr(lib, "_prepared", False):
+        lib.vde_prepare.argtypes = []
+        lib.vde_prepare.restype = ctypes.c_int
+        lib.error_string.argtypes = [ctypes.c_int]
+        lib.error_string.restype = ctypes.c_char_p
+        err = lib.vde_prepare()
+        if err:
+            raise RuntimeError(f"vde_prepare: {lib.error_string(err).decode()}")
+        lib._prepared = True
+    return lib
+
+
 def _entry(f, kind="cuda_entry", defines=()):
     """(C entry of ``f``, ``error_string``), the entry typed for the
     parameter struct that ``f.cuda_params()`` builds. ``defines`` build
     ``csrc/vde.cu`` with those ``-D`` macros (its functors' traits)."""
-    lib = _build.load("vde", defines)
+    lib = _lib(defines)
     fn = getattr(lib, _entry_name(f, kind))
     if fn.argtypes is None:
         fn.argtypes = _ARGS[kind] + [ctypes.c_double, _I,
                                      type(f.cuda_params()), _P]
         fn.restype = ctypes.c_int
-        lib.error_string.argtypes = [ctypes.c_int]
-        lib.error_string.restype = ctypes.c_char_p
     return fn, lib.error_string
 
 

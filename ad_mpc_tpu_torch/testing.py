@@ -312,3 +312,50 @@ def rti_oracle_distance(path, device, backend="auto", solves=30):
     launches = {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches,
                 "rk4": solver.rk4.launches}
     return d, launches
+
+
+def fleet_oracle_distance(path, device, backend="auto", solves=30):
+    """max |u0 - u0_oracle| after ``solves`` RTI re-solves without shift on
+    the committed oracle instance at ``path`` through the fleet solver
+    (:class:`BatchedSQPSolver`) at the deployed c2 settings: one
+    Gauss-Newton iteration, 12 IPM iterations, float32, the fixture's
+    horizon (N=20, dt=0.05 s, ``fleet.build_fleet``'s spec) and its p
+    broadcast as the fleet's per-scenario row, from the fleet's cold start.
+    Returns (distance, the solver's kernel launches)."""
+    import torch
+
+    from ad_mpc_tpu_torch.control.mpc import bicycle_spec
+    from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
+    from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
+
+    with np.load(path) as z:
+        fix = {k: z[k] for k in z.files}
+    N = fix["yref_u"].shape[0]
+    spec = bicycle_spec(t_horizon=0.05 * N, n_nodes=N, qp_iters=12, sqp_iters=1)
+    solver = BatchedSQPSolver(spec, BicycleDynamics(), p_dim=1, device=device,
+                              backend=backend)
+    t = lambda k: torch.as_tensor(fix[k], dtype=torch.float32, device=device)[None]
+    x0, yref, yref_u, params = t("x0"), t("yref"), t("yref_u"), t("params")
+    state = solver.init_state(x0)
+    for _ in range(solves):
+        res = solver.solve(x0, yref, yref_u, params, state)
+        state = res.state  # no shift: the problem is fixed
+    d = float(np.max(np.abs(res.us[0, 0].double().cpu().numpy()
+                            - fix["us_oracle"][0])))
+    launches = {"vde": solver.vde.launches, "lq_ipm": solver.qp.launches,
+                "rk4": solver.rk4.launches}
+    return d, launches
+
+
+def dual_gp_ps(rng, B, ens, trigger_every=10):
+    """(B, 1+2D) float32 parameter rows of the dual-state GP quad
+    ``[trigger, mu0 (D), cluster (D)]`` for the ensemble ``ens``: the
+    trigger on every ``trigger_every``-th row (node 0 of each horizon in
+    the one-stage route), mu0 in [-1, 1], clusters drawn among the
+    ensemble's."""
+    D, C = len(ens.out_idx), ens.n_clusters
+    p = np.zeros((B, 1 + 2 * D), np.float32)
+    p[::trigger_every, 0] = 1.0
+    p[:, 1:1 + D] = rng.uniform(-1.0, 1.0, (B, D))
+    p[:, 1 + D:] = rng.integers(0, C, (B, D))
+    return p

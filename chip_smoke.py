@@ -84,7 +84,8 @@ Phases, each of which must pass:
    the macro's kernel arm within the c2 gates with the tick's launches;
 8. long-horizon Riccati micro (``experiments.long_horizon``, each backend
    timed by CUDA-graph replay): the associative scan within 2e-3 of the
-   sequential recursion at N=30 and 128 (N=512 printed);
+   sequential recursion at N=30 and 128 (N=512 is left to the
+   experiment's own command, to keep the smoke inside its time);
 9. c2-N40 at B=16384: 5 + 20 ticks, the tick's launches, the c2 gates;
 10. the batch-1 latency row (``fleet.bench_latency``) with the tick's
     launches: printed; over the 20 ms budget is a warning, as in
@@ -106,13 +107,43 @@ Phases, each of which must pass:
     warning) and the four deployment rows of ``bench.py:884-915`` (RMSE <
     1.0 m each, tick p50/p99, missed deadlines, unsafe ticks, the link
     floor, the JAX package's RMSEs beside; the aggressive lag-compensation
-    A/B printed with the age of the published commands).
+    A/B printed with the age of the published commands);
+12. QuadMPC's functors at B=16384, N=10 on the quad phases' draws: the
+    RDRv drag (``QuadDragDyn``, the fitted D) and the dual-state GP
+    (``GPQuadDualDyn`` on the fitted 60-point model, held by ``anchored``,
+    and on a synthetic two-cluster ensemble with each scenario's cluster
+    read from its p; the trigger on every tenth scenario), each kernel
+    against its plain version (3e-5), warm and cold, bound, registers and
+    spills;
+13. one quadrotor at B=1 (N=10, 15 IPM iterations) in each of QuadMPC's
+    four modes (nominal, rdrv_d, quad_residual_fn of the fitted one-cluster
+    GP, ensemble=): an RTI solve through the kernels against the plain
+    solver on the card (u0 within 1e-3; one launch of each kernel), its
+    time by graph replay and eager with the watchdog's fetch; kernel phases
+    VDE and RK4 of each mode's functor on the inputs of its solve (B=1,
+    N=10; the dual-state GP's N one-stage scenarios, B=10, N=1, with their
+    trigger and cluster p rows) against their plain versions (3e-5; the
+    fitted GP's modes by ``anchored``), warm and cold; then the 13x4 LQ
+    kernel at B=1 on the solve's QP with 15 and 18 iterations (``lq_case``,
+    strict), warm and cold;
+14. the quadrotor tracking loop (``quad_trajectory_test.run_tracking``,
+    loop at 8 m/s, 1,800 ticks) through the kernels: nominal, dual-state
+    GP and RDRv under the flagship's drag and nominal without disturbance,
+    each RMSE gated (1.25 x the JAX package's row; 0.24 m without
+    disturbance) and printed beside the JAX row, the GP's cut against
+    nominal at least 80%; the one-cluster quad_residual_fn under the drag,
+    held to the same cut; opt-time p50/p99, resets and launches;
+15. the fleet solver (``BatchedSQPSolver``) on the committed oracle
+    instance at the c2 settings (12 IPM iterations, one RTI iteration,
+    float32, N=20, broadcast p): |u0 - u0_oracle| < 1e-3.
 
-Each path of phases 4, 4a, 4b, 5, 5a and 7-11 starts with its kernels' launch
+Each path of phases 4, 4a, 4b, 5, 5a, 7-11 and 14 starts with its kernels' launch
 counts at 0 and reads them after. The script then prints a
 ``{"kernels": [...]}`` line (each kernel's launches on its path, error,
 times, bound and, for the VDE and RK4 rows, the registers and spills of
-its functor's instantiation, matched by the functor's exact name), failing
+its functor's instantiation, matched by the functor's exact name; the
+QuadMPC rows name their ``shape``: each mode's B=1 row, and the new
+functors' B=16384 rows beside them with the tracking path's launches), failing
 if a kernel was not launched on its path or ran under its bound, and,
 last, the ``{"ok": true, ...}`` line. Any failure exits non-zero
 before the ``ok`` line. No JAX is imported. ``--out`` also writes every
@@ -1020,7 +1051,7 @@ def phase_mxu(torch, out):
 def phase_long_horizon(out):
     from ad_mpc_tpu_torch.experiments import long_horizon
 
-    res = long_horizon.micro()
+    res = long_horizon.micro(horizons=(30, 128))
     for name, row in res["rows"].items():
         print(f"long horizon {name}: seq {row['seq_ms']:.4f} ms, assoc "
               f"{row['assoc_ms']:.4f} ms (assoc/seq {row['assoc_over_seq']:.3f}),"
@@ -1299,6 +1330,296 @@ def phase_ad_path(torch, np, out):
     return cl.launches, total
 
 
+# Phases 12-15, QuadMPC and the quadrotor tracking loop: the two new
+# functors, one RTI solve per mode at B=1, the tracking rows on the loop at
+# 8 m/s (the JAX package's rows from
+# results/experiments/gp_flagship/sweep_summary.json and README.md:105-106)
+# and the fleet solver's oracle distance at the c2 settings. The sweep has
+# no row of the one-cluster quad_residual_fn: that row is held to the GP's
+# cut against nominal instead.
+JAX_QUAD_RMSE = {"nominal": 0.32175934314727783, "gp": 0.02865125797688961,
+                 "rdrv": 0.1170618012547493, "nominal_no_dist": 0.002,
+                 "residual_fn": None}
+QUAD_RMSE_GATES = {"nominal": 1.25 * 0.3218, "gp": 1.25 * 0.02865,
+                   "rdrv": 1.25 * 0.1171, "nominal_no_dist": 0.24}
+GP_REDUCTION_GATE = 0.80  # a GP row's RMSE cut against nominal
+QUAD_QP_ITERS = 15  # quad_trajectory_test.run_tracking's
+DUAL_TRIGGER_EVERY = 10  # node 0 of each N=10 horizon
+
+
+def gp_quad_dual_flops(n, share, vde=True, nx=13, nu=4):
+    """The least operations of one stage (``vde``) or one RK4 row of the
+    dual-state GP quad when a ``share`` of the rows carries the trigger:
+    those need no GP mean, and are counted at the quad's own (a floor under
+    the rotations they do); the others as the GP quad's design needs them
+    (:func:`gp_quad_vde_flops_per_stage`, :func:`gp_quad_rk4_flops_per_row`)
+    at ``n`` points."""
+    import torch
+
+    from ad_mpc_tpu_torch.experiments.opcount import dyn_counts, rk4_flops
+    from ad_mpc_tpu_torch.models.quadrotor import quad_dynamics_lane
+
+    p = torch.zeros((1, 0))
+    quad = lambda x, u, p: quad_dynamics_lane(x, u)
+    if vde:
+        gp, plain = gp_quad_vde_flops_per_stage(n), sweep_flops_per_stage(quad, nx, nu, p)
+    else:
+        gp, plain = (gp_quad_rk4_flops_per_row(n),
+                     rk4_flops(dyn_counts(quad, nx, nu, p[0]), nx))
+    return (1 - share) * gp + share * plain
+
+
+def quad_functor_cases(torch, np, B):
+    """{key: {name: (dynamics, ps)}} of the two new functors: the drag with
+    the flagship's fitted D; the dual-state GP on the fitted 60-point model
+    and on the synthetic two-cluster ensemble (each scenario's cluster read
+    from its p), the trigger on every tenth scenario."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics
+    from ad_mpc_tpu_torch.testing import dual_gp_ps
+
+    dual = {}
+    for name, ens in (("fitted n=60", quad_fleet.fitted_ensemble()),
+                      ("two clusters n=32", quad_fleet.make_quad_gp_ensemble(
+                          clusters=2))):
+        ps = dual_gp_ps(np.random.default_rng(31), B, ens, DUAL_TRIGGER_EVERY)
+        dual[name] = (GPQuadDualDynamics(ens), torch.as_tensor(ps, device="cuda"))
+    return {"drag": {"fitted D": (QuadDragDynamics(quad_fleet.fitted_rdrv_d()),
+                                  torch.zeros((B, 0), device="cuda"))},
+            "dual": dual}
+
+
+def phase_quad_functors(torch, np, out):
+    """12. The drag and dual-state GP functors at B=16384, N=10 on the quad
+    VDE and RK4 phases' draws: each against its plain version (3e-5; the
+    fitted GP by ``anchored``), warm and cold, bound, registers and
+    spills. Returns {row name: numbers}."""
+    from ad_mpc_tpu_torch.testing import quad_traj
+
+    B, N = 16384, 10
+    share = 1.0 / DUAL_TRIGGER_EVERY
+    cases = quad_functor_cases(torch, np, B)
+    rows = {}
+    for seed, kind in ((13, "vde"), (14, "rk4")):
+        xs, us = (torch.as_tensor(a).cuda()
+                  for a in quad_traj(np.random.default_rng(seed), B, N))
+        if kind == "vde":
+            rows["vde_quad_drag"] = vde_case(
+                torch, out, "vde_quad_drag", cases["drag"], 0.1, xs, us, 3e-5)
+            rows["vde_gp_quad_dual"] = vde_case(
+                torch, out, "vde_gp_quad_dual", cases["dual"], 0.1, xs, us, 3e-5,
+                gp_quad_dual_flops(60, share), anchor=("fitted n=60",))
+        else:
+            rows["rk4_quad_drag"] = rk4_case(
+                torch, out, "rk4_quad_drag", cases["drag"], 0.1, xs, us, 3e-5)
+            rows["rk4_gp_quad_dual"] = rk4_case(
+                torch, out, "rk4_gp_quad_dual", cases["dual"], 0.1, xs, us, 3e-5,
+                gp_quad_dual_flops(60, share, vde=False), anchor=("fitted n=60",))
+    return rows
+
+
+def quad_modes():
+    """QuadMPC's four modes on the card, as the JAX package's callers use
+    them: {name: QuadMPC keywords}."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
+
+    fitted = quad_fleet.fitted_ensemble()
+    return {"nominal": {}, "rdrv": {"rdrv_d": quad_fleet.fitted_rdrv_d()},
+            "residual_fn": {"residual_fn": quad_residual_fn(fitted)},
+            "ensemble": {"ensemble": fitted}}
+
+
+def quad_solve_case(torch, out, mode, kw):
+    """13. One quadrotor at B=1 (N=10, 15 IPM iterations) in ``mode``: an
+    RTI solve through the kernels against the plain solver on the card from
+    the same warm start (u0 within 1e-3; one launch of each kernel), the
+    solve's device time by graph replay and its time eager with the
+    watchdog's fetch and u0 on the host (host clock). Returns the solve's
+    kernel inputs and modules: {"vde": (xs, us, ps), "qp": (QP inputs, QP
+    module), "dyn": the dynamics, "dt": the stage length}."""
+    from ad_mpc_tpu_torch import fleet
+    from ad_mpc_tpu_torch.control.mpc import QuadMPC, quad_spec
+    from ad_mpc_tpu_torch.experiments import graph_ms
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import (
+        get_reference_chunk, reference)
+    from ad_mpc_tpu_torch.ocp.solver import SolverState
+
+    traj, t_ref, u_traj = reference("loop", 8.0)
+    x_ref, u_ref = get_reference_chunk(traj, u_traj, t_ref, 6.0, 10, 0.1)
+    x0 = torch.as_tensor(traj[300], dtype=torch.float32, device="cuda")
+    kern, plain = (QuadMPC(spec=quad_spec(qp_iters=QUAD_QP_ITERS), device="cuda",
+                           backend=b, **kw) for b in ("cuda", "plain"))
+    start = plain.solver.init_state(x0)
+    for m in (kern, plain):
+        m.set_reference(x_ref, u_ref)
+        m.state = SolverState(start.xs.clone(), start.us.clone())
+    seen = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, a, k=k: seen.setdefault(k, a))
+             for k, m in (("vde", kern.solver.vde), ("qp", kern.solver.qp))]
+    try:
+        zero_launches(kern.solver)
+        got, _ = kern.optimize(x0)
+        launches = fleet.launches(kern.solver)
+    finally:
+        for h in hooks:
+            h.remove()
+    want, _ = plain.optimize(x0)
+    check(launches == {"vde": 1, "lq_ipm": 1, "rk4": 1},
+          f"quad {mode}: launches per RTI solve {launches}")
+    check(fleet.launches(plain.solver) == {"vde": 0, "lq_ipm": 0, "rk4": 0},
+          f"quad {mode}: the plain solver launched a kernel")
+    du0 = float((got[0] - want[0]).abs().max())
+    check(du0 < 1e-3 and bool(got.isfinite().all()),
+          f"quad {mode}: RTI u0 kernels vs plain {du0:.3e} >= 1e-3")
+    st = SolverState(start.xs.clone(), start.us.clone())
+    params = kern._stage_params(x0, None)
+    row = {"u0_err": du0, "launches": launches,
+           "graph_ms": graph_ms(lambda: kern.solver.solve(
+               x0, kern._yref_x, kern._yref_u, params, st), inner=5)}
+    for _ in range(3):
+        kern.optimize(x0)[0][0].cpu()
+    tic = time.perf_counter()
+    for _ in range(20):
+        kern.optimize(x0)[0][0].cpu()
+    row["eager_fetch_ms"] = 1e3 * (time.perf_counter() - tic) / 20
+    print(f"quad {mode} N=10 qp_iters={QUAD_QP_ITERS} B=1: RTI u0 kernels vs "
+          f"plain {du0:.3e}; launches per solve {launches}; solve "
+          f"{row['graph_ms']:.4f} ms by graph replay, {row['eager_fetch_ms']:.4f}"
+          f" ms eager with the watchdog's fetch and u0 (host clock)")
+    out.setdefault("quad_solve", {})[mode] = row
+    return {"vde": seen["vde"], "qp": (seen["qp"], kern.solver.qp),
+            "dyn": kern.solver.f, "dt": kern.spec.dt}
+
+
+def phase_quad_kernels(torch, out):
+    """13. Every mode's solve (:func:`quad_solve_case`); the VDE and RK4
+    kernels of each mode's functor on the inputs that solve gave them (B=1,
+    N=10; the dual-state GP's as N one-stage scenarios, B=10 and N=1, whose
+    p rows carry the trigger and the cluster), each against its plain
+    version (3e-5; the fitted GP's two modes by ``anchored``), warm and
+    cold, registers and spills; then the 13x4 LQ kernel at B=1 on the
+    nominal solve's QP, with 15 iterations (the tracking loop's) and 18
+    (``quad_spec``'s default), each by ``lq_case`` (strict), warm and cold.
+    Returns ({mode: (vde row, rk4 row)}, the 15-iteration LQ row)."""
+    from ad_mpc_tpu_torch.control.mpc import quad_spec
+    from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
+
+    rows, qps = {}, {}
+    for mode, kw in quad_modes().items():
+        case = quad_solve_case(torch, out, mode, kw)
+        (xs, us, ps), dyn, dt = case["vde"], case["dyn"], case["dt"]
+        qps[mode] = case["qp"]
+        # The bound as the functor's design needs it: the fitted GP's 60
+        # points; the dual-state GP's trigger rows (this solve's share of
+        # them) compute no GP mean.
+        flops, anchor = (None, None), ()
+        name = f"B={xs.shape[0]} N={xs.shape[1] - 1}"
+        if mode == "residual_fn":
+            flops = (gp_quad_vde_flops_per_stage(60), gp_quad_rk4_flops_per_row(60))
+        elif mode == "ensemble":
+            share = float((ps[:, 0] > 0.5).double().mean())
+            flops = (gp_quad_dual_flops(60, share),
+                     gp_quad_dual_flops(60, share, vde=False))
+        if mode in ("residual_fn", "ensemble"):
+            anchor = (name,)
+        cases = {name: (dyn, ps)}
+        rows[mode] = (
+            vde_case(torch, out, f"vde_quad_mpc_{mode}", cases, dt, xs, us, 3e-5,
+                     flops[0], anchor=anchor),
+            rk4_case(torch, out, f"rk4_quad_mpc_{mode}", cases, dt, xs, us, 3e-5,
+                     flops[1], anchor=anchor))
+    args, qp15 = qps["nominal"]
+    spec = quad_spec(qp_iters=18)
+    Q, R, QN = spec.weight_arrays()
+    qp18 = make_lq_solver(10, 13, 4, Q, R, QN, *spec.bound_dicts(), iters=18,
+                          reg=spec.levenberg, device="cuda")
+    lq = lq_cases(torch, out, "lq_13x4_b1",
+                  {"quad_b1_15": (qp15, args, True),
+                   "quad_b1_18": (qp18, args, True)},
+                  cold=("quad_b1_15", "quad_b1_18"))
+    for name, iters in (("quad_b1_15", 15), ("quad_b1_18", 18)):
+        row = lq[name] | {"iters": iters,
+                          "us_per_stage_iter": 1e3 * lq[name]["ms"] / (10 * iters)}
+        lq[name] = row
+        print(f"LQ 13x4 B=1 N=10 {iters} iterations: {row['ms']:.4f} ms warm, "
+              f"{row['cold_ms']:.4f} ms cold, {row['us_per_stage_iter']:.3f} us "
+              f"per stage-iteration warm")
+    return rows, lq["quad_b1_15"]
+
+
+def phase_quad_tracking(torch, out):
+    """14. The loop at 8 m/s, all its ticks (1,800), through the kernels:
+    nominal, dual-state fitted GP and fitted RDRv under the flagship's
+    drag (deterministic), nominal without disturbance, and the fitted
+    one-cluster ``quad_residual_fn`` under the drag (no JAX row: held to a
+    GP's cut of the nominal RMSE); each RMSE against its gate and beside
+    the JAX package's row, the dual-state GP's cut against nominal, the
+    opt-time p50 and p99, the solver resets and the launches
+    (per solve one of each kernel; the cold start's and each reset's N RK4
+    rollout steps). Returns {row: launches}."""
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import run_tracking
+    from ad_mpc_tpu_torch.sim.simulator import DisturbanceConfig
+
+    modes = quad_modes()
+    drag = DisturbanceConfig(drag=True)
+    runs = {"nominal": (modes["nominal"], drag), "gp": (modes["ensemble"], drag),
+            "rdrv": (modes["rdrv"], drag),
+            "nominal_no_dist": (modes["nominal"], DisturbanceConfig()),
+            "residual_fn": (modes["residual_fn"], drag)}
+    rows = {}
+    for name, (kw, dist) in runs.items():
+        tic = time.perf_counter()
+        r = run_tracking(disturbances=dist, device="cuda", **kw)
+        wall = time.perf_counter() - tic
+        n, L = r.n_steps + r.n_resets, r.launches
+        check(L["vde"] == L["lq_ipm"] == n and L["rk4"] >= n + 10
+              and (L["rk4"] - n) % 10 == 0,
+              f"quad tracking {name}: launches {L} for {r.n_steps} ticks and "
+              f"{r.n_resets} resets")
+        gate = (QUAD_RMSE_GATES[name] if name in QUAD_RMSE_GATES
+                else (1 - GP_REDUCTION_GATE) * rows["nominal"]["rmse"])
+        check(r.rmse == r.rmse and r.rmse <= gate,
+              f"quad tracking {name}: RMSE {r.rmse:.5f} m > {gate:.5f}")
+        rows[name] = {"rmse": r.rmse, "jax_rmse": JAX_QUAD_RMSE[name],
+                      "gate": gate, "p50_opt_ms": r.p50_opt_ms,
+                      "p99_opt_ms": r.p99_opt_ms, "mean_opt_ms": r.mean_opt_ms,
+                      "n_resets": r.n_resets, "n_steps": r.n_steps,
+                      "v_max": r.v_max, "launches": L, "wall_s": wall}
+        print(f"quad tracking loop @ 8 m/s {name}: RMSE {r.rmse:.5f} m (gate "
+              f"{gate:.5f}; JAX package {JAX_QUAD_RMSE[name]}), {r.n_steps} "
+              f"ticks, v_max {r.v_max:.2f} m/s, opt time p50 "
+              f"{r.p50_opt_ms:.3f} ms p99 {r.p99_opt_ms:.3f} ms mean "
+              f"{r.mean_opt_ms:.3f} ms (u0 on the host), resets {r.n_resets}, "
+              f"launches {L}, {wall:.1f} s wall")
+    cut = 1.0 - rows["gp"]["rmse"] / rows["nominal"]["rmse"]
+    check(cut >= GP_REDUCTION_GATE, f"quad tracking: the GP cuts the nominal "
+          f"RMSE by {100 * cut:.1f}% < {100 * GP_REDUCTION_GATE:.0f}%")
+    print(f"quad tracking: the dual-state GP cuts the nominal RMSE by "
+          f"{100 * cut:.1f}% (gate {100 * GP_REDUCTION_GATE:.0f}%; JAX package "
+          f"{100 * (1 - JAX_QUAD_RMSE['gp'] / JAX_QUAD_RMSE['nominal']):.1f}%)")
+    out["quad_tracking"] = rows | {"gp_reduction": cut}
+    return {k: r["launches"] for k, r in rows.items()}
+
+
+def phase_fleet_oracle(out):
+    """15. Queue C 1: the committed oracle instance through the fleet solver
+    at the c2 settings (12 IPM iterations, one RTI iteration, float32,
+    N=20, broadcast p), 30 RTI re-solves: |u0 - u0_oracle| < 1e-3."""
+    from ad_mpc_tpu_torch.testing import fleet_oracle_distance
+
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                           "fixtures", "oracle_bike_n20.npz")
+    d, launches = fleet_oracle_distance(fixture, "cuda", backend="cuda")
+    check(d < 1e-3, f"fleet oracle: |u0 - u0_oracle| {d:.3e} >= 1e-3")
+    check(launches == {"vde": 30, "lq_ipm": 30, "rk4": 30},
+          f"fleet oracle: launches {launches}")
+    print(f"fleet oracle instance (BatchedSQPSolver, c2 settings, N=20, 30 RTI "
+          f"re-solves, kernels): |u0 - u0_oracle| = {d:.3e} (gate 1e-3)")
+    out["fleet_oracle_u0_distance"] = d
+
+
 ROW_KEYS = ("max_abs_err", "ms", "cold_ms", "plain_ms", "bound_ms", "bound_by",
             "registers", "spill_stores", "spill_loads")
 
@@ -1315,6 +1636,61 @@ def kernel_row(name, source, replaces, launches, r):
     row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
            "launches": launches, "library_ms": r.get("library_ms")}
     return row | {k: r[k] for k in ROW_KEYS if k in r}
+
+
+def quad_kernel_rows(quad_rows, quad_b1, lq_b1, track):
+    """The kernels-line rows of QuadMPC's path (phases 12-14): each mode's
+    VDE and RK4 rows at the shapes its solve gives them, with the launches
+    of the tracking rows that run that mode; the two new functors' rows at
+    B=16384; the 13x4 LQ kernel at B=1."""
+    vde_src = "ad_mpc_tpu_torch/csrc/vde.cu"
+    vde_tpu = "ad_mpc_tpu/ops/pallas_vde.py:106"
+    rk4_quad_mpc = ("ad_mpc_tpu/ocp/solver.py:263 and :292 (the KKT defect and "
+                    "the cold start's rollout, XLA in the JAX solver; no Pallas "
+                    "kernel)")
+    lq_quad_mpc = ("ad_mpc_tpu/ops/pallas_lq.py:468 (on this path the JAX solver "
+                   "runs the same function as the XLA IPM, ops/qp_ipm.py:207)")
+    mode_launches = {
+        "nominal": {k: track["nominal"][k] + track["nominal_no_dist"][k]
+                    for k in ("vde", "rk4")},
+        "rdrv": track["rdrv"], "residual_fn": track["residual_fn"],
+        "ensemble": track["gp"]}
+    b1_shape = {"ensemble": "B=10, N=1 (the N one-stage scenarios of B=1, N=10)"}
+    rows = []
+    for mode, (vde_r, rk4_r) in quad_b1.items():
+        shape = {"shape": b1_shape.get(mode, "B=1, N=10")}
+        L = mode_launches[mode]
+        rows += [
+            kernel_row(f"vde_quad_mpc_{mode}", vde_src, vde_tpu, L["vde"], vde_r) | shape,
+            kernel_row(f"rk4_quad_mpc_{mode}", vde_src, rk4_quad_mpc, L["rk4"],
+                       rk4_r) | shape]
+    # The two new functors at the quad phases' B=16384: the times of a
+    # fleet's shapes; the launches are the same functor's on the tracking rows.
+    big = {"shape": "B=16384, N=10 (launches: this functor's on the B=1 tracking rows)"}
+    return rows + [
+        kernel_row("vde_quad_drag_b16384", vde_src, vde_tpu,
+                   track["rdrv"]["vde"], quad_rows["vde_quad_drag"]) | big,
+        kernel_row("rk4_quad_drag_b16384", vde_src, rk4_quad_mpc,
+                   track["rdrv"]["rk4"], quad_rows["rk4_quad_drag"]) | big,
+        kernel_row("vde_gp_quad_dual_b16384", vde_src, vde_tpu,
+                   track["gp"]["vde"], quad_rows["vde_gp_quad_dual"]) | big,
+        kernel_row("rk4_gp_quad_dual_b16384", vde_src, rk4_quad_mpc,
+                   track["gp"]["rk4"], quad_rows["rk4_gp_quad_dual"]) | big,
+        kernel_row("lq_ipm_13x4_b1", "ad_mpc_tpu_torch/csrc/lq_ipm_wide.cuh",
+                   lq_quad_mpc, sum(L["lq_ipm"] for L in track.values()), lq_b1)
+        | {"shape": "B=1, N=10, 15 iterations"},
+    ]
+
+
+def timed(out, name, phase, *args):
+    """``phase(*args)``, its wall time printed and kept in
+    ``out["phase_s"]`` (the smoke's budget is 1,200 s, the build included)."""
+    tic = time.perf_counter()
+    res = phase(*args)
+    sec = time.perf_counter() - tic
+    out.setdefault("phase_s", {})[name] = sec
+    print(f"phase {name}: {sec:.1f} s")
+    return res
 
 
 def main(argv=None):
@@ -1347,30 +1723,34 @@ def main(argv=None):
         print(f"ptxas {name}:\n{_build.ptxas_report(name)}")
 
     out = {"card": card, "build_s": build_s}
-    vde = phase_vde(torch, np, out)
-    rk4 = phase_rk4(torch, np, out)
-    lq = phase_lq(torch, np, out)
-    launches = phase_slice(torch, out, card)
-    vde_p = phase_vde_pacejka(torch, np, out)
-    rk4_p = phase_rk4_pacejka(torch, np, out)
-    launches_c4 = phase_c4(torch, out, card)
-    vde_g = phase_vde_gp_bicycle(torch, np, out)
-    rk4_g = phase_rk4_gp_bicycle(torch, np, out)
-    launches_c3 = phase_c3(torch, out, card)
-    vde_q = phase_vde_quad(torch, np, out)
-    rk4_q = phase_rk4_quad(torch, np, out)
-    lq_q = phase_lq_quad(torch, np, out)
-    launches_q = phase_c5(torch, out, card)
-    vde_gq = phase_vde_gp_quad(torch, np, out)
-    rk4_gq = phase_rk4_gp_quad(torch, np, out)
-    launches_c6 = phase_c6(torch, out, card)
-    lane = phase_lane_chain(torch, out)
-    lane_launches = phase_mxu(torch, out)
-    phase_long_horizon(out)
-    phase_c2_n40(torch, out, card)
-    phase_latency(out)
-    ad = phase_ad_kernels(torch, np, out)
-    launches_cl, launches_dep = phase_ad_path(torch, np, out)
+    vde = timed(out, "vde", phase_vde, torch, np, out)
+    rk4 = timed(out, "rk4", phase_rk4, torch, np, out)
+    lq = timed(out, "lq", phase_lq, torch, np, out)
+    launches = timed(out, "slice", phase_slice, torch, out, card)
+    vde_p = timed(out, "vde_pacejka", phase_vde_pacejka, torch, np, out)
+    rk4_p = timed(out, "rk4_pacejka", phase_rk4_pacejka, torch, np, out)
+    launches_c4 = timed(out, "c4", phase_c4, torch, out, card)
+    vde_g = timed(out, "vde_gp_bicycle", phase_vde_gp_bicycle, torch, np, out)
+    rk4_g = timed(out, "rk4_gp_bicycle", phase_rk4_gp_bicycle, torch, np, out)
+    launches_c3 = timed(out, "c3", phase_c3, torch, out, card)
+    vde_q = timed(out, "vde_quad", phase_vde_quad, torch, np, out)
+    rk4_q = timed(out, "rk4_quad", phase_rk4_quad, torch, np, out)
+    lq_q = timed(out, "lq_quad", phase_lq_quad, torch, np, out)
+    launches_q = timed(out, "c5", phase_c5, torch, out, card)
+    vde_gq = timed(out, "vde_gp_quad", phase_vde_gp_quad, torch, np, out)
+    rk4_gq = timed(out, "rk4_gp_quad", phase_rk4_gp_quad, torch, np, out)
+    launches_c6 = timed(out, "c6", phase_c6, torch, out, card)
+    lane = timed(out, "lane_chain", phase_lane_chain, torch, out)
+    lane_launches = timed(out, "mxu", phase_mxu, torch, out)
+    timed(out, "long_horizon", phase_long_horizon, out)
+    timed(out, "c2_n40", phase_c2_n40, torch, out, card)
+    timed(out, "latency", phase_latency, out)
+    ad = timed(out, "ad_kernels", phase_ad_kernels, torch, np, out)
+    launches_cl, launches_dep = timed(out, "ad_path", phase_ad_path, torch, np, out)
+    quad_rows = timed(out, "quad_functors", phase_quad_functors, torch, np, out)
+    quad_b1, lq_b1 = timed(out, "quad_kernels", phase_quad_kernels, torch, out)
+    launches_track = timed(out, "quad_tracking", phase_quad_tracking, torch, out)
+    timed(out, "fleet_oracle", phase_fleet_oracle, out)
 
     vde_src, lq_src = "ad_mpc_tpu_torch/csrc/vde.cu", "ad_mpc_tpu_torch/csrc/lq_ipm.cu"
     vde_tpu = "ad_mpc_tpu/ops/pallas_vde.py:106"
@@ -1409,6 +1789,7 @@ def main(argv=None):
             kernel_row(f"rk4_ad_n{N}", vde_src, rk4_ad, launched["rk4"], rk4_r),
             kernel_row(f"lq_ipm_ad_n{N}", lq_src, lq_ad, launched["lq_ipm"], lq_r),
         ]
+    kernels += quad_kernel_rows(quad_rows, quad_b1, lq_b1, launches_track)
     out["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -18,7 +18,7 @@ import torch
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
 from ad_mpc_tpu_torch.experiments import capture, long_horizon, mxu_riccati, quad_fleet
-from ad_mpc_tpu_torch.experiments.c2_kernels import c3_c4_bits, c5_bits, digest
+from ad_mpc_tpu_torch.experiments.c2_kernels import c3_c4_bits, c5_bits, c6_bits, digest
 from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
@@ -621,6 +621,19 @@ def test_c3_c4_kernels_keep_their_bits(cuda):
     assert c3_c4_bits(cuda) == C3_C4_BITS
 
 
+# sha256 of the c6 functor's outputs on the fixed draws of
+# ``experiments/c2_kernels.py:c6_bits``, as the kernels gave them before
+# GPQuadDyn's means cache and rotation were shared with GPQuadDualDyn (that
+# function run on that tree and on this one, on one card).
+C6_BITS = {"vde_gp_quad_n32": "6d7be73b6e468547", "rk4_gp_quad_n32": "59b2ab82177f4066",
+           "vde_gp_quad_fitted": "b88df69fcf79e808",
+           "rk4_gp_quad_fitted": "d40b726b227d43c3"}
+
+
+def test_c6_kernels_keep_their_bits(cuda):
+    assert c6_bits(cuda) == C6_BITS
+
+
 def _gp_quad(fitted):
     ens = (quad_fleet.fitted_ensemble() if fitted
            else quad_fleet.make_quad_gp_ensemble())
@@ -846,3 +859,225 @@ def test_ad_rti_converges_to_oracle_on_card(cuda):
     d, launches = rti_oracle_distance(path, cuda, backend="cuda")
     assert d < 1e-3, d
     assert launches == {"vde": 30, "lq_ipm": 30, "rk4": 30 + 20}
+
+
+# QuadMPC's modes on the card: the RDRv drag (QuadDragDyn) and the
+# dual-state GP (GPQuadDualDyn) functors, and one solve per mode.
+
+def _drag():
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics
+
+    return QuadDragDynamics(quad_fleet.fitted_rdrv_d())
+
+
+def _dual(name):
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
+
+    ens = (quad_fleet.fitted_ensemble() if name == "fitted"
+           else quad_fleet.make_quad_gp_ensemble(n=16, clusters=2))
+    return GPQuadDualDynamics(ens)
+
+
+def _new_functor_outputs(dyn, xs, us, ps, device):
+    vde = make_vde(dyn, 0.1, xs.shape[1] - 1, 13, 4, ps.shape[1], device=device)
+    rk4 = make_rk4(dyn, 0.1, 13, 4, ps.shape[1], device=device)
+    got = (*vde(xs, us, ps), rk4.defect(xs, us, ps), rk4(xs[:, 0], us[:, 0], ps))
+    assert vde.launches == 1 and rk4.launches == 2
+    return got
+
+
+def _plain_outputs(dyn, xs, us, ps):
+    return (*vde_plain(dyn, 0.1, 1, xs, us, ps),
+            discrete_step(dyn, 0.1, 1, xs[:, :-1], us, ps[:, None]) - xs[:, 1:],
+            discrete_step(dyn, 0.1, 1, xs[:, 0], us[:, 0], ps))
+
+
+def _hold_to_plain(dyn, got, args, anchored):
+    """The outputs of :func:`_new_functor_outputs` against
+    :func:`_plain_outputs` at 3e-5; ``anchored`` (a fitted GP) each held to
+    the float64 plain version with its float32 spread instead
+    (``testing.f64_anchored``; the sweep's outputs by rows)."""
+    if not anchored:
+        for g, w in zip(got, _plain_outputs(dyn, *args)):
+            torch.testing.assert_close(g, w, atol=3e-5, rtol=0)
+        return
+    want64 = _plain_outputs(dyn, *(a.double() for a in args))
+    runs = [_plain_outputs(dyn, *args)] + [
+        _plain_outputs(table_perturbed(dyn, s), *perturbed(args, s))
+        for s in range(SPREAD_RUNS)]
+    for i, (g, w64) in enumerate(zip(got, want64)):
+        err, spread, ratio, ok = f64_anchored(
+            g, [r[i] for r in runs], w64, 3e-5, rows=i < 2)
+        assert ok, (i, err, spread, ratio)
+
+
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_quad_drag_kernels_match_plain(cuda, B):
+    """The drag functor's sweep and both modes of its RK4 map against their
+    plain versions at the quad's 3e-5; a relaunch repeats its bits."""
+    dyn = _drag()
+    xs, us, ps = _quad_traj(B, 10, cuda, seed=15)
+    xs[..., 7:10] *= 10.0  # velocities where the drag matters
+    got = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    for g, w in zip(got, _plain_outputs(dyn, xs, us, ps)):
+        torch.testing.assert_close(g, w, atol=3e-5, rtol=0)
+    torch.testing.assert_close(got[3], got[2], atol=3e-5, rtol=0)
+    again = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("name", ["two_clusters", "fitted"])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 1000])
+def test_gp_quad_dual_kernels_match_plain(cuda, B, name):
+    """The dual-state functor on p rows with the trigger on every third
+    scenario and the cluster drawn per output: on the synthetic two-cluster
+    three-output ensemble (each scenario's cluster read from its p) at
+    3e-5, on the fitted one-cluster model held to the float64 plain
+    version with its float32 spread (``testing.f64_anchored``)."""
+    from ad_mpc_tpu_torch.testing import dual_gp_ps
+
+    dyn = _dual(name)
+    xs, us, _ = _quad_traj(B, 10, cuda, seed=16)
+    xs[..., 7:10] *= 10.0 if name == "two_clusters" else 5.0
+    ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(B), B, dyn.ensemble,
+                                     trigger_every=3), device=cuda)
+    got = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    if name == "two_clusters":
+        assert len(set(ps[:, 4:].flatten().tolist())) == 2
+    _hold_to_plain(dyn, got, (xs, us, ps), anchored=name == "fitted")
+    again = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gp_quad_dual_refuses_a_p_of_another_width(cuda):
+    """The C entry checks p against the struct's D (1 + 2D entries)."""
+    dyn = _dual("two_clusters")
+    B, N = 4, 10
+    xs, us, _ = _quad_traj(B, N, cuda)
+    A = torch.empty((B, N, 13, 13), device=cuda)
+    Bm = torch.empty((B, N, 13, 4), device=cuda)
+    c = torch.empty((B, N, 13), device=cuda)
+    ps = torch.zeros((B, 5), device=cuda)
+    fn, _ = _entry(dyn)
+    err = fn(xs.data_ptr(), us.data_ptr(), ps.data_ptr(), A.data_ptr(),
+             Bm.data_ptr(), c.data_ptr(), B, N, 13, 4, 5, 0.1, 1,
+             dyn.cuda_params(), torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
+
+
+def _quad_modes():
+    from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
+
+    fitted = quad_fleet.fitted_ensemble()
+    return {"nominal": {}, "rdrv": {"rdrv_d": quad_fleet.fitted_rdrv_d()},
+            "residual_fn": {"residual_fn": quad_residual_fn(fitted)},
+            "ensemble": {"ensemble": fitted}}
+
+
+@pytest.mark.parametrize("mode", ["nominal", "rdrv", "residual_fn", "ensemble"])
+def test_quad_mpc_solve_on_card_matches_plain(cuda, mode):
+    """One RTI solve of each mode through the kernels against the plain
+    solver on the card from the same warm start: u0 within 1e-3, and one
+    launch each of the sweep, the 13x4 QP and the RK4 map per solve."""
+    from ad_mpc_tpu_torch.control.mpc import QuadMPC, quad_spec
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import (
+        get_reference_chunk, reference)
+    from ad_mpc_tpu_torch.ocp.solver import SolverState
+
+    traj, t_ref, u_traj = reference("loop", 8.0)
+    x_ref, u_ref = get_reference_chunk(traj, u_traj, t_ref, 6.0, 10, 0.1)
+    x0 = torch.as_tensor(traj[300], dtype=torch.float32, device=cuda)
+    kw = _quad_modes()[mode]
+    kern, plain = (QuadMPC(spec=quad_spec(qp_iters=15), device=cuda, backend=b, **kw)
+                   for b in ("cuda", "plain"))
+    start = plain.solver.init_state(x0)
+    for m in (kern, plain):
+        m.set_reference(x_ref, u_ref)
+        m.state = SolverState(start.xs.clone(), start.us.clone())
+    kern.solver.vde.launches = kern.solver.qp.launches = kern.solver.rk4.launches = 0
+    got, _ = kern.optimize(x0)
+    want, _ = plain.optimize(x0)
+    assert fleet.launches(kern.solver) == {"vde": 1, "lq_ipm": 1, "rk4": 1}
+    assert fleet.launches(plain.solver) == {"vde": 0, "lq_ipm": 0, "rk4": 0}
+    assert float((got[0] - want[0]).abs().max()) < 1e-3
+
+
+@pytest.mark.parametrize("mode", ["nominal", "rdrv", "residual_fn", "ensemble"])
+def test_quad_mpc_kernels_match_plain_at_the_solve_inputs(cuda, mode):
+    """Each mode's sweep and RK4 map on the inputs one RTI solve gave them
+    (B=1, N=10; the dual-state GP's N one-stage scenarios with their
+    trigger and cluster p rows) against their plain versions: 3e-5, the
+    fitted GP's modes held to the float64 plain version with their float32
+    spread (``testing.f64_anchored``)."""
+    from ad_mpc_tpu_torch.control.mpc import QuadMPC, quad_spec
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import (
+        get_reference_chunk, reference)
+
+    traj, t_ref, u_traj = reference("loop", 8.0)
+    mpc = QuadMPC(spec=quad_spec(qp_iters=15), device=cuda, **_quad_modes()[mode])
+    mpc.set_reference(*get_reference_chunk(traj, u_traj, t_ref, 6.0, 10, 0.1))
+    seen = []
+    hook = mpc.solver.vde.register_forward_pre_hook(lambda m, a: seen.append(a))
+    try:
+        mpc.optimize(torch.as_tensor(traj[300], dtype=torch.float32, device=cuda))
+    finally:
+        hook.remove()
+    args = seen[0]
+    assert args[0].shape[:2] == ((10, 2) if mode == "ensemble" else (1, 11))
+    dyn = mpc.solver.f
+    _hold_to_plain(dyn, _new_functor_outputs(dyn, *args, cuda), args,
+                   anchored=mode in ("residual_fn", "ensemble"))
+
+
+def test_quad_mpc_gp_mode_makes_no_host_sync_but_the_watchdog(cuda):
+    """A GP-mode solve but for the watchdog's fetch (the warm start's
+    retraction, the midpoint cluster, the node-0 mean, the stage rows and
+    the solve) runs with every host synchronisation an error: the fetch
+    is the solve's one sync."""
+    from ad_mpc_tpu_torch.control.mpc import QuadMPC
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import (
+        get_reference_chunk, reference)
+
+    traj, t_ref, u_traj = reference("loop", 8.0)
+    mpc = QuadMPC(ensemble=quad_fleet.fitted_ensemble(), device=cuda)
+    mpc.set_reference(*get_reference_chunk(traj, u_traj, t_ref, 3.0, 10, 0.1))
+    x0 = torch.as_tensor(traj[300], dtype=torch.float32, device=cuda)
+    mpc.optimize(x0)  # cold start, allocator warm-up
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mpc._warm_start(x0)
+        params = mpc._stage_params(x0, None)
+        res = mpc.solver.solve(x0, mpc._yref_x, mpc._yref_u, params, mpc.state)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert params.shape == (10, 7) and isinstance(mpc._last_cluster, torch.Tensor)
+    assert bool(torch.isfinite(res.us).all())
+
+
+def test_quad_tracking_on_card(cuda):
+    """40 ticks of the loop at 8 m/s under drag through the kernels, with
+    the dual-state fitted GP: finite, on the track, and per tick one launch
+    of each kernel (plus the cold start's N RK4 rollout steps)."""
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import run_tracking
+    from ad_mpc_tpu_torch.sim.simulator import DisturbanceConfig
+
+    res = run_tracking(disturbances=DisturbanceConfig(drag=True), max_steps=40,
+                       ensemble=quad_fleet.fitted_ensemble(), device=cuda)
+    assert res.rmse < 0.1 and res.n_resets == 0
+    assert res.launches == {"vde": 40, "lq_ipm": 40, "rk4": 40 + 10}
+
+
+def test_fleet_solver_reaches_the_oracle_on_card(cuda):
+    """Queue C 1 through the kernels: the committed oracle instance through
+    ``BatchedSQPSolver`` at the c2 settings (12 IPM iterations, one RTI
+    iteration, float32, N=20, broadcast p): 30 RTI re-solves end within 1e-3
+    of the oracle's u0."""
+    import os
+
+    from ad_mpc_tpu_torch.testing import fleet_oracle_distance
+
+    path = os.path.join(os.path.dirname(__file__), "fixtures", "oracle_bike_n20.npz")
+    d, launches = fleet_oracle_distance(path, cuda, backend="cuda")
+    assert d < 1e-3, d
+    assert launches == {"vde": 30, "lq_ipm": 30, "rk4": 30}

@@ -39,7 +39,7 @@ def test_port_imports_no_jax():
     res = _run(["-c", _PROBE], REPO)
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 53  # every module of the port was imported
+    assert n_modules >= 58  # every module of the port was imported
     for m in ("models.quadrotor", "experiments.quad_fleet",
               "experiments.quad_kernels", "utils.math", "models.pacejka",
               "models.gp_bicycle", "learned.gp", "learned.ensemble",
@@ -47,7 +47,9 @@ def test_port_imports_no_jax():
               "experiments.gp_quad_anchor", "control.reference",
               "control.safety", "sim.simulator", "runtime.bridge",
               "nodes.topics", "nodes.ad_node", "nodes.sim_node",
-              "experiments.ad_closed_loop", "experiments.deployment_loop"):
+              "experiments.ad_closed_loop", "experiments.deployment_loop",
+              "control.mpc", "trajectories.keyframes", "trajectories.polynomial",
+              "trajectories.quad_refs", "experiments.quad_trajectory_test"):
         assert f"ad_mpc_tpu_torch.{m}" in res.stdout.split()
 
 

@@ -1,0 +1,275 @@
+"""Port parity for QuadMPC's two dynamics with new CUDA functors: the
+RDRv linear drag (``QuadDragDynamics``, functor ``QuadDragDyn``) and the
+dual-state GP (``GPQuadDualDynamics``, functor ``GPQuadDualDyn``), their
+plain versions, VDE sweeps and RK4 maps against the JAX package, their
+parameter structs and tables, and their refusal of layouts the functors
+cannot hold.
+
+Inputs are drawn from a seed with numpy and handed to both packages; the
+JAX side runs on the CPU on its XLA path (QuadMPC's solver linearizes
+there, not through Pallas). Tolerance 2e-5 (``tests/test_pallas_vde.py``)
+in float32; the fitted 60-point GP, whose means are sums of terms up to
+2,755 that cancel to under 6 (``tests/test_torch_gp_quad.py``), is compared
+in float64, at the same tolerance.
+"""
+
+import ctypes
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ad_mpc_tpu.control.mpc import QuadMPC as JaxQuadMPC
+from ad_mpc_tpu.control.mpc import quad_spec as jax_quad_spec
+from ad_mpc_tpu.learned import ensemble as je
+from ad_mpc_tpu.models import quadrotor as jq
+from ad_mpc_tpu.ops.integrators import discretize, linearize, linearize_p
+from ad_mpc_tpu.utils.io import load_model
+from ad_mpc_tpu.utils.math import v_dot_q as jax_v_dot_q
+from ad_mpc_tpu_torch import convert
+from ad_mpc_tpu_torch.control.mpc import QuadMPC, quad_spec
+from ad_mpc_tpu_torch.experiments import quad_fleet
+from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
+from ad_mpc_tpu_torch.models import gp_quad as tgq
+from ad_mpc_tpu_torch.models import quadrotor as tq
+from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde, vde_plain
+from ad_mpc_tpu_torch.ops.integrators import discrete_step
+from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj
+
+DT = 0.1
+_QP = jq.QuadrotorParams()
+RDRV = quad_fleet.fitted_rdrv_d()
+
+
+def _jax_ensemble(ens):
+    """The JAX package's GPEnsemble with the port ensemble's arrays."""
+    return je.GPEnsemble(**{k: (v if isinstance(v, tuple) else jnp.asarray(v))
+                            for k, v in ens._asdict().items()})
+
+
+@pytest.fixture(scope="module")
+def ensembles():
+    """{name: (port ensemble, JAX ensemble, dtype)}: the fitted
+    ``gp_flagship_c1`` (3 outputs, 1 cluster, 60 points; float64), the
+    synthetic 2-cluster 3-output ensemble and a 2-cluster 1-output one on
+    the body velocity v_y (feature v_y, output row 8; float32)."""
+    fitted_j = load_model("gp_flagship_c1")
+    two = quad_fleet.make_quad_gp_ensemble(n=16, clusters=2)
+    one = two._replace(**{k: getattr(two, k)[1:2] for k in (
+        "x_train", "k_inv_y", "len_scale", "sigma_f", "sigma_n", "y_mean",
+        "centroids", "n_valid")})
+    one = one._replace(x_train=one.x_train[..., 1:2], len_scale=one.len_scale[..., 1:2],
+                       centroids=one.centroids[..., 1:2], out_idx=(8,), feat_idx=(8,))
+    return {"fitted": (convert.gp_ensemble(fitted_j), fitted_j, np.float64),
+            "two_clusters": (two, _jax_ensemble(two), np.float32),
+            "one_output": (one, _jax_ensemble(one), np.float32)}
+
+
+def _states(seed=9, n=48, dtype=np.float32):
+    """Unit quaternions, body velocities in the ensembles' range, inputs in
+    [0, 1]."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0.0, 0.7, (n, 13))
+    x[:, 3:7] /= np.linalg.norm(x[:, 3:7], axis=1, keepdims=True)
+    x[:, 7:10] = rng.uniform(-4.0, 6.0, (n, 3))
+    u = rng.uniform(0.0, 1.0, (n, 4))
+    return x.astype(dtype), u.astype(dtype)
+
+
+def _jax_dual_dyn(ens):
+    """The dynamics of the JAX package's QuadMPC ensemble mode
+    (``ad_mpc_tpu/control/mpc.py:264-283``)."""
+    D, out_idx = len(ens.out_idx), ens.out_idx
+
+    def dyn(x, u, p):
+        mu0, cl = p[1:1 + D], p[1 + D:1 + 2 * D].astype(jnp.int32)
+        z = je.body_frame_features(x, ens.feat_idx)
+        mu = je.predict(ens, z, cluster_idx=cl)
+        mu = jnp.where(p[0] > 0.5, mu0, mu).astype(jnp.result_type(x))
+        full = jnp.zeros(3, jnp.result_type(x))
+        for k, dim in enumerate(out_idx):
+            full = full.at[dim - 7].set(mu[k])
+        return jq.quad_dynamics(x, u, _QP).at[7:10].add(jax_v_dot_q(full, x[3:7]))
+
+    return dyn
+
+
+def test_fitted_rdrv_copy_equals_the_committed_matrix():
+    """``ad_mpc_tpu_torch/data/rdrv_d.npy`` is the JAX package's fitted
+    ``results/experiments/gp_flagship/rdrv_d.npy``, bit for bit."""
+    committed = (Path(__file__).resolve().parents[1] / "results" / "experiments"
+                 / "gp_flagship" / "rdrv_d.npy")
+    np.testing.assert_array_equal(RDRV, np.load(committed))
+    assert RDRV.shape == (3, 3) and RDRV.dtype == np.float64
+
+
+def test_drag_dynamics_match_jax():
+    """The plain forward, entrywise on a (13, n) slab, against the JAX
+    package's ``quad_dynamics(rdrv_d=D)`` and the port's matrix form."""
+    x, u = _states()
+    dyn = tq.QuadDragDynamics(RDRV)
+    got = dyn(torch.as_tensor(x.T), torch.as_tensor(u.T), None).T
+    want = jax.vmap(lambda a, b: jq.quad_dynamics(a, b, _QP, RDRV))(x, u)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    mat = torch.func.vmap(lambda a, b: tq.quad_dynamics(a, b, rdrv_d=RDRV))(
+        torch.as_tensor(x), torch.as_tensor(u))
+    np.testing.assert_allclose(got.numpy(), mat.numpy(), atol=2e-5)
+
+
+def test_drag_vde_and_rk4_match_jax():
+    """The sweep and both modes of the RK4 map of the drag dynamics against
+    the JAX package's linearization of its discretized ``quad_dynamics(
+    rdrv_d=D)``."""
+    B, N = 4, 5
+    xs, us = quad_traj(np.random.default_rng(13), B, N)
+    dyn, p = tq.QuadDragDynamics(RDRV), torch.zeros((B, 0))
+    got = make_vde(dyn, DT, N, 13, 4, 0, device="cpu")(
+        torch.as_tensor(xs), torch.as_tensor(us), p)
+    F = discretize(lambda a, b: jq.quad_dynamics(a, b, _QP, RDRV), DT, 1)
+    want = jax.jit(jax.vmap(lambda a, b: linearize(F, a, b)))(xs, us)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+    rk4 = make_rk4(dyn, DT, 13, 4, 0, device="cpu")
+    defect = rk4.defect(torch.as_tensor(xs), torch.as_tensor(us), p)
+    np.testing.assert_allclose(defect.numpy(), np.asarray(want[2]), atol=2e-5)
+    step = rk4(torch.as_tensor(xs[:, 0]), torch.as_tensor(us)[:, 1], p)
+    np.testing.assert_allclose(
+        step.numpy(), np.asarray(jax.jit(jax.vmap(F))(xs[:, 0], us[:, 1])), atol=2e-5)
+    assert rk4.launches == 0
+
+
+@pytest.mark.parametrize("name", ["fitted", "two_clusters", "one_output"])
+def test_dual_gp_dynamics_match_jax(ensembles, name):
+    """The plain forward (entrywise, on a slab, p per column) against the
+    dynamics of the JAX package's QuadMPC ensemble mode, on rows with and
+    without the trigger and with every cluster."""
+    ens, ens_j, dt = ensembles[name]
+    x, u = _states(dtype=dt)
+    p = dual_gp_ps(np.random.default_rng(4), x.shape[0], ens, trigger_every=3
+                   ).astype(dt)
+    dyn = tgq.GPQuadDualDynamics(ens)
+    assert dyn.p_dim == p.shape[1]
+    got = dyn(torch.as_tensor(x.T), torch.as_tensor(u.T), torch.as_tensor(p.T)).T
+    want = jax.vmap(_jax_dual_dyn(ens_j))(x, u, p)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("name", ["fitted", "two_clusters"])
+def test_dual_gp_vde_and_rk4_match_jax_solver(ensembles, name):
+    """The sweep and the RK4 map with a p row per scenario against the
+    JAX QuadMPC solver's own discrete map (``solver._F``) and its
+    per-stage linearization (``linearize_p``)."""
+    ens, ens_j, dt = ensembles[name]
+    B, N = 6, 2
+    xs, us = (a.astype(dt) for a in quad_traj(np.random.default_rng(17), B, N))
+    xs[..., 7:10] *= 10.0  # body velocities across the clusters
+    ps = dual_gp_ps(np.random.default_rng(5), B, ens, trigger_every=3).astype(dt)
+    jmpc = JaxQuadMPC(spec=jax_quad_spec(n_nodes=N, t_horizon=N * DT),
+                      ensemble=ens_j, dtype=jnp.float64)
+    F = jmpc.solver._F
+    want = jax.jit(jax.vmap(
+        lambda a, b, p: linearize_p(F, a, b, jnp.tile(p, (N, 1)))))(xs, us, ps)
+    dyn = tgq.GPQuadDualDynamics(ens)
+    t = lambda a: torch.as_tensor(a)
+    got = vde_plain(dyn, DT, 1, t(xs), t(us), t(ps))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+    rk4 = make_rk4(dyn, DT, 13, 4, dyn.p_dim, device="cpu")
+    np.testing.assert_allclose(rk4.defect(t(xs), t(us), t(ps)).numpy(),
+                               np.asarray(want[2]), atol=2e-5)
+    step = jax.jit(jax.vmap(F))(xs[:, 0], us[:, 0], ps)
+    np.testing.assert_allclose(rk4(t(xs[:, 0]), t(us)[:, 0], t(ps)).numpy(),
+                               np.asarray(step), atol=2e-5)
+
+
+def test_trigger_rows_carry_mu0_with_no_gp_derivative(ensembles):
+    """On a trigger row the residual is R(q) mu0 whatever the velocity: its
+    Jacobian in v is the nominal quad's (zero), as the functor's lift,
+    which reads and caches no GP mean there, assumes."""
+    ens, _, _ = ensembles["fitted"]
+    dyn = tgq.GPQuadDualDynamics(ens)
+    x, u = (torch.as_tensor(a) for a in _states(n=1, dtype=np.float64))
+    x, u = x[0], u[0]
+    p = torch.tensor([1.0, 0.3, -0.2, 0.5, 0.0, 0.0, 0.0], dtype=torch.float64)
+    jac = torch.func.jacfwd(lambda xx: dyn(xx, u, p))(x)
+    nominal = torch.func.jacfwd(lambda xx: tq.quad_dynamics_lane(xx, u))(x)
+    torch.testing.assert_close(jac[:, 7:10], nominal[:, 7:10], atol=0, rtol=0)
+    mu_world = tq.v_dot_q(p[1:4], x[3:7])
+    torch.testing.assert_close(dyn(x, u, p)[7:10],
+                               tq.quad_dynamics_lane(x, u)[7:10] + mu_world)
+
+
+def test_drag_struct_holds_d_and_the_quad():
+    dyn = tq.QuadDragDynamics(RDRV)
+    s = dyn.cuda_params()
+    assert ctypes.sizeof(s) == ctypes.sizeof(tq.QuadParamsC) + 9 * 4
+    np.testing.assert_array_equal(np.ctypeslib.as_array(s.D),
+                                  RDRV.astype(np.float32))
+    assert bytes(s.quad) == bytes(tq.QuadDynamics().cuda_params())
+    with pytest.raises(ValueError, match="3x3"):
+        tq.QuadDragDynamics(np.eye(2))
+
+
+def test_dual_gp_table_pads_to_the_body_velocities(ensembles):
+    """The functor's table: every cluster of every output, on the body
+    velocity it corrects and the features it reads; zeros (a, y_mean, 1/l)
+    elsewhere; the struct's slots name each output's place in p."""
+    ens, _, _ = ensembles["one_output"]
+    dyn = tgq.GPQuadDualDynamics(ens)
+    C, n, D, slot = dyn.cuda_layout()
+    assert (C, n, D, slot) == (2, 16, 1, (-1, 0, -1))
+    flat = dyn.cuda_table()
+    X = flat[:9 * C * n].reshape(3, C, n, 3)
+    a = flat[9 * C * n:12 * C * n].reshape(3, C, n)
+    inv_l = flat[12 * C * n:12 * C * n + 9 * C].reshape(3, C, 3)
+    y_mean = flat[12 * C * n + 9 * C:].reshape(3, C)
+    assert flat.dtype == np.float32 and flat.size == 3 * C * (4 * n + 4)
+    np.testing.assert_array_equal(X[1, :, :, 1], ens.x_train[0, :, :, 0].astype(np.float32))
+    np.testing.assert_array_equal(
+        a[1], (ens.k_inv_y[0] * ens.sigma_f[0][:, None]).astype(np.float32))
+    np.testing.assert_array_equal(inv_l[1, :, 1], (1.0 / ens.len_scale[0, :, 0]).astype(np.float32))
+    np.testing.assert_array_equal(y_mean[1], ens.y_mean[0].astype(np.float32))
+    for r in (0, 2):
+        assert not a[r].any() and not y_mean[r].any()
+    assert not inv_l[:, :, [0, 2]].any() and not X[:, :, :, [0, 2]].any()
+    fitted = tgq.GPQuadDualDynamics(ensembles["fitted"][0])
+    assert fitted.cuda_layout() == (1, 60, 3, (0, 1, 2))
+    assert ctypes.sizeof(tgq.GPQuadDualParamsC) == 120
+    assert tgq.GPQuadDualParamsC.table.offset == 88
+
+
+def test_dual_gp_functor_refuses_other_layouts(ensembles):
+    """A feature or output off the body velocities, a repeated index, more
+    clusters or points than the table holds: refused with the layout."""
+    ens = ensembles["two_clusters"][0]
+    bad = {
+        "feat_idx=(7, 8, 3)": ens._replace(feat_idx=(7, 8, 3)),
+        "out_idx=(7, 7, 9)": ens._replace(out_idx=(7, 7, 9)),
+        "17 clusters": quad_fleet.make_quad_gp_ensemble(n=4, clusters=17),
+        "600 points": quad_fleet.make_quad_gp_ensemble(n=300, clusters=2),
+    }
+    for what, e in bad.items():
+        with pytest.raises(ValueError, match="GPQuadDualDyn"):
+            tgq.GPQuadDualDynamics(e).cuda_table()
+        with pytest.raises(ValueError, match="GPQuadDualDyn"):
+            make_vde(tgq.GPQuadDualDynamics(e), DT, 4, 13, 4, 7, device="cuda")
+
+
+def test_quad_mpc_cuda_refuses_modes_without_a_functor(ensembles):
+    """On the cuda backend a combination of options, or a GP residual that
+    picks among clusters at every evaluation, raises NotImplementedError
+    naming the parameter-routed GP functor; the plain backend takes them."""
+    two = ensembles["two_clusters"][0]
+    fitted = ensembles["fitted"][0]
+    for kw in ({"residual_fn": quad_residual_fn(two)},
+               {"rdrv_d": RDRV, "ensemble": fitted},
+               {"residual_fn": lambda x, u: 0.0 * x}):
+        with pytest.raises(NotImplementedError, match=r"B1 \(a\)"):
+            QuadMPC(spec=quad_spec(), device="cpu", backend="cuda", **kw)
+        QuadMPC(spec=quad_spec(), device="cpu", **kw)
+    one = QuadMPC(spec=quad_spec(), device="cpu",
+                  residual_fn=quad_residual_fn(fitted))
+    assert isinstance(one.solver.f, tgq.GPQuadDynamics)
