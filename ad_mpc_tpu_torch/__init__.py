@@ -6,11 +6,15 @@ bicycle with a GP mean, ``learned/``; c4: the Pacejka friction/topography
 sweep; c5: the quadrotor, nx=13, nu=4, N=10, two Gauss-Newton iterations,
 ``experiments/quad_fleet.py``; c6: the quadrotor with a body-frame GP
 residual, the bench's synthetic ensemble or the fitted ``gp_flagship_c1``
-model carried across in ``data/``) and the bench's Riccati-algebra rows
+model carried across in ``data/``), the bench's Riccati-algebra rows, the
+single-vehicle AD path, ``QuadMPC`` and its tracking loop, and the learned
+pipeline (record, fit, the flagship sweep; the parameter-routed GP fleet)
 through three CUDA C++ kernels written by hand for ``sm_90a``:
 
-- ``csrc/vde.cu``: the fused RK4 + forward-sensitivity sweep, one functor
-  per model (bicycle, quadrotor, Pacejka, GP bicycle, GP quadrotor) (replaces
+- ``csrc/vde.cuh``: the fused RK4 + forward-sensitivity sweep, one functor
+  per model in one source per family (``csrc/vde_<family>.cu``: bicycle,
+  Pacejka, GP bicycle and its routed form, quadrotor and its RDRv drag, GP
+  quadrotor, its routed form, the dual-state GP quadrotor) (replaces
   ``ad_mpc_tpu/ops/pallas_vde.py:_vde_kernel``);
 - ``csrc/lq_ipm.cu``: the fused fixed-iteration interior-point QP with its
   Riccati recursion, at 7x2 and 13x4 (replaces

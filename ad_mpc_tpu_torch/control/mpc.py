@@ -316,8 +316,9 @@ class QuadMPC:
             raise NotImplementedError(
                 "QuadMPC on backend='cuda' runs the nominal, rdrv_d, "
                 "quad_residual_fn of a one-cluster ensemble and ensemble "
-                "modes alone; this combination needs the parameter-routed GP "
-                "functor (ROADMAP Queue B1 (a)) or backend='plain'")
+                "modes alone; this combination needs a functor that picks the "
+                "cluster at every evaluation (ROADMAP Queue B1 (c)) or "
+                "backend='plain'")
         self.solver = SQPSolver(self.spec, dyn, p_dim=dyn.p_dim, dtype=dtype,
                                 device=device, backend=backend)
         N = self.spec.n_nodes

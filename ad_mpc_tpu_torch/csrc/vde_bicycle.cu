@@ -1,0 +1,116 @@
+// The bicycle family of the VDE sweep and its RK4 map (vde.cuh): the
+// blended bicycle of configs c2 and the AD path (BicycleDyn) and the
+// Pacejka bicycle of config c4 (PacejkaDyn).
+
+#ifndef PACEJKA_TANGENTS_PER_PASS
+#define PACEJKA_TANGENTS_PER_PASS 9
+#endif
+#ifndef PACEJKA_ROW_WARPS
+#define PACEJKA_ROW_WARPS 4
+#endif
+
+#include "vde_models.cuh"
+
+// The bicycle with the blend switch taken from p[0].
+struct BicycleDyn {
+  static constexpr int NX = 7, NU = 2, NP = 1;
+  static constexpr int TANGENTS_PER_PASS = 9, ROW_WARPS = 4;
+  static constexpr bool STAGES = false;
+  static constexpr int CACHE_FLOATS = 0;
+  using Ctx = const float*;
+  BicycleParamsC P;
+
+  DI Ctx context(const float* p) const { return p; }
+
+  template <class T>
+  DI void operator()(const T* x, const T* u, const float* p, T* xd) const {
+    bicycle_xdot(P, p[0], x, u, xd);
+  }
+};
+
+struct PacejkaParamsC {  // by value from the wrapper (models/pacejka.py)
+  float mass, l_f, l_r, iz, b_f, c_f, d_f, b_r, c_r, d_r, g, wheelbase;
+};
+
+// The Pacejka magic-formula bicycle with road topography
+// (ad_mpc_tpu/models/pacejka.py:38-116, pacejka_dynamics_p with the 5-entry
+// p = [mu, pitch, roll, B scale, D scale]), same order of operations, atanf
+// where the reference has atan_mosaic. What depends on p alone (the normal
+// loads, the magic formula's B and mu F_z D, the gravity feed-through) is
+// computed once per thread in float.
+struct PacejkaDyn {
+  static constexpr int NX = 7, NU = 2, NP = 5;
+  static constexpr int TANGENTS_PER_PASS = PACEJKA_TANGENTS_PER_PASS;
+  static constexpr int ROW_WARPS = PACEJKA_ROW_WARPS;
+  static constexpr bool STAGES = false;
+  static constexpr int CACHE_FLOATS = 0;
+  struct Ctx {
+    float b_f, b_r;      // B front and rear
+    float k_f, k_r;      // (mu F_z) D front and rear
+    float a_grav_x, a_grav_y;
+  };
+  PacejkaParamsC P;
+
+  DI Ctx context(const float* p) const {
+    const float mu = p[0];
+    float s_pitch, c_pitch, s_roll, c_roll;
+    sincosf(p[1], &s_pitch, &c_pitch);
+    sincosf(p[2], &s_roll, &c_roll);
+    const float g_eff = P.g * c_pitch * c_roll;
+    const float fz_f = divide(P.mass * g_eff * P.l_r, P.wheelbase);
+    const float fz_r = divide(P.mass * g_eff * P.l_f, P.wheelbase);
+    Ctx c;
+    c.b_f = P.b_f * p[3];
+    c.b_r = P.b_r * p[3];
+    c.k_f = mu * fz_f * (P.d_f * p[4]);
+    c.k_r = mu * fz_r * (P.d_r * p[4]);
+    c.a_grav_x = -P.g * s_pitch;
+    c.a_grav_y = P.g * s_roll;
+    return c;
+  }
+
+  template <class T>
+  DI void operator()(const T* x, const T* u, const Ctx& c, T* xd) const {
+    const T& psi = x[2];
+    const T& v_x = x[3];
+    const T& v_y = x[4];
+    const T& psi_dot = x[5];
+    const T& delta = x[6];
+    const T& a_cmd = u[0];
+    const T& delta_dot = u[1];
+
+    const T v_x_safe = max_(v_x, 0.5f);
+    const T alpha_f = delta - atan_(divide(v_y + P.l_f * psi_dot, v_x_safe));
+    const T alpha_r = -atan_(divide(v_y - P.l_r * psi_dot, v_x_safe));
+    T mf, mr, unused;
+    sin_cos(P.c_f * atan_(c.b_f * alpha_f), mf, unused);
+    sin_cos(P.c_r * atan_(c.b_r * alpha_r), mr, unused);
+    const T f_fy = c.k_f * mf;
+    const T f_ry = c.k_r * mr;
+
+    T sps, cps;
+    sin_cos(psi, sps, cps);
+    xd[0] = v_x * cps - v_y * sps;
+    xd[1] = v_x * sps + v_y * cps;
+    xd[2] = psi_dot;
+
+    T sd, cd;
+    sin_cos(delta, sd, cd);
+    xd[3] = a_cmd + c.a_grav_x - divide(f_fy * sd, P.mass) + v_y * psi_dot;
+    xd[4] = divide(f_ry + f_fy * cd, P.mass) + c.a_grav_y - v_x * psi_dot;
+    xd[5] = divide(P.l_f * f_fy * cd - P.l_r * f_ry, P.iz);
+    xd[6] = delta_dot;
+  }
+};
+
+extern "C" {
+
+VDE_ENTRIES(bicycle, BicycleDyn, BicycleParamsC)
+VDE_ENTRIES(pacejka, PacejkaDyn, PacejkaParamsC)
+
+// No functor here has a table in dynamic shared memory: nothing to set.
+int vde_prepare() { return 0; }
+
+VDE_ERROR_STRING
+
+}  // extern "C"

@@ -1,0 +1,261 @@
+// The pieces of the VDE functors that more than one source uses: the
+// bicycle's and the quadrotor's x_dot, the GP mean of a table and its lift
+// to duals, R(q), the GP quad's means cache and its residual's Jacobian.
+// Included by the vde_<family>.cu sources after vde.cuh.
+
+#pragma once
+
+#include "vde.cuh"
+
+// ------------------------------------------------------------- dynamics
+// A functor evaluates x_dot = f(x, u; p) for any scalar type T with the
+// operations of vde.cuh. p is the scenario's parameter row (not
+// differentiated).
+
+struct BicycleParamsC {  // by value from the wrapper (models/bicycle.py)
+  float mass, l_f, l_r, iz, cf, cr, wheelbase;
+};
+
+// The blended kinematic/dynamic bicycle (ad_mpc_tpu/models/bicycle.py:60-114)
+// with blend switch s; same order of operations.
+template <class T>
+DI void bicycle_xdot(const BicycleParamsC& P, float s, const T* x, const T* u,
+                     T* xd) {
+  const T& psi = x[2];
+  const T& v_x = x[3];
+  const T& v_y = x[4];
+  const T& psi_dot = x[5];
+  const T& delta = x[6];
+  const T& a = u[0];
+  const T& delta_dot = u[1];
+
+  const T v_x_safe = v_x + 1e-6f;
+  const T f_fy = (2.0f * P.cf) * (delta - divide(v_y + P.l_f * psi_dot, v_x_safe));
+  const T f_ry = divide((2.0f * P.cr) * (P.l_r * psi_dot - v_y), v_x_safe);
+
+  T sps, cps;
+  sin_cos(psi, sps, cps);
+  xd[0] = v_x * cps - v_y * sps;
+  xd[1] = v_x * sps + v_y * cps;
+  xd[2] = psi_dot;
+
+  T sd, cd;
+  sin_cos(delta, sd, cd);
+  const T v_x_dyn = a - divide(f_fy * sd, P.mass) + v_y * psi_dot;
+  const T v_y_dyn = divide(f_ry + f_fy * cd, P.mass) - v_x * psi_dot;
+  const T kin = delta_dot * v_x + delta * a;
+  const T v_y_kin = divide(kin * P.l_r, P.wheelbase);
+  const T psi_dd_dyn = divide(P.l_f * f_fy * cd - P.l_r * f_ry, P.iz);
+  const T psi_dd_kin = divide(kin, P.wheelbase);
+
+  xd[3] = s * v_x_dyn + (1.0f - s) * a;
+  xd[4] = s * v_y_dyn + (1.0f - s) * v_y_kin;
+  xd[5] = s * psi_dd_dyn + (1.0f - s) * psi_dd_kin;
+  xd[6] = delta_dot;
+}
+
+struct QuadParamsC {  // by value from the wrapper (models/quadrotor.py)
+  float max_thrust, mass, g, jxx, jyy, jzz, jyy_jzz, jzz_jxx, jxx_jyy;
+  float x_f[4], y_f[4], z_l[4];
+};
+
+// The entrywise quadrotor (ad_mpc_tpu/models/quadrotor.py:112-167,
+// quad_dynamics_lane) with the same order of operations.
+template <class T>
+DI void quad_xdot(const QuadParamsC& P, const T* x, const T* u, T* xd) {
+  const T& qw = x[3];
+  const T& qx = x[4];
+  const T& qy = x[5];
+  const T& qz = x[6];
+  const T& wx = x[10];
+  const T& wy = x[11];
+  const T& wz = x[12];
+  const T t0 = u[0] * P.max_thrust;
+  const T t1 = u[1] * P.max_thrust;
+  const T t2 = u[2] * P.max_thrust;
+  const T t3 = u[3] * P.max_thrust;
+
+  xd[0] = x[7];
+  xd[1] = x[8];
+  xd[2] = x[9];
+  // Quaternion kinematics q_dot = 1/2 Omega(w) q, expanded.
+  xd[3] = 0.5f * (-qx * wx - qy * wy - qz * wz);
+  xd[4] = 0.5f * (qw * wx + qy * wz - qz * wy);
+  xd[5] = 0.5f * (qw * wy - qx * wz + qz * wx);
+  xd[6] = 0.5f * (qw * wz + qx * wy - qy * wx);
+  // Third column of R(q) times the specific thrust, minus gravity.
+  const T a = divide(t0 + t1 + t2 + t3, P.mass);
+  xd[7] = 2.0f * (qx * qz + qw * qy) * a;
+  xd[8] = 2.0f * (qy * qz - qw * qx) * a;
+  xd[9] = (1.0f - 2.0f * qx * qx - 2.0f * qy * qy) * a - P.g;
+  // Thrust moments and the Euler inertia coupling.
+  const T m_x = t0 * P.y_f[0] + t1 * P.y_f[1] + t2 * P.y_f[2] + t3 * P.y_f[3];
+  const T m_y = -(t0 * P.x_f[0] + t1 * P.x_f[1] + t2 * P.x_f[2] + t3 * P.x_f[3]);
+  const T m_z = t0 * P.z_l[0] + t1 * P.z_l[1] + t2 * P.z_l[2] + t3 * P.z_l[3];
+  xd[10] = divide(m_x + P.jyy_jzz * wy * wz, P.jxx);
+  xd[11] = divide(m_y + P.jzz_jxx * wz * wx, P.jyy);
+  xd[12] = divide(m_z + P.jxx_jyy * wx * wy, P.jzz);
+}
+
+// ------------------------------------------------------------- GP pieces
+
+// The posterior mean of one output dim at the features z (F of them), in
+// float, by the order of ad_mpc_tpu/learned/lane.py:lane_gp_mean (mu =
+// y_mean + sum_j a_j exp(-0.5 sum_k ((z_k - X_jk) / l_k)^2)), and its
+// gradient g_k = -sum_j a_j e_j (z_k - X_jk) / l_k^2. X (n rows of F) and a
+// lie in shared memory (a staged table, or a routed GP's p row). A row with
+// a_j = 0 (padding) adds exactly 0 to both. The j loop is unrolled 4 times
+// (1, 2 and 8 were slower, PERF.md).
+template <int F>
+DI float gp_table_mean(const float* X, const float* a, int n,
+                       const float* inv_l, float y_mean, const float* z,
+                       float* g) {
+  float mu = 0.0f, acc[F];
+#pragma unroll
+  for (int k = 0; k < F; ++k) acc[k] = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < n; ++j) {
+    float t[F];
+    float d2 = 0.0f;
+#pragma unroll
+    for (int k = 0; k < F; ++k) {
+      t[k] = (z[k] - X[j * F + k]) * inv_l[k];
+      d2 = d2 + t[k] * t[k];
+    }
+    const float e = a[j] * expf(-0.5f * d2);
+    mu = mu + e;
+#pragma unroll
+    for (int k = 0; k < F; ++k) acc[k] = acc[k] + e * t[k];
+  }
+#pragma unroll
+  for (int k = 0; k < F; ++k) g[k] = -acc[k] * inv_l[k];
+  return mu + y_mean;
+}
+
+// A float mean as the scalar type: for a dual, value mu and tangents
+// sum_k g_k dz_k, the derivative jax.linearize gives (one contraction, not
+// the tangents carried through every point's product and exp).
+template <int F>
+DI float gp_lift(float mu, const float*, const float*) { return mu; }
+template <int F, int NT>
+DI Dual<NT> gp_lift(float mu, const float* g, const Dual<NT>* z) {
+  Dual<NT> r;
+  r.v = mu;
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    float s = g[0] * z[0].d[i];
+#pragma unroll
+    for (int k = 1; k < F; ++k) s = s + g[k] * z[k].d[i];
+    r.d[i] = s;
+  }
+  return r;
+}
+
+// The GP quads' output dims and features: the three body velocities.
+constexpr int GP_QUAD_DIMS = 3, GP_QUAD_FEATS = 3;
+// What one evaluation's GP gives the lift: 3 means and their gradients.
+constexpr int GP_QUAD_EVAL = GP_QUAD_DIMS * (1 + GP_QUAD_FEATS);
+// Evaluations a sweep's cache holds: one RK4 step.
+constexpr int GP_QUAD_CACHE_EVALS = 4;
+
+// R(q) of the quaternion q = (w, x, y, z), in float or as duals.
+template <class T>
+DI void rot_matrix(const T* q, T (*R)[3]) {
+  const T &qw = q[0], &qx = q[1], &qy = q[2], &qz = q[3];
+  R[0][0] = 1.0f - 2.0f * (qy * qy + qz * qz);
+  R[0][1] = 2.0f * (qx * qy - qw * qz);
+  R[0][2] = 2.0f * (qx * qz + qw * qy);
+  R[1][0] = 2.0f * (qx * qy + qw * qz);
+  R[1][1] = 1.0f - 2.0f * (qx * qx + qz * qz);
+  R[1][2] = 2.0f * (qy * qz - qw * qx);
+  R[2][0] = 2.0f * (qx * qz - qw * qy);
+  R[2][1] = 2.0f * (qy * qz + qw * qx);
+  R[2][2] = 1.0f - 2.0f * (qx * qx + qy * qy);
+}
+
+// The means cache of a GP quad's sweep (GPQuadDyn, GPQuadDualDyn,
+// GPQuadRoutedDyn): the
+// thread's slot of shared memory, a column of GP_QUAD_EVAL floats per
+// evaluation (STRIDE apart), which the first pass fills and the later
+// passes read, since the means depend on the primal alone.
+struct GPQuadCache {
+  float* cache = nullptr;  // the thread's slot, or none
+  int evals = 0;           // evaluations per pass
+  mutable int calls = 0;   // evaluations so far
+
+  // The slot, when a pass's evaluations fit it.
+  DI void use(float* slot, int n) {
+    if (n <= GP_QUAD_CACHE_EVALS) {
+      cache = slot;
+      evals = n;
+    }
+  }
+
+  // The means and gradients that means(mu, g) computes: computed, or, in a
+  // sweep's later passes, read from the slot.
+  template <class T, int STRIDE, class Means>
+  DI void means_of(const Means& means, float* mu, float (*g)[GP_QUAD_FEATS]) const {
+    if (std::is_same<T, float>::value || cache == nullptr) {
+      means(mu, g);
+      return;
+    }
+    const int e = calls++;
+    float* slot = cache + (e % evals) * GP_QUAD_EVAL * STRIDE;
+    if (e < evals) {
+      means(mu, g);
+#pragma unroll
+      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
+        slot[d * STRIDE] = mu[d];
+#pragma unroll
+        for (int k = 0; k < GP_QUAD_FEATS; ++k)
+          slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE] = g[d][k];
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
+        mu[d] = slot[d * STRIDE];
+#pragma unroll
+        for (int k = 0; k < GP_QUAD_FEATS; ++k)
+          g[d][k] = slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE];
+      }
+    }
+  }
+};
+
+// The residual r = R(q) mu(v_b), v_b = R(q)^T v, of the GP quad at the
+// primal, and its Jacobian J (3 x 7) with respect to (q_w, q_x, q_y, q_z,
+// v_x, v_y, v_z), in float, from R, the means mu and their gradients G
+// (G[d][k] = d mu_d / d v_b,k): with H = R G, d r / d v = H R^T and
+// d r / d q_i = (dR/dq_i) mu + H (dR/dq_i)^T v.
+DI void gp_quad_jacobian(const float* q, const float* v, float (*R)[3],
+                         const float* mu, float (*G)[GP_QUAD_FEATS],
+                         float (*J)[7]) {
+  float H[3][3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      H[r][k] = R[r][0] * G[0][k] + R[r][1] * G[1][k] + R[r][2] * G[2][k];
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      J[r][4 + c] = H[r][0] * R[c][0] + H[r][1] * R[c][1] + H[r][2] * R[c][2];
+  const float w2 = 2.0f * q[0], x2 = 2.0f * q[1], y2 = 2.0f * q[2], z2 = 2.0f * q[3];
+  const float dR[4][3][3] = {  // dR / dq_w, dq_x, dq_y, dq_z
+      {{0.0f, -z2, y2}, {z2, 0.0f, -x2}, {-y2, x2, 0.0f}},
+      {{0.0f, y2, z2}, {y2, -2.0f * x2, -w2}, {z2, w2, -2.0f * x2}},
+      {{-2.0f * y2, x2, w2}, {x2, 0.0f, z2}, {-w2, z2, -2.0f * y2}},
+      {{-2.0f * z2, -w2, x2}, {w2, -2.0f * z2, y2}, {x2, y2, 0.0f}}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float dvb[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k)
+      dvb[k] = dR[i][0][k] * v[0] + dR[i][1][k] * v[1] + dR[i][2][k] * v[2];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      J[r][i] = dR[i][r][0] * mu[0] + dR[i][r][1] * mu[1] + dR[i][r][2] * mu[2] +
+                (H[r][0] * dvb[0] + H[r][1] * dvb[1] + H[r][2] * dvb[2]);
+  }
+}

@@ -4,7 +4,7 @@ nx=7, nu=2).
 
     python -m ad_mpc_tpu_torch.experiments.bicycle_kernels [--out PATH]
 
-``csrc/vde.cu`` is built once per variant of a functor's traits, all
+``csrc/vde_bicycle.cu`` and ``csrc/vde_gp_bicycle.cu`` are built once per variant of a functor's traits, all
 ``nvcc`` started together: ``-D{PACEJKA,GP_BICYCLE}_TANGENTS_PER_PASS`` (9
 tangents in one pass, 5 + 4 or 3 x 3) and ``..._ROW_WARPS`` (warps per
 block, each with an 8,960 B output tile) for both functors. For each
@@ -46,7 +46,8 @@ VARIANTS = {
 def variants(B=16384, N=30, dt=0.05, variants=VARIANTS):
     builds = [d for rows in variants.values() for d in rows.values()]
     with ThreadPoolExecutor(len(builds)) as pool:
-        list(pool.map(lambda d: _build.build_all(("vde",), d), builds))
+        list(pool.map(lambda d: _build.build_all(("vde_bicycle", "vde_gp_bicycle"), d),
+                      builds))
     out = {}
     for key, make in (("pacejka", pacejka_inputs),
                       ("gp_bicycle", gp_bicycle_inputs)):
@@ -60,7 +61,8 @@ def variants(B=16384, N=30, dt=0.05, variants=VARIANTS):
             vde.defines = rk4.defines = defines
             got = vde(xs, us, ps)
             first = got if first is None else first
-            res = {k: _build.functor_resources("vde", k, dyn.cuda_functor, defines)
+            res = {k: _build.functor_resources(dyn.cuda_source, k,
+                                                dyn.cuda_functor, defines)
                    for k in ("vde_kernel", "rk4_kernel")}
             defect = lambda: rk4.defect(xs, us, ps)
             rows[label] = {

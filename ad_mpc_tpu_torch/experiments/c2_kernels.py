@@ -1,8 +1,8 @@
 """Bits and device times of the c2 kernels (the bicycle VDE sweep and the
 7x2 LQ kernel), bits of the c5 kernels (the quad VDE sweep, the quad RK4
 map and the 13x4 LQ kernel), of the c3 and c4 functors (the GP-bicycle's
-and the Pacejka's VDE sweep and RK4 map) and of the c6 functor (the GP
-quad's), and device times of the 13x4 LQ
+and the Pacejka's VDE sweep and RK4 map) of the c6 functor (the GP
+quad's) and of QuadMPC's drag and dual-state GP functors, and device times of the 13x4 LQ
 kernel, of whichever ``ad_mpc_tpu_torch`` is imported, so that two trees
 can be compared on one card in one call:
 
@@ -122,6 +122,34 @@ def c6_bits(dev):
     return out
 
 
+def quad_mpc_bits(dev):
+    """Digests of QuadMPC's two functors' outputs on the fixed draws of
+    :func:`c5_bits`: the RDRv drag and the dual-state GP (the fitted model,
+    the trigger on every third scenario), the sweep and both modes of the
+    RK4 map."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj
+
+    xs, us = (torch.as_tensor(a, device=dev)
+              for a in quad_traj(np.random.default_rng(8), 37, 10))
+    fitted = quad_fleet.fitted_ensemble()
+    cases = {"drag": (QuadDragDynamics(quad_fleet.fitted_rdrv_d()),
+                      torch.zeros((37, 0), device=dev)),
+             "dual": (GPQuadDualDynamics(fitted), torch.as_tensor(
+                 dual_gp_ps(np.random.default_rng(9), 37, fitted, 3), device=dev))}
+    out = {}
+    for name, (dyn, ps) in cases.items():
+        vde = make_vde(dyn, 0.1, 10, 13, 4, ps.shape[1], device=dev)
+        rk4 = make_rk4(dyn, 0.1, 13, 4, ps.shape[1], device=dev)
+        out[f"vde_quad_{name}"] = digest(*vde(xs, us, ps))
+        out[f"rk4_quad_{name}"] = digest(rk4.defect(xs, us, ps),
+                                         rk4(xs[:, 0], us[:, 0], ps))
+    return out
+
+
 FLUSH_BYTES = 128 * 2**20  # written before each call when cold (the L2 is 50 MB)
 
 
@@ -206,6 +234,7 @@ def main(argv=None):
     res["bits_c5"] = c5_bits(dev)
     res["bits_c3_c4"] = c3_c4_bits(dev)
     res["bits_c6"] = c6_bits(dev)
+    res["bits_quad_mpc"] = quad_mpc_bits(dev)
 
     # Device times at c2's B=16384.
     B = 16384

@@ -64,7 +64,7 @@ def ratios(got, runs, want64):
 
 
 def measure(batch=16384, N=10):
-    _build.build_all(("vde",))
+    _build.build_all(("vde_gp_quad",))
     dyn = GPQuadDynamics(fitted_ensemble())
     xs, us = (torch.as_tensor(a, device="cuda")
               for a in quad_traj(np.random.default_rng(13), batch, N))

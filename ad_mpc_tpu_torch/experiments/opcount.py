@@ -112,7 +112,7 @@ def dyn_counts(f, nx, nu, p) -> Counts:
 
 
 # Operations of one RK4 step's combination per state, as
-# ``csrc/vde.cu:rk4_map`` does it: three stage points x + h k and two
+# ``csrc/vde.cuh:rk4_map`` does it: three stage points x + h k and two
 # accumulations acc + 2k (FMAs), then x + h/6 (acc + k).
 RK4_COMBINE = 3 * 2 + 2 * 2 + 3
 

@@ -148,6 +148,24 @@ def build_quad_fleet(n_nodes=10, qp_iters=18, sqp_iters=QUAD_SQP_ITERS,
            else GPQuadDynamics(ensemble, params))
     solver = BatchedSQPSolver(spec, dyn, p_dim=0, device=device,
                               backend=backend)
+    tick_p, init = fleet_loop(solver, spec, params,
+                              lambda x0: x0.new_zeros((x0.shape[0], 0)))
+
+    def tick(carry):
+        carry, (kkt, lat, _) = tick_p(carry)
+        return carry, (kkt, lat)
+
+    return tick, init, solver, spec
+
+
+def fleet_loop(solver, spec, params, p_of):
+    """The tick and init of the circle-tracking fleet over ``solver``.
+    ``p_of(x0)`` gives a tick's (B, p_dim) parameter rows from the fleet's
+    states.
+
+    tick(carry) -> (carry, (kkt, lat, p)), carry = (x0, theta, radius,
+    speed, alt, states); init(batch, seed) -> carry.
+    """
     N, dt = spec.n_nodes, spec.dt
     dev = solver.Q.device
     u_hover = torch.as_tensor(hover_input(params), dtype=torch.float32,
@@ -159,14 +177,14 @@ def build_quad_fleet(n_nodes=10, qp_iters=18, sqp_iters=QUAD_SQP_ITERS,
         omega = speed / radius
         yref_x = circle_reference(theta, radius, omega, alt, N, dt)
         yref_u = u_hover.expand(B, N, -1)
-        p = x0.new_zeros((B, 0))
+        p = p_of(x0)
         res = solver.solve(x0, yref_x, yref_u, p, states)
         with torch.no_grad():
             x_next = normalize_quat_state(solver.F(x0, res.us[:, 0], p))
         states = solver.shift(res.state)
         lat = torch.linalg.norm(x_next[:, :3] - yref_x[:, 1, :3], dim=-1)
         return (x_next, theta + omega * dt, radius, speed, alt, states), (
-            res.kkt_residual, lat.mean())
+            res.kkt_residual, lat.mean(), p)
 
     def init(batch, seed=0):
         radius, speed, alt = (torch.as_tensor(a, device=dev)
@@ -179,7 +197,7 @@ def build_quad_fleet(n_nodes=10, qp_iters=18, sqp_iters=QUAD_SQP_ITERS,
         )
         return (x0, theta, radius, speed, alt, states)
 
-    return tick, init, solver, spec
+    return tick, init
 
 
 def rti_vs_converged_quad(carry, n_check=64, n_nodes=10,

@@ -4,7 +4,7 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
     python -m ad_mpc_tpu_torch.experiments.quad_kernels [--out PATH]
         [--only quad,gp_quad,drag,dual,lq]
 
-1. The VDE sweep with the quad functor (``csrc/vde.cu``), built once per
+1. The VDE sweep with the quad functor (``csrc/vde_quad.cu``), built once per
    variant of its traits, ``-DQUAD_TANGENTS_PER_PASS`` (the 17 tangents per
    pass) and ``-DQUAD_ROW_WARPS`` (warps per block, each with a 29,952 B
    output tile), all ``nvcc`` started together: registers and spills from
@@ -97,7 +97,7 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
     GP quad, the drag or the dual-state GP)."""
     variants, defines = VARIANTS[kind]
     with ThreadPoolExecutor(len(variants)) as pool:
-        list(pool.map(lambda v: _build.build_all(("vde",), defines(v)),
+        list(pool.map(lambda v: _build.build_all(_build.VDE_SOURCES, defines(v)),
                       variants))
     xs, us = (torch.as_tensor(a, device="cuda")
               for a in quad_traj(np.random.default_rng(13), B, N))
@@ -111,7 +111,7 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
             vde.defines = defines(v)
             got = vde(xs, us, ps)
             first = got if first is None else first
-            res = _build.functor_resources("vde", "vde_kernel",
+            res = _build.functor_resources(dyn.cuda_source, "vde_kernel",
                                            dyn.cuda_functor, vde.defines)
             name = "_".join(f"{k}{n}" for k, n in zip(keys, v))
             rows[f"{case} {name}" if len(cases) > 1 else name] = res | dict(

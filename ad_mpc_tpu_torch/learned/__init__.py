@@ -1,2 +1,3 @@
-"""Learned residual dynamics: the GP layer of the port (see ``gp``,
-``ensemble`` and ``lane``)."""
+"""Learned residual dynamics: the GP layer of the port (``gp``,
+``ensemble``, ``lane``) and its fitting pipeline (``cluster``, ``dataset``,
+``rdrv``, ``fitting``)."""

@@ -1,9 +1,10 @@
 """Clustered GP ensembles as stacked parameter arrays.
 
-Port of ``ad_mpc_tpu/learned/ensemble.py:29-145, 183-244``: one GP per
-(output dim, cluster), padded to a common training-set size and sorted by
-centroid, nearest-centroid selection, the posterior means of all output
-dims, the state-feature residual and the quadrotor's body-frame residual
+Port of ``ad_mpc_tpu/learned/ensemble.py``: one GP per (output dim,
+cluster), padded to a common training-set size and sorted by centroid,
+nearest-centroid selection, the posterior means and variances of all
+output dims, the state-feature residual and the quadrotor's body-frame
+residual
 (the matrix form that ``lane.quad_lane_residual_terms`` is held to). The
 arrays stay on the host as float64 numpy (the constants a dynamics bakes
 in), or, after :func:`on_device`, as tensors on the card; the functions
@@ -11,7 +12,7 @@ take them to the query's type and device, so that on the card's copy
 :func:`select_cluster`, :func:`predict` and :func:`body_frame_features`
 run with no host synchronization. :func:`load_npz` reads an ensemble
 carried across from the JAX package (``convert.save_gp_ensemble``) with
-numpy alone. The posterior variance is not ported yet.
+numpy alone.
 """
 
 from __future__ import annotations
@@ -97,6 +98,15 @@ def on_device(ens: GPEnsemble, dtype, device) -> GPEnsemble:
                            for k in floats})
 
 
+def homogeneous_feature_space(ens: GPEnsemble) -> bool:
+    """True when every output dim has the same cluster centroids, so that
+    one selection serves them all."""
+    if ens.x_train.shape[0] == 1:
+        return True
+    cen = np.asarray(ens.centroids)
+    return bool(np.all(cen == cen[0:1]))
+
+
 def select_cluster(ens: GPEnsemble, z):
     """Nearest-centroid cluster index per output dim: z (d,) -> (D,)."""
     d2 = torch.sum((_as(ens.centroids, z) - z[None, None, :]) ** 2, dim=-1)
@@ -116,6 +126,33 @@ def predict(ens: GPEnsemble, z, cluster_idx=None):
     diff = (z[None, None, :] - x_t) / ls[:, None, :]
     k_s = sf[:, None] * torch.exp(-0.5 * torch.sum(diff * diff, dim=-1))
     return torch.sum(k_s * a, dim=-1) + ym
+
+
+def predict_variance(ens: GPEnsemble, z, cluster_idx=None):
+    """Posterior variances of all output dims at the features z (d,): (D,).
+
+    Each from its cluster's training set with a Cholesky-free solve; the
+    padded rows (beyond ``n_valid``) are no observations: their ``k_s``
+    entries are zeroed and their rows and columns of K made the identity,
+    so that the solve ignores them exactly."""
+    if cluster_idx is None:
+        cluster_idx = select_cluster(ens, z)
+    dims = torch.arange(ens.x_train.shape[0], device=z.device)
+    idx = torch.as_tensor(cluster_idx, device=z.device).to(torch.long)
+    pick = lambda a: _as(a, z)[dims, idx]
+    x_t, ls = pick(ens.x_train), pick(ens.len_scale)
+    sf, sn = pick(ens.sigma_f), pick(ens.sigma_n)
+    nv = torch.as_tensor(np.asarray(ens.n_valid), device=z.device)[dims, idx]
+    n = x_t.shape[1]
+    m = (torch.arange(n, device=z.device)[None, :] < nv[:, None]).to(z.dtype)
+    diff = (x_t[:, :, None, :] - x_t[:, None, :, :]) / ls[:, None, None, :]
+    K = sf[:, None, None] * torch.exp(-0.5 * torch.sum(diff * diff, dim=-1))
+    K = K * m[:, :, None] * m[:, None, :] + torch.diag_embed(1.0 - m)
+    K = K + (sn**2 + 1e-6)[:, None, None] * torch.diag_embed(m)
+    ds = (z[None, None, :] - x_t) / ls[:, None, :]
+    k_s = sf[:, None] * torch.exp(-0.5 * torch.sum(ds * ds, dim=-1)) * m
+    sol = torch.linalg.solve(K, k_s)
+    return torch.clamp(sf - torch.sum(k_s * sol, dim=-1), min=1e-12)
 
 
 def state_residual_fn(ens: GPEnsemble, fixed_cluster=None):

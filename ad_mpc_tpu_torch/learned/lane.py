@@ -1,13 +1,16 @@
-"""The baked GP mean inside the dynamics.
+"""The GP mean inside the dynamics: baked, or routed through p.
 
-Port of ``ad_mpc_tpu/learned/lane.py:52-148``: the posterior mean of one
+Port of ``ad_mpc_tpu/learned/lane.py``. Baked: the posterior mean of one
 (output dim, cluster) GP with its training set as constants, evaluated on
 entries of any shape, the residual rows of the bicycle layout and the
-quadrotor's body-frame residual. The JAX package writes it point by point
-for the Pallas slab contract; here it is plain tensor code vectorized over
-the training points (the kernel's version is ``csrc/vde.cu:gp_mean``).
-The parameter-routed form (``lane.py:151-253``) has no caller on a bench
-or experiment path and is not ported yet.
+quadrotor's body-frame residual. Parameter-routed: each scenario's
+selected cluster rides in its parameter row, gathered outside the
+dynamics by nearest centroid (:func:`gather_cluster_params`, and the
+fleet-batched ``pack`` of :func:`param_residual_dynamics`), so that one
+launch serves a fleet whose scenarios use different clusters. The JAX
+package writes both point by point for the Pallas slab contract; here they
+are plain tensor code vectorized over the training points (the kernels'
+version is ``csrc/vde_models.cuh:gp_table_mean``).
 """
 
 from __future__ import annotations
@@ -90,3 +93,104 @@ def quad_lane_residual_terms(ens: GPEnsemble, x, cluster=0) -> dict:
     mu_b = [lane_gp_mean(*_ens_cluster(ens, k, cluster), v_b) for k in range(3)]
     return {7 + r: R[r][0] * mu_b[0] + R[r][1] * mu_b[1] + R[r][2] * mu_b[2]
             for r in range(3)}
+
+
+# ------------------------------------------------- parameter-routed clusters
+
+def gp_param_dim(ens: GPEnsemble) -> int:
+    """Entries of a parameter row holding one selected cluster per output
+    dim: per dim [X flat (n*d), a (n), inv_l (d), sigma_f, y_mean]."""
+    D, _, n, d = ens.x_train.shape
+    return D * (n * d + n + d + 2)
+
+
+def routed_table(ens: GPEnsemble) -> np.ndarray:
+    """(D, C, n*d + n + d + 2) float32: each (output dim, cluster)'s part of
+    a parameter row, computed in float64 and rounded once, as JAX's
+    ``gather_cluster_params`` rounds it."""
+    D, C, n, d = ens.x_train.shape
+    X = np.asarray(ens.x_train, np.float64).reshape(D, C, n * d)
+    sf = np.asarray(ens.sigma_f, np.float64)
+    a = np.asarray(ens.k_inv_y, np.float64) * sf[..., None]
+    inv_l = 1.0 / np.asarray(ens.len_scale, np.float64)
+    ym = np.asarray(ens.y_mean, np.float64)
+    return np.concatenate([X, a, inv_l, sf[..., None], ym[..., None]],
+                          axis=-1).astype(np.float32)
+
+
+class ClusterPacker:
+    """``pack(z, base_p=None)``: each scenario's parameter row of the
+    routed GP, on z's device with no host synchronization. z (B, d) or
+    (d,) features; the cluster of each output dim is the nearest centroid
+    (squared distance in float64), its part of the row a gather from
+    :func:`routed_table`; ``base_p`` (B, b) or (b,) goes in front.
+    Returns float32 (B, b + gp_param_dim) or (b + gp_param_dim,)."""
+
+    def __init__(self, ens: GPEnsemble):
+        self.ens = ens
+        self._table = routed_table(ens)
+        self._on = {}  # device -> (centroids float64, table float32)
+
+    def _arrays(self, device):
+        key = str(device)
+        if key not in self._on:
+            self._on[key] = (
+                torch.as_tensor(np.asarray(self.ens.centroids, np.float64), device=device),
+                torch.as_tensor(self._table, device=device))
+        return self._on[key]
+
+    def clusters(self, z):
+        """(B, D) nearest-centroid cluster per output dim of each row of z."""
+        cen, _ = self._arrays(z.device)
+        d2 = torch.sum((cen[None] - z.to(torch.float64)[:, None, None, :]) ** 2, dim=-1)
+        return torch.argmin(d2, dim=-1)
+
+    def __call__(self, z, base_p=None):
+        single = z.dim() == 1
+        z = z[None] if single else z
+        _, table = self._arrays(z.device)
+        idx = self.clusters(z)
+        dims = torch.arange(table.shape[0], device=z.device)
+        gp = table[dims[None, :], idx].reshape(z.shape[0], -1)
+        if base_p is not None:
+            bp = torch.as_tensor(base_p, dtype=torch.float32, device=z.device)
+            gp = torch.cat([bp.expand(z.shape[0], -1) if bp.dim() == 1 else bp, gp],
+                           dim=1)
+        return gp[0] if single else gp
+
+
+def gather_cluster_params(ens: GPEnsemble, z):
+    """Nearest-centroid gather for one feature point z (d,): the selected
+    cluster's parameters of every output dim, flattened, float32
+    (gp_param_dim,)."""
+    return ClusterPacker(ens)(z)
+
+
+def param_gp_mean(n: int, d: int, p, off: int, z):
+    """The SE-kernel mean with the GP read from entries of p (entries
+    leading; each scenario its own values): ``y_mean + sum_j a_j exp(-0.5
+    sum_k ((z_k - X_jk) inv_l_k)^2)`` with X at ``p[off:]``, then a, inv_l,
+    sigma_f and y_mean. z: d entries."""
+    xo, ao, lo = off, off + n * d, off + n * d + n
+    extra = p.shape[1:]
+    X = p[xo:ao].reshape(n, d, *extra)
+    inv_l = p[lo:lo + d].reshape(1, d, *extra)
+    zs = torch.stack(list(z))[None]
+    t = (zs - X) * inv_l
+    return p[lo + d + 1] + torch.sum(p[ao:lo] * torch.exp(-0.5 * torch.sum(t * t, dim=1)),
+                                     dim=0)
+
+
+def param_residual_dynamics(ens: GPEnsemble, base, base_p_dim: int,
+                            quad_frame: bool = False):
+    """``base(x, u, p)`` plus the parameter-routed GP residual of ``ens``
+    read from ``p[base_p_dim:]``. Returns ``(dynamics, p_dim, pack)``:
+    the dynamics module (:mod:`ad_mpc_tpu_torch.models.gp_routed`; with a
+    CUDA functor where the base and layout have one), the parameter rows,
+    and the fleet-batched :class:`ClusterPacker`. ``quad_frame``: the
+    features are the body-frame velocities ``R(q)^T v`` and the means are
+    rotated back to the world frame."""
+    from ad_mpc_tpu_torch.models.gp_routed import routed_dynamics
+
+    dyn = routed_dynamics(ens, base, base_p_dim, quad_frame)
+    return dyn, dyn.p_dim, ClusterPacker(ens)

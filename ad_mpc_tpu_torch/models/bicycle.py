@@ -111,7 +111,7 @@ def bicycle_dynamics(x, u, params: BicycleParams = BicycleParams(), switch=None)
 
 
 class BicycleParamsC(ctypes.Structure):
-    """``BicycleParamsC`` of ``csrc/vde.cu``, passed to the kernel by value."""
+    """``BicycleParamsC`` of ``csrc/vde_models.cuh``, passed to the kernel by value."""
 
     _fields_ = [(n, ctypes.c_float)
                 for n in ("mass", "l_f", "l_r", "iz", "cf", "cr", "wheelbase")]
@@ -123,13 +123,14 @@ class BicycleDynamics(nn.Module):
 
     ``nx``, ``nu`` and ``p_dim`` state the functor's shape;
     ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
-    ``csrc/vde.cu`` that run the VDE kernel and its tangent-free RK4 kernel
+    ``csrc/vde_bicycle.cu`` that run the VDE kernel and its tangent-free RK4 kernel
     with this model's ``__device__`` functor, and ``cuda_params`` builds
     the parameter struct both take by value.
     """
 
     nx, nu, p_dim = NX, NU, 1
     cuda_functor = "BicycleDyn"
+    cuda_source = "vde_bicycle"
     cuda_entry = "vde_bicycle"
     cuda_rk4_entry = "rk4_bicycle"
 

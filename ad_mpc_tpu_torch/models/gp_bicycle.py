@@ -6,7 +6,7 @@ posterior mean of one cluster of a :class:`GPEnsemble` added to the state
 rows ``out_idx`` (v_y and psi_dot), with the features ``x[feat_idx]``
 (v_x, v_y, psi_dot, delta).
 
-On the card the ``GPBicycleDyn`` functor of ``csrc/vde.cu`` computes the
+On the card the ``GPBicycleDyn`` functor of ``csrc/vde_gp_bicycle.cu`` computes the
 same function. It takes the cluster's training table by value
 (:meth:`GPBicycleDynamics.cuda_params`) in the kernel's parameters, and
 each block stages the table in shared memory once, where every lane of a
@@ -30,13 +30,13 @@ from ad_mpc_tpu_torch.models.bicycle import (
     BicycleDynamics, BicycleParamsC, bicycle_dynamics)
 
 # Capacity of the functor's table (GP_POINTS, GP_DIMS, GP_FEATS of
-# csrc/vde.cu) and the layout it serves.
+# csrc/vde_gp_bicycle.cu) and the layout it serves.
 GP_POINTS, GP_DIMS, GP_FEATS = 32, 2, 4
 OUT_IDX, FEAT_IDX = (4, 5), (3, 4, 5, 6)
 
 
 class GPBicycleParamsC(ctypes.Structure):
-    """``GPBicycleParamsC`` of ``csrc/vde.cu``, passed to the kernel by
+    """``GPBicycleParamsC`` of ``csrc/vde_gp_bicycle.cu``, passed to the kernel by
     value: the bicycle's scalars, the point count and, per output dim, the
     training features, ``a = k_inv_y sigma_f``, ``1 / length scale`` and
     the target mean, each rounded once to float32."""
@@ -57,13 +57,14 @@ class GPBicycleDynamics(nn.Module):
     the rows ``out_idx``.
 
     ``nx``, ``nu`` and ``p_dim`` state the functor's shape; ``cuda_entry``
-    and ``cuda_rk4_entry`` name the C entries of ``csrc/vde.cu`` that run
+    and ``cuda_rk4_entry`` name the C entries of ``csrc/vde_gp_bicycle.cu`` that run
     the VDE kernel and its RK4 kernel with the ``GPBicycleDyn`` functor
     (``cuda_functor``), and ``cuda_params`` builds the struct both take.
     """
 
     nx, nu, p_dim = 7, 2, 1
     cuda_functor = "GPBicycleDyn"
+    cuda_source = "vde_gp_bicycle"
     cuda_entry = "vde_gp_bicycle"
     cuda_rk4_entry = "rk4_gp_bicycle"
 

@@ -8,7 +8,7 @@ residual of cluster 0, ``x_dot[7:10] += R(q) GP(R(q)^T v)``
 (:func:`quad_lane_residual_terms`), with features and outputs on the
 velocity rows (7, 8, 9).
 
-On the card the ``GPQuadDyn`` functor of ``csrc/vde.cu`` computes the same
+On the card the ``GPQuadDyn`` functor of ``csrc/vde_gp_quad.cu`` computes the same
 function. It takes the cluster's training table by value
 (:meth:`GPQuadDynamics.cuda_params`) in the kernel's parameters, and each
 block stages the table in shared memory once. The capacity is
@@ -33,13 +33,13 @@ from ad_mpc_tpu_torch.models.quadrotor import (
 from ad_mpc_tpu_torch.ops import _build
 
 # Capacity of the functor's table (GP_QUAD_POINTS, GP_QUAD_DIMS,
-# GP_QUAD_FEATS of csrc/vde.cu) and the layout it serves.
+# GP_QUAD_FEATS of csrc/vde_gp_quad.cu) and the layout it serves.
 GP_QUAD_POINTS, GP_QUAD_DIMS, GP_QUAD_FEATS = 64, 3, 3
 OUT_IDX = FEAT_IDX = (7, 8, 9)
 
 
 class GPQuadParamsC(ctypes.Structure):
-    """``GPQuadParamsC`` of ``csrc/vde.cu``, passed to the kernel by value:
+    """``GPQuadParamsC`` of ``csrc/vde_gp_quad.cu``, passed to the kernel by value:
     the quad's scalars, the point count and, per output dim, the training
     features, ``a = k_inv_y sigma_f``, ``1 / length scale`` and the target
     mean, each rounded once to float32."""
@@ -60,13 +60,14 @@ class GPQuadDynamics(nn.Module):
     ``p`` is ignored (``p_dim=0``).
 
     ``nx``, ``nu`` and ``p_dim`` state the functor's shape; ``cuda_entry``
-    and ``cuda_rk4_entry`` name the C entries of ``csrc/vde.cu`` that run
+    and ``cuda_rk4_entry`` name the C entries of ``csrc/vde_gp_quad.cu`` that run
     the VDE kernel and its RK4 kernel with the ``GPQuadDyn`` functor
     (``cuda_functor``), and ``cuda_params`` builds the struct both take.
     """
 
     nx, nu, p_dim = NX, NU, 0
     cuda_functor = "GPQuadDyn"
+    cuda_source = "vde_gp_quad"
     cuda_entry = "vde_gp_quad"
     cuda_rk4_entry = "rk4_gp_quad"
 
@@ -118,13 +119,13 @@ class GPQuadDynamics(nn.Module):
 
 
 # Capacity of GPQuadDualDyn's table (GP_DUAL_CLUSTERS, GP_DUAL_POINTS of
-# csrc/vde.cu): clusters, and clusters x points per output dim.
+# csrc/vde_gp_quad_dual.cu): clusters, and clusters x points per output dim.
 GP_DUAL_CLUSTERS, GP_DUAL_POINTS = 16, 512
 BODY_VELOCITIES = (7, 8, 9)
 
 
 class GPQuadDualParamsC(ctypes.Structure):
-    """``GPQuadDualParamsC`` of ``csrc/vde.cu``, passed to the kernel by
+    """``GPQuadDualParamsC`` of ``csrc/vde_gp_quad_dual.cu``, passed to the kernel by
     value: the quad's scalars, the device address of the padded table
     (:meth:`GPQuadDualDynamics.cuda_table`), its clusters and points per
     cluster, the ensemble's D and, per body velocity, its output's place
@@ -174,7 +175,7 @@ class GPQuadDualDynamics(nn.Module):
     dual-state GP residual (:func:`dual_gp_rows`) of ``ensemble``, with
     ``p_dim = 1 + 2D``: the dynamics of QuadMPC's ensemble mode.
 
-    On the card the ``GPQuadDualDyn`` functor of ``csrc/vde.cu`` computes
+    On the card the ``GPQuadDualDyn`` functor of ``csrc/vde_gp_quad_dual.cu`` computes
     the same function (``cuda_entry``, ``cuda_rk4_entry``). Its table
     (:meth:`cuda_table`) lies in a device buffer whose address rides in the
     struct (:meth:`cuda_params`): every cluster, padded to the three body
@@ -185,6 +186,7 @@ class GPQuadDualDynamics(nn.Module):
 
     nx, nu = NX, NU
     cuda_functor = "GPQuadDualDyn"
+    cuda_source = "vde_gp_quad_dual"
     cuda_entry = "vde_gp_quad_dual"
     cuda_rk4_entry = "rk4_gp_quad_dual"
 

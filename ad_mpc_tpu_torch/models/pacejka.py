@@ -112,7 +112,7 @@ def pacejka_dynamics_p(x, u, p, params: PacejkaParams = PacejkaParams()):
 
 
 class PacejkaParamsC(ctypes.Structure):
-    """``PacejkaParamsC`` of ``csrc/vde.cu``, passed to the kernel by value:
+    """``PacejkaParamsC`` of ``csrc/vde_bicycle.cu``, passed to the kernel by value:
     the constant scalars, each rounded once to float32 (the wheelbase
     summed in double, as the Python model sums it)."""
 
@@ -126,13 +126,14 @@ class PacejkaDynamics(nn.Module):
     5-entry p of the c4 sweep (mu, pitch, roll, B scale, D scale).
 
     ``nx``, ``nu`` and ``p_dim`` state the functor's shape; ``cuda_entry``
-    and ``cuda_rk4_entry`` name the C entries of ``csrc/vde.cu`` that run
+    and ``cuda_rk4_entry`` name the C entries of ``csrc/vde_bicycle.cu`` that run
     the VDE kernel and its RK4 kernel with the ``PacejkaDyn`` functor
     (``cuda_functor``), and ``cuda_params`` builds the struct both take.
     """
 
     nx, nu, p_dim = 7, 2, 5
     cuda_functor = "PacejkaDyn"
+    cuda_source = "vde_bicycle"
     cuda_entry = "vde_pacejka"
     cuda_rk4_entry = "rk4_pacejka"
 

@@ -6,7 +6,7 @@ the matmul form on one state vector (with the optional RDRv drag matrix);
 :func:`quad_dynamics_lane` is the entrywise form with entries leading
 (``x[3]``, ``torch.stack``), so it evaluates ``(13,)`` vectors and
 ``(13, N, B)`` slabs alike. The lane form is the plain version of the
-``QuadDyn`` functor in ``csrc/vde.cu``, which keeps its order of
+``QuadDyn`` functor in ``csrc/vde_quad.cu``, which keeps its order of
 operations; :class:`QuadDragDynamics` adds the RDRv drag entrywise
 (:func:`quad_drag_rows`), the plain version of ``QuadDragDyn``.
 
@@ -151,7 +151,7 @@ def quad_dynamics_lane(x, u, p=None, params: QuadrotorParams = QuadrotorParams()
 
 def quad_drag_rows(x, D) -> dict:
     """The RDRv drag ``R(q) D R(q)^T v`` of :func:`quad_dynamics` entrywise,
-    by velocity row: ``{7 + r: t_r}``, in the order of ``csrc/vde.cu:
+    by velocity row: ``{7 + r: t_r}``, in the order of ``csrc/vde_models.cuh:
     quad_drag_terms`` (v_b = R^T v, w = D v_b, t = R w). ``D`` is a 3x3
     array of Python floats."""
     R = _rot_rows(x)
@@ -179,7 +179,7 @@ def hover_input(params: QuadrotorParams = QuadrotorParams()):
 
 
 class QuadParamsC(ctypes.Structure):
-    """``QuadParamsC`` of ``csrc/vde.cu``, passed to the kernel by value: the
+    """``QuadParamsC`` of ``csrc/vde_models.cuh``, passed to the kernel by value: the
     scalars :func:`quad_dynamics_lane` folds in, each rounded once to
     float32 from the double the Python model computes."""
 
@@ -194,13 +194,14 @@ class QuadDynamics(nn.Module):
 
     ``nx``, ``nu`` and ``p_dim`` state the functor's shape;
     ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
-    ``csrc/vde.cu`` that run the VDE kernel and its tangent-free RK4 kernel
+    ``csrc/vde_quad.cu`` that run the VDE kernel and its tangent-free RK4 kernel
     with the ``QuadDyn`` functor, and ``cuda_params`` builds the parameter
     struct both take by value.
     """
 
     nx, nu, p_dim = NX, NU, 0
     cuda_functor = "QuadDyn"
+    cuda_source = "vde_quad"
     cuda_entry = "vde_quad"
     cuda_rk4_entry = "rk4_quad"
 
@@ -221,7 +222,7 @@ class QuadDynamics(nn.Module):
 
 
 class QuadDragParamsC(ctypes.Structure):
-    """``QuadDragParamsC`` of ``csrc/vde.cu``, passed to the kernel by
+    """``QuadDragParamsC`` of ``csrc/vde_quad.cu``, passed to the kernel by
     value: the quad's scalars and the drag matrix D, row-major, each rounded
     once to float32."""
 
@@ -234,13 +235,14 @@ class QuadDragDynamics(nn.Module):
     (``p_dim=0``). The counterpart of QuadMPC's ``rdrv_d`` mode.
 
     ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
-    ``csrc/vde.cu`` that run the VDE kernel and its RK4 kernel with the
+    ``csrc/vde_quad.cu`` that run the VDE kernel and its RK4 kernel with the
     ``QuadDragDyn`` functor (``cuda_functor``); ``cuda_params`` builds the
     struct both take by value.
     """
 
     nx, nu, p_dim = NX, NU, 0
     cuda_functor = "QuadDragDyn"
+    cuda_source = "vde_quad"
     cuda_entry = "vde_quad_drag"
     cuda_rk4_entry = "rk4_quad_drag"
 

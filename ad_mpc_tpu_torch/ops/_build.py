@@ -35,7 +35,11 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-SOURCES = ("vde", "lq_ipm", "lane_chain")
+# The VDE sweep's functors lie in one source per family over the shared
+# headers vde.cuh and vde_models.cuh, so that their builds run in parallel.
+VDE_SOURCES = ("vde_bicycle", "vde_gp_bicycle", "vde_quad", "vde_gp_quad",
+               "vde_gp_quad_routed", "vde_gp_quad_dual")
+SOURCES = VDE_SOURCES + ("lq_ipm", "lane_chain")
 
 _LIBS: dict = {}
 
@@ -116,7 +120,8 @@ def ptxas_resources(name: str, defines=()) -> dict:
 
 def functor_resources(name: str, kernel: str, functor: str, defines=()) -> dict:
     """:func:`ptxas_resources` of the instantiation ``kernel<functor>`` of
-    ``csrc/<name>.cu``, matched on the whole template argument of the
+    ``csrc/<name>.cu`` (a functor's source is its dynamics' ``cuda_source``),
+    matched on the whole template argument of the
     mangled name (``vde_kernelI10BicycleDynE``), so that ``BicycleDyn``
     never matches ``GPBicycleDyn``."""
     tag = f"{kernel}I{len(functor)}{functor}E"

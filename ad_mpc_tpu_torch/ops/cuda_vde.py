@@ -2,10 +2,12 @@
 wrappers and plain versions.
 
 :class:`VDE` replaces ``ad_mpc_tpu/ops/pallas_vde.py:_vde_kernel`` (built by
-its ``make_vde``). The kernel is ``csrc/vde.cu``: one thread per (scenario,
-stage), forward-mode dual numbers for the exact sensitivities of the RK4
-map, written into the batch-first layout the solver uses through a per-warp
-tile in shared memory.
+its ``make_vde``). The kernel is ``csrc/vde.cuh``'s ``vde_kernel``: one
+thread per (scenario, stage), forward-mode dual numbers for the exact
+sensitivities of the RK4 map, written into the batch-first layout the
+solver uses through a per-warp tile in shared memory. The functor of a
+dynamics lies in the source its ``cuda_source`` names
+(``csrc/vde_<family>.cu``), each built into a library of its own.
 
 :class:`RK4` runs the same functor and RK4 map without tangents: the
 solver's KKT defect and the fleet's plant step, which the JAX package's
@@ -37,21 +39,21 @@ _ARGS = {
 
 
 def _entry_name(f, kind="cuda_entry"):
-    """The C entry of ``csrc/vde.cu`` that runs a kernel with the functor
-    of the dynamics ``f`` (its ``cuda_entry`` or ``cuda_rk4_entry``)."""
+    """The C entry of ``csrc/<f.cuda_source>.cu`` that runs a kernel with
+    the functor of the dynamics ``f`` (its ``cuda_entry`` or
+    ``cuda_rk4_entry``)."""
     name = getattr(f, kind, None)
     if name is None:
-        raise NotImplementedError(
-            f"no CUDA functor in csrc/vde.cu for dynamics {f!r}")
+        raise NotImplementedError(f"no CUDA functor in csrc/ for dynamics {f!r}")
     return name
 
 
-def _lib(defines=()):
-    """The loaded ``csrc/vde.cu``; at first load the kernels of a functor
-    with its table in dynamic shared memory are allowed the largest table
-    (``vde_prepare``), so that no launch sets an attribute and a launch may
-    be captured in a CUDA graph."""
-    lib = _build.load("vde", defines)
+def _lib(source, defines=()):
+    """The loaded ``csrc/<source>.cu``; at first load the kernels of a
+    functor with a table in dynamic shared memory are allowed the largest
+    table (``vde_prepare``), so that no launch sets an attribute and a
+    launch may be captured in a CUDA graph."""
+    lib = _build.load(source, defines)
     if not getattr(lib, "_prepared", False):
         lib.vde_prepare.argtypes = []
         lib.vde_prepare.restype = ctypes.c_int
@@ -67,8 +69,8 @@ def _lib(defines=()):
 def _entry(f, kind="cuda_entry", defines=()):
     """(C entry of ``f``, ``error_string``), the entry typed for the
     parameter struct that ``f.cuda_params()`` builds. ``defines`` build
-    ``csrc/vde.cu`` with those ``-D`` macros (its functors' traits)."""
-    lib = _lib(defines)
+    ``f``'s source with those ``-D`` macros (its functors' traits)."""
+    lib = _lib(f.cuda_source, defines)
     fn = getattr(lib, _entry_name(f, kind))
     if fn.argtypes is None:
         fn.argtypes = _ARGS[kind] + [ctypes.c_double, _I,

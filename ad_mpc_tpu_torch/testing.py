@@ -1,5 +1,6 @@
 """Seeded numpy problem generators and the LQ kernel's check
-(:func:`lq_case`), shared by the tests and ``chip_smoke.py``.
+(:func:`lq_case`), shared by the tests and ``chip_smoke.py``, and the
+tests' :func:`one_thread` fixture.
 
 They draw the same LQ batches and bound structures as the JAX package's
 kernel tests (``tests/test_pallas_lq.py:21-67``), so a kernel is checked on
@@ -9,6 +10,20 @@ the problems its TPU counterpart was checked on.
 from __future__ import annotations
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """The plain versions' small tensors run fastest on one thread, and the
+    test workers share the host's cores. A test module takes it by
+    ``from ad_mpc_tpu_torch.testing import one_thread``."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_lq(rng, B, N, nx, nu):
@@ -130,7 +145,11 @@ def table_perturbed(dyn, seed):
     times a normal draw from ``seed``): the scale at which any float32
     evaluation rounds each term of the GP's sums. Perturbing the inputs
     alone leaves every run of one algorithm with the same rounded terms,
-    so its spread can sit far under another float32 algorithm's error."""
+    so its spread can sit far under another float32 algorithm's error.
+    A parameter-routed GP (``table_in_p``) reads its table from p, which
+    :func:`perturbed` moves: it is returned as it is."""
+    if getattr(dyn, "table_in_p", False):
+        return dyn
     rng = np.random.default_rng(seed)
     ens = dyn.ensemble
 
@@ -172,6 +191,42 @@ def f64_anchored(got, runs32, plain64, atol, rows=False):
     return float(err.max()), float(spread.max()), float(ratio.max()), ok
 
 
+# |a - b| of two functors' RK4 maps that compute one function (rk4_pair):
+# the fitted GP-quad's float32 rounding moves a step by up to about 7e-5
+# (on an H100 and on the CPU), a wrong GP or cluster by 1e-2 and more.
+RK4_PAIR_TOL = 1e-4
+
+
+def rk4_pair(dyn_a, p_a, dyn_b, p_b, x, u, dt):
+    """The RK4 maps (``make_rk4``, one step) of two dynamics that compute
+    one function, such as a GP baked into its functor and the same GP
+    routed through p, on the same states x (B, nx) and inputs u (B, nu).
+    Each is held to the float64 plain version of ``dyn_a`` by
+    :func:`f64_anchored` (atol 3e-5), the spread taken over the float32
+    plain versions of both on :func:`perturbed` inputs and
+    :func:`table_perturbed` tables. Returns (max |a - b|, its error
+    against the float64 plain version for a and for b, max spread, both
+    held)."""
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.ops.integrators import discrete_step
+
+    nx, nu = x.shape[1], u.shape[1]
+    pairs = ((dyn_a, p_a), (dyn_b, p_b))
+    got = [make_rk4(d, dt, nx, nu, p.shape[1], device=x.device)(x, u, p)
+           for d, p in pairs]
+    want64 = discrete_step(dyn_a, dt, 1, x.double(), u.double(), p_a.double())
+    runs = [discrete_step(d, dt, 1, x, u, p) for d, p in pairs] + [
+        discrete_step(table_perturbed(d, s), dt, 1, *perturbed((x, u, p), s))
+        for d, p in pairs for s in range(SPREAD_RUNS)]
+    held = [f64_anchored(g, runs, want64, 3e-5) for g in got]
+    return (float((got[0] - got[1]).abs().max()), held[0][0], held[1][0],
+            max(h[1] for h in held), held[0][3] and held[1][3])
+
+
+# Scenarios of an LQ case that ``lq_case`` also solves on the CPU.
+CONTROL_SCENARIOS = 2048
+
+
 def lq_case(qp, args, strict):
     """Hold the LQ kernel against its plain version on one batch, scenario
     by scenario, at atol 3e-4 / rtol 1e-3 on dx and du.
@@ -191,7 +246,9 @@ def lq_case(qp, args, strict):
     the float32 plain version and off the float64 answer where the float32
     plain version hits it. ``control_*`` are the same two numbers for the
     plain version run on the CPU, a correct float32 implementation by
-    construction. ``strict`` (the main path's QPs) also
+    construction, on the first ``CONTROL_SCENARIOS`` scenarios (a printed
+    comparison, not a gate: at B=16384 the CPU run took 19 s of an 8-core
+    host per case). ``strict`` (the main path's QPs) also
     asks every scenario to agree with the float32 plain version. Every
     output is finite, alpha lies in [0, 1], and a second launch gives the
     same bits.
@@ -201,10 +258,11 @@ def lq_case(qp, args, strict):
     plain = lambda: qp.plain(*args)
     got, again, want = qp(*args), qp(*args), plain()
     ref64 = qp.plain(*(a.double() for a in args))
-    control = qp.plain(*(a.cpu() for a in args))
+    B = args[0].shape[0]
+    n_ctl = min(B, CONTROL_SCENARIOS)
+    control = qp.plain(*(a[:n_ctl].cpu() for a in args))
     runs = [want] + [qp.plain(*perturbed(args, seed)) for seed in range(SPREAD_RUNS)]
     torch.cuda.synchronize()
-    B = args[0].shape[0]
 
     def excess(g, w):  # per scenario: how far dx, du lie outside tolerance of w
         return torch.stack([
@@ -216,16 +274,18 @@ def lq_case(qp, args, strict):
         (a.double() - b.double()).abs().flatten(1).amax(1)
         for a, b in zip(m[:2], ref64[:2])]).amax(0) for m in runs]).amax(0)
 
-    def factor(g):
-        e = excess(g, ref64).to(spread.device)
-        need = torch.where(e > 0, e / spread, torch.zeros_like(e))
+    first = lambda out, n: [t[:n] for t in out[:2]]
+
+    def factor(g, n=B):  # over the first n scenarios
+        e = excess(g, first(ref64, n)).to(spread.device)
+        need = torch.where(e > 0, e / spread[:n], torch.zeros_like(e))
         return float(need.amax())
 
     plain_hits64 = excess(want, ref64) <= 0
 
-    def fixed_tol_misses(g):
-        off = (excess(g, want) > 0) & (excess(g, ref64) > 0)
-        return int((off.to(plain_hits64.device) & plain_hits64).sum())
+    def fixed_tol_misses(g, n=B):
+        off = (excess(g, first(want, n)) > 0) & (excess(g, first(ref64, n)) > 0)
+        return int((off.to(plain_hits64.device) & plain_hits64[:n]).sum())
 
     agree = excess(got, want) <= 0
     row = {
@@ -233,9 +293,10 @@ def lq_case(qp, args, strict):
         "agree": int(agree.sum()), "B": B,
         "kernel_misses_f64": int((excess(got, ref64) > 0).sum()),
         "plain_misses_f64": int(B - plain_hits64.sum()),
-        "factor": factor(got), "control_factor": factor(control),
+        "factor": factor(got), "control_factor": factor(control, n_ctl),
         "fixed_tol_misses": fixed_tol_misses(got),
-        "control_fixed_tol_misses": fixed_tol_misses(control),
+        "control_fixed_tol_misses": fixed_tol_misses(control, n_ctl),
+        "control_B": n_ctl,
         "deterministic": all(torch.equal(g, h) for g, h in zip(got, again)),
     }
     ok = (row["factor"] <= SPREAD_FACTOR and row["deterministic"]
@@ -359,3 +420,47 @@ def dual_gp_ps(rng, B, ens, trigger_every=10):
     p[:, 1:1 + D] = rng.uniform(-1.0, 1.0, (B, D))
     p[:, 1 + D:] = rng.integers(0, C, (B, D))
     return p
+
+
+def routed_bicycle_ensemble(seed=4, n=6, d=4):
+    """The two-cluster ensemble on the bicycle layout (outputs rows 4 and
+    5, features x[3..6]) of the JAX package's routed-GP test
+    (``tests/test_pallas_vde.py:263-282``): cluster c's points uniform in
+    [-1, 1]^d shifted by 3c, the same draws and solves."""
+    from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble
+    from ad_mpc_tpu_torch.learned.gp import GPParams
+
+    rng = np.random.default_rng(seed)
+    gps = [[], []]
+    for dim in range(2):
+        for c in range(2):
+            X = rng.uniform(-1, 1, (n, d)) + 3.0 * c
+            y = 0.1 * X[:, 0] + 0.05 * c
+            ls = np.full(d, 1.5)
+            K = 0.2 * np.exp(-0.5 * np.sum(((X[:, None] - X[None]) / ls) ** 2,
+                                           axis=-1)) + 1e-3 * np.eye(n)
+            gps[dim].append(GPParams(X, np.linalg.solve(K, y - y.mean()), ls, 0.2,
+                                     0.03, float(y.mean()), X.mean(axis=0)))
+    return GPEnsemble.from_gps(gps, out_idx=(4, 5), feat_idx=(3, 4, 5, 6))
+
+
+def routed_bicycle_inputs(B, N, device, seed=5):
+    """(dynamics, xs, us, ps) of the routed GP bicycle on its test
+    ensemble: c2's trajectory draws (``random_traj``, v_x about 8 m/s, where
+    the bicycle's 1 / v_x leaves float32 well conditioned), each scenario's
+    p the switch 1 and a cluster's GP: packed at its first state's features
+    (cluster 1) for odd scenarios, at the origin (cluster 0) for even
+    ones."""
+    import torch
+
+    from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
+    from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
+
+    ens = routed_bicycle_ensemble()
+    dyn, _, pack = param_residual_dynamics(ens, BicycleDynamics(), 1)
+    xs, us = (torch.as_tensor(a, device=device)
+              for a in random_traj(np.random.default_rng(seed), B, N, 7, 2))
+    z = xs[:, 0, 3:7].clone()
+    z[::2] = 0.0
+    ps = pack(z, torch.ones(1))
+    return dyn, xs, us, ps

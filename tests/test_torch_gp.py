@@ -32,6 +32,8 @@ from ad_mpc_tpu_torch.learned import lane as tl
 from ad_mpc_tpu_torch.models import gp_bicycle as tgb
 from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde
 from ad_mpc_tpu_torch.testing import random_traj
+from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
+
 
 DT = 0.05
 _BP = BicycleParams()
@@ -207,10 +209,10 @@ def test_c3_ticks_match_bench():
 
 def test_gp_bicycle_functor_params():
     """The GP bicycle names its functor and C entries, and its struct has
-    the layout of ``GPBicycleParamsC`` in ``csrc/vde.cu``: the bicycle's
-    scalars, then n, then the table at the source's capacity."""
-    src = (Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
-           / "vde.cu").read_text()
+    the layout of ``GPBicycleParamsC`` in ``csrc/vde_gp_bicycle.cu``: the
+    bicycle's scalars, then n, then the table at the source's capacity."""
+    csrc = Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
+    src = "\n".join(p.read_text() for p in sorted(csrc.glob("vde*")))
     assert re.search(r"\bVDE_ENTRIES\(gp_bicycle, GPBicycleDyn, "
                      r"GPBicycleParamsC\)", src)
     cap = re.search(r"constexpr int GP_POINTS = (\d+), GP_DIMS = (\d+), "

@@ -45,7 +45,9 @@ from ad_mpc_tpu_torch.models import gp_quad as tgq
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde
 from ad_mpc_tpu_torch.testing import quad_traj
+from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
 from ad_mpc_tpu_torch.utils.math import v_dot_q
+
 
 DT = 0.1
 REPO = Path(__file__).resolve().parents[1]
@@ -273,26 +275,18 @@ def test_c6_ticks_match_jax(c6_ticks):
     assert float((us - carry_n[5].us).abs().max()) > 1e-5
 
 
-def test_rti_vs_converged_gp_quad_matches_jax(c6_ticks):
-    ticks, _, _ = c6_ticks
-    carry_j, _, carry, _ = ticks[-1]
-    got = quad_fleet.rti_vs_converged_quad(
-        carry, n_check=4, ensemble=quad_fleet.make_quad_gp_ensemble(n=8))
-    want = jqf.rti_vs_converged_quad(
-        jax.tree.map(jnp.asarray, carry_j), n_check=4, deployed_sqp_iters=2,
-        ensemble=jqf.make_quad_gp_ensemble(n=8))
-    assert got <= quad_fleet.RTI_GATE
-    np.testing.assert_allclose(got, want, rtol=0.05, atol=2e-6)
-
-
 def test_gp_quad_functor_params():
     """The GP-quad names its functor and C entries, and its struct has the
-    layout of ``GPQuadParamsC`` in ``csrc/vde.cu``: the quad's scalars,
-    then n, then the table at the source's capacity (3,208 bytes)."""
-    src = (REPO / "ad_mpc_tpu_torch" / "csrc" / "vde.cu").read_text()
+    layout of ``GPQuadParamsC`` in ``csrc/vde_gp_quad.cu``: the quad's
+    scalars, then n, then the table at the source's capacity (3,208 bytes)."""
+    src = "\n".join(p.read_text() for p in sorted(
+        (REPO / "ad_mpc_tpu_torch" / "csrc").glob("vde*")))
     assert re.search(r"\bVDE_ENTRIES\(gp_quad, GPQuadDyn, GPQuadParamsC\)", src)
-    cap = re.search(r"constexpr int GP_QUAD_POINTS = (\d+), GP_QUAD_DIMS = (\d+), "
-                    r"GP_QUAD_FEATS = (\d+);", src)
+    cap = re.search(r"constexpr int GP_QUAD_POINTS = (\d+);(?s:.*)"
+                    r"constexpr int GP_QUAD_DIMS = (\d+), GP_QUAD_FEATS = (\d+);",
+                    "\n".join(p.read_text() for p in (
+                        REPO / "ad_mpc_tpu_torch" / "csrc" / "vde_gp_quad.cu",
+                        REPO / "ad_mpc_tpu_torch" / "csrc" / "vde_models.cuh")))
     assert tuple(int(v) for v in cap.groups()) == (
         tgq.GP_QUAD_POINTS, tgq.GP_QUAD_DIMS, tgq.GP_QUAD_FEATS)
     body = re.sub(r"//[^\n]*", "", re.search(

@@ -1081,3 +1081,109 @@ def test_fleet_solver_reaches_the_oracle_on_card(cuda):
     d, launches = fleet_oracle_distance(path, cuda, backend="cuda")
     assert d < 1e-3, d
     assert launches == {"vde": 30, "lq_ipm": 30, "rk4": 30}
+
+
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_gp_routed_kernels_match_plain(cuda, B):
+    """The routed GP bicycle (``GPRoutedDyn``) on the JAX package's test
+    ensemble, the two clusters in one launch (B > 1), N=3 (blocks span many
+    scenarios' p rows): the sweep and both modes of the RK4 map against
+    their plain versions at 2e-5 (``tests/test_pallas_vde.py``'s); a
+    relaunch repeats its bits."""
+    from ad_mpc_tpu_torch.testing import routed_bicycle_inputs
+
+    N = 3
+    dyn, xs, us, ps = routed_bicycle_inputs(B, N, cuda)
+    assert type(dyn).__name__ == "GPRoutedDynamics" and ps.shape[1] == dyn.p_dim == 73
+    vde = make_vde(dyn, 0.05, N, 7, 2, dyn.p_dim, device=cuda)
+    rk4 = make_rk4(dyn, 0.05, 7, 2, dyn.p_dim, device=cuda)
+    got = (*vde(xs, us, ps), rk4.defect(xs, us, ps), rk4(xs[:, 0], us[:, 0], ps))
+    want = (*vde_plain(dyn, 0.05, 1, xs, us, ps),
+            discrete_step(dyn, 0.05, 1, xs[:, :-1], us, ps[:, None]) - xs[:, 1:],
+            discrete_step(dyn, 0.05, 1, xs[:, 0], us[:, 0], ps))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+    again = (*vde(xs, us, ps), rk4.defect(xs, us, ps), rk4(xs[:, 0], us[:, 0], ps))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _routed_quad(name):
+    from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
+
+    ens = (quad_fleet.fitted_ensemble() if name == "fitted"
+           else quad_fleet.make_quad_gp_ensemble(n=16, clusters=2))
+    return param_residual_dynamics(ens, QuadDynamics(), 0, quad_frame=True)
+
+
+@pytest.mark.parametrize("name", ["two_clusters", "fitted"])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 1000])
+def test_gp_quad_routed_kernels_match_plain(cuda, B, name):
+    """The routed body-frame GP (``GPQuadRoutedDyn``): each scenario's p
+    packed at its body velocity, on the synthetic two-cluster ensemble
+    (both clusters in one launch) at 3e-5, on the fitted one-cluster model
+    held to the float64 plain version with its float32 spread."""
+    from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
+
+    dyn, p_dim, pack = _routed_quad(name)
+    xs, us, _ = _quad_traj(B, 10, cuda, seed=17)
+    xs[..., 7:10] *= 10.0 if name == "two_clusters" else 5.0
+    ps = pack(body_velocities(xs[:, 0]))
+    assert ps.shape == (B, p_dim)
+    if name == "two_clusters" and B > 1:
+        assert len(set(pack.clusters(body_velocities(xs[:, 0])).flatten().tolist())) == 2
+    got = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    _hold_to_plain(dyn, got, (xs, us, ps), anchored=name == "fitted")
+    again = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gp_quad_routed_refuses_a_p_of_another_width(cuda):
+    """The C entry checks p against the struct's points (base + 3 GPs)."""
+    dyn, p_dim, _ = _routed_quad("two_clusters")
+    B, N = 4, 10
+    xs, us, _ = _quad_traj(B, N, cuda)
+    A = torch.empty((B, N, 13, 13), device=cuda)
+    Bm = torch.empty((B, N, 13, 4), device=cuda)
+    c = torch.empty((B, N, 13), device=cuda)
+    ps = torch.zeros((B, p_dim + 1), device=cuda)
+    fn, _ = _entry(dyn)
+    err = fn(xs.data_ptr(), us.data_ptr(), ps.data_ptr(), A.data_ptr(),
+             Bm.data_ptr(), c.data_ptr(), B, N, 13, 4, p_dim + 1, 0.1, 1,
+             dyn.cuda_params(), torch.cuda.current_stream(cuda).cuda_stream)
+    assert err != 0
+
+
+def test_routed_one_cluster_tick_matches_gp_quad_tick(cuda):
+    """The fitted one-cluster model routed through p gives the c6-fitted
+    tick through ``GPQuadDyn`` (the same means, in the same order): u0
+    within 1e-5 after one tick at B=256, the sweeps' bits equal. The two
+    functors' RK4 maps on the tick's states and inputs are each held to
+    the float64 plain version with its float32 spread, and to each other
+    within ``testing.RK4_PAIR_TOL``: the fitted model's terms of up to
+    2,755 sum to means under 6, so the two maps' float32 rounding moves a
+    step by up to about 7e-5, and later ticks start from states that
+    differ by that much."""
+    from ad_mpc_tpu_torch.experiments.routed_fleet import (
+        body_velocities, build_routed_quad_fleet)
+    from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
+    from ad_mpc_tpu_torch.testing import RK4_PAIR_TOL, rk4_pair
+
+    ens = quad_fleet.fitted_ensemble()
+    tick_r, init_r, solver_r, _, _ = build_routed_quad_fleet(ens, device=cuda)
+    tick, init, _, _ = quad_fleet.build_quad_fleet(device=cuda, ensemble=ens)
+    carry_r, _ = tick_r(init_r(256))
+    carry, _ = tick(init(256))
+    d = float((carry_r[5].us[:, 0] - carry[5].us[:, 0]).abs().max())
+    assert d <= 1e-5, d
+    assert solver_r.vde.launches == 2 and solver_r.qp.launches == 2
+    dyn, p_dim, pack = param_residual_dynamics(ens, QuadDynamics(), 0, quad_frame=True)
+    x, u = carry[0], carry[5].us[:, 0]
+    diff, err_r, err_b, spread, held = rk4_pair(
+        dyn, pack(body_velocities(x)), GPQuadDynamics(ens), x.new_zeros((256, 0)), x, u, 0.1)
+    assert held and diff <= RK4_PAIR_TOL, (diff, err_r, err_b, spread)
+    xs, us, _ = _quad_traj(64, 10, cuda)
+    ps = pack(body_velocities(xs[:, 0]))
+    got = make_vde(dyn, 0.1, 10, 13, 4, p_dim, device=cuda)(xs, us, ps)
+    want = make_vde(GPQuadDynamics(ens), 0.1, 10, 13, 4, 0, device=cuda)(
+        xs, us, torch.zeros((64, 0), device=cuda))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))

@@ -37,6 +37,8 @@ from ad_mpc_tpu_torch import bench, convert, fleet
 from ad_mpc_tpu_torch.models import pacejka as tp
 from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde
 from ad_mpc_tpu_torch.testing import pacejka_inputs, random_traj
+from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
+
 
 DT = 0.05
 F_TOL = 1.3e-4  # the atan bound carried through the tire forces (above)
@@ -210,9 +212,9 @@ def test_c4_ticks_match_bench():
 def test_pacejka_functor_params():
     """The Pacejka names its functor and C entries and states its shape,
     and the struct it passes by value has the fields of ``PacejkaParamsC``
-    in ``csrc/vde.cu``, in that order."""
-    src = (Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
-           / "vde.cu").read_text()
+    in ``csrc/vde_bicycle.cu``, in that order."""
+    csrc = Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
+    src = "\n".join(p.read_text() for p in sorted(csrc.glob("vde*")))
     assert re.search(r"\bVDE_ENTRIES\(pacejka, PacejkaDyn, PacejkaParamsC\)", src)
     assert re.search(r"struct PacejkaDyn \{\s*static constexpr int NX = 7, NU = 2, "
                      r"NP = 5;", src)

@@ -261,13 +261,14 @@ def test_dual_gp_functor_refuses_other_layouts(ensembles):
 def test_quad_mpc_cuda_refuses_modes_without_a_functor(ensembles):
     """On the cuda backend a combination of options, or a GP residual that
     picks among clusters at every evaluation, raises NotImplementedError
-    naming the parameter-routed GP functor; the plain backend takes them."""
+    naming the per-evaluation cluster functor that it needs (ROADMAP B1
+    (c)); the plain backend takes them."""
     two = ensembles["two_clusters"][0]
     fitted = ensembles["fitted"][0]
     for kw in ({"residual_fn": quad_residual_fn(two)},
                {"rdrv_d": RDRV, "ensemble": fitted},
                {"residual_fn": lambda x, u: 0.0 * x}):
-        with pytest.raises(NotImplementedError, match=r"B1 \(a\)"):
+        with pytest.raises(NotImplementedError, match=r"B1 \(c\)"):
             QuadMPC(spec=quad_spec(), device="cpu", backend="cuda", **kw)
         QuadMPC(spec=quad_spec(), device="cpu", **kw)
     one = QuadMPC(spec=quad_spec(), device="cpu",

@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from ad_mpc_tpu.control.mpc import QuadMPC as JaxQuadMPC
 from ad_mpc_tpu.control.mpc import quad_spec as jax_quad_spec
@@ -27,6 +28,8 @@ from ad_mpc_tpu_torch import convert
 from ad_mpc_tpu_torch.experiments import quad_trajectory_test as tt
 from ad_mpc_tpu_torch.sim.simulator import DisturbanceConfig
 from ad_mpc_tpu_torch.testing import fleet_oracle_distance
+from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
+
 
 TICKS = 25
 

@@ -2,7 +2,7 @@
 and the tangent-free RK4 map.
 
 The port's ``make_vde(..., device="cpu")`` and ``make_rk4(...,
-device="cpu")`` run the plain PyTorch versions that ``csrc/vde.cu`` is held
+device="cpu")`` run the plain PyTorch versions that ``csrc/vde.cuh`` is held
 against on the card. Here they are held against the JAX package's Pallas
 kernel (interpret mode), its vmapped ``integrators.linearize`` and its
 ``discretize`` map, at the tolerance of ``tests/test_pallas_vde.py``.
@@ -114,21 +114,23 @@ def test_build_hashes_headers(tmp_path, monkeypatch):
         if src.suffix in (".cu", ".cuh"):
             (tmp_path / src.name).write_bytes(src.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    before = _build._target("vde")
-    assert _build._target("vde") == before
+    before = _build._target("vde_bicycle")
+    assert _build._target("vde_bicycle") == before
     header = tmp_path / "ieee_div.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
-    after = _build._target("vde")
+    after = _build._target("vde_bicycle")
     assert after != before
-    (tmp_path / "vde.cu").write_text((tmp_path / "vde.cu").read_text() + "\n")
-    assert _build._target("vde") not in (before, after)
+    (tmp_path / "vde_bicycle.cu").write_text(
+        (tmp_path / "vde_bicycle.cu").read_text() + "\n")
+    assert _build._target("vde_bicycle") not in (before, after)
 
 
 def test_bicycle_functor_params():
     """The bicycle names its C entries, and the struct it passes by value has
-    the fields of ``BicycleParamsC`` in ``csrc/vde.cu``, in that order."""
-    src = (Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
-           / "vde.cu").read_text()
+    the fields of ``BicycleParamsC`` in ``csrc/vde_models.cuh``, in that
+    order."""
+    csrc = Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
+    src = "\n".join(p.read_text() for p in sorted(csrc.glob("vde*")))
     assert re.search(r"\bVDE_ENTRIES\(bicycle, BicycleDyn, BicycleParamsC\)", src)
     assert re.search(r"\bint vde_##model\(", src)
     assert re.search(r"\bint rk4_##model\(", src)
