@@ -23,12 +23,18 @@ long-horizon Riccati micro (``experiments.long_horizon.micro``); the
 single-vehicle AD path: ``ad_closed_loop`` (20 s on the oval at N=40:
 tracking RMSE, solve p50/p99) and the deployment loop at 50 Hz
 (``deployment_loop_50hz``, ``…_pipelined``, ``deployment_aggr_nolagcomp``
-and ``deployment_aggr_lagcomp``, as ``bench.py:884-915`` runs them). Every
+and ``deployment_aggr_lagcomp``, as ``bench.py:884-915`` runs them, and the
+aggressive pair again with each result held one tick,
+``deployment_aggr_*_delay1``: the age of the JAX package's rows). Every
 fleet row gets the analytic operations per solve and its share of the FP32
 peak, and is held to its config's quality gates; the AD rows to their
-tracking-RMSE gates (``AD_GATES``).
+tracking-RMSE gates (``AD_GATES``). The delayed pair's comparison
+(:func:`lag_comp_ab`, ``aggr_ab_delay1``) is reported with its verdict and
+is no gate: on the H100 the two rows tie at that age too.
 
-Not ported, so not here: the shard-invariance row. The result goes to
+The shard-invariance row (``parallel.scaling.measure_shard_invariance``:
+one rank's tick with its per-tick KKT reduction against the unsplit tick
+at c2's B=16384, N=30) is ``shard_invariance``. The result goes to
 ``--out`` only; the last line of standard output is a one-line summary.
 Exits 1 when a gate fails or a row raises.
 """
@@ -65,7 +71,9 @@ AD_GATES = {"ad_closed_loop": ("rmse_pos", 0.5),
             "deployment_loop_50hz": ("tracking_rmse_m", 1.0),
             "deployment_loop_50hz_pipelined": ("tracking_rmse_m", 1.0),
             "deployment_aggr_nolagcomp": ("tracking_rmse_m", 1.0),
-            "deployment_aggr_lagcomp": ("tracking_rmse_m", 1.0)}
+            "deployment_aggr_lagcomp": ("tracking_rmse_m", 1.0),
+            "deployment_aggr_nolagcomp_delay1": ("tracking_rmse_m", 1.0),
+            "deployment_aggr_lagcomp_delay1": ("tracking_rmse_m", 1.0)}
 DEPLOY_ROWS = {
     "deployment_loop_50hz": dict(ticks=400, base_port=49800),
     "deployment_loop_50hz_pipelined": dict(ticks=400, base_port=49804,
@@ -76,6 +84,14 @@ DEPLOY_ROWS = {
     "deployment_aggr_lagcomp": dict(ticks=700, base_port=49812, pipelined=True,
                                     lag_compensation=True, v_target=12.0,
                                     track_radius=15.0),
+    # The aggressive A/B at the JAX rows' result age (two ticks at p50: a
+    # 24 ms link over the 20 ms period), emulated by holding each result.
+    "deployment_aggr_nolagcomp_delay1": dict(
+        ticks=700, base_port=49816, pipelined=True, lag_compensation=False,
+        v_target=12.0, track_radius=15.0, result_delay_ticks=1),
+    "deployment_aggr_lagcomp_delay1": dict(
+        ticks=700, base_port=49820, pipelined=True, lag_compensation=True,
+        v_target=12.0, track_radius=15.0, result_delay_ticks=1),
 }
 
 # Hand-counted operations of the continuous dynamics (``bench.py:523-529``).
@@ -129,6 +145,20 @@ def annotate_roofline(detail):
         row["pct_fp32_peak"] = 100 * ach / H100_FP32_FLOP_PER_S
 
 
+def lag_comp_ab(rows, sfx="_delay1"):
+    """The aggressive A/B of the deployment rows ``deployment_aggr_*{sfx}``
+    in ``rows``: each row's RMSE, result age at p50 and unsafe ticks, and
+    whether lag compensation beat none (the JAX package's result, 2.780
+    against 0.160 m behind its 24 ms link). A reported verdict, not a gate
+    (ROADMAP Queue C 2)."""
+    ab = {k: {f: rows[f"deployment_aggr_{k}{sfx}"].get(f) for f in (
+        "tracking_rmse_m", "result_age_p50_ticks", "result_age_max_ticks",
+        "n_unsafe_ticks")} for k in ("lagcomp", "nolagcomp")}
+    ab["reproduced"] = (ab["lagcomp"]["tracking_rmse_m"]
+                        < ab["nolagcomp"]["tracking_rmse_m"])
+    return ab
+
+
 def gate_failures(detail):
     """Every gate exceeded and every row that raised, as text."""
     failures = []
@@ -153,6 +183,7 @@ def run(log=lambda s: print(s, file=sys.stderr)):
     """Every ported row on the card; returns the detail dict."""
     require_cuda("cuda")
     from ad_mpc_tpu_torch.experiments import long_horizon, mxu_riccati
+    from ad_mpc_tpu_torch.parallel import scaling
 
     detail = {"device": card(), "torch": torch.__version__,
               "cuda": torch.version.cuda, "configs": {}, "errors": {}}
@@ -278,6 +309,11 @@ def run(log=lambda s: print(s, file=sys.stderr)):
             log(f"# {key}: rmse={d['tracking_rmse_m']:.3f} m, tick "
                 f"p50={d['tick_p50_ms']:.2f} ms p99={d['tick_p99_ms']:.2f} ms, "
                 f"missed {d['missed_deadlines']}/{d['ticks']}")
+        ab = detail["aggr_ab_delay1"] = lag_comp_ab(detail)
+        log(f"# aggressive A/B at delay 1: lag compensation "
+            f"{ab['lagcomp']['tracking_rmse_m']:.4f} m, none "
+            f"{ab['nolagcomp']['tracking_rmse_m']:.4f} m: JAX result "
+            f"{'reproduced' if ab['reproduced'] else 'not reproduced'}")
 
     with tf32(False):
         guarded("c2_dynamic_bicycle", run_c2)
@@ -293,6 +329,8 @@ def run(log=lambda s: print(s, file=sys.stderr)):
         guarded("c6_gp_quad", run_c6)
         guarded("latency", run_lat)
         guarded("ad_path", run_ad)
+        detail["shard_invariance"] = guarded(
+            "shard_invariance", scaling.measure_shard_invariance)
         detail["mxu_riccati_micro"] = guarded("mxu_riccati", mxu_riccati.micro)
         detail["long_horizon_riccati"] = guarded("long_horizon_riccati",
                                                  long_horizon.micro)

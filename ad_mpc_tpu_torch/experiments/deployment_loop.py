@@ -8,7 +8,8 @@ over the native ``rt_bridge`` UDP/SPSC transport, and records per-tick
 control wall time, scheduler lateness and missed 20 ms deadlines.
 
     python -m ad_mpc_tpu_torch.experiments.deployment_loop [--ticks 600]
-        [--pipelined] [--no-lag-comp] [--v 8] [--radius 30] [--device cuda]
+        [--pipelined] [--no-lag-comp] [--result-delay 0] [--v 8] [--radius 30]
+        [--device cuda]
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ def run_deployment_loop(
     pipelined: bool = False,
     lag_compensation: bool = True,
     track_radius: float = 30.0,
+    result_delay_ticks: int = 0,
     device="cuda",
     backend: str = "auto",
 ) -> dict:
@@ -64,7 +66,9 @@ def run_deployment_loop(
     ``lag_compensation`` (pipelined only): anchor each solve at the state
     forward-predicted by the one-slot actuation lag. ``track_radius`` and
     ``v_target`` set the scenario's aggressiveness (lateral acceleration
-    about v^2/r). Ports ``base_port`` .. ``base_port + 3``."""
+    about v^2/r). ``result_delay_ticks`` (pipelined only): hold each result
+    that many ticks, the emulated link of the JAX package's rows
+    (``ADControllerNode``). Ports ``base_port`` .. ``base_port + 3``."""
     from ad_mpc_tpu_torch.nodes.ad_node import ADControllerNode
     from ad_mpc_tpu_torch.nodes.sim_node import SimNode
 
@@ -74,7 +78,7 @@ def run_deployment_loop(
         state_port=base_port, control_port=base_port + 1,
         waypoint_port=base_port + 2, status_port=base_port + 3,
         pipelined=pipelined, lag_compensation=lag_compensation,
-        device=device, backend=backend,
+        result_delay_ticks=result_delay_ticks, device=device, backend=backend,
     )
     sim = SimNode(
         rate_hz=rate_hz, v_target=v_target,
@@ -116,6 +120,7 @@ def run_deployment_loop(
         "budget_ms": budget_ms,
         "pipelined": pipelined,
         "lag_compensation": bool(pipelined and lag_compensation),
+        "result_delay_ticks": result_delay_ticks,
         "v_target": v_target,
         "track_radius": track_radius,
         "wall_s": round(wall, 1),
@@ -151,6 +156,8 @@ def main(argv=None):
     ap.add_argument("--rate", type=float, default=50.0)
     ap.add_argument("--pipelined", action="store_true")
     ap.add_argument("--no-lag-comp", action="store_true")
+    ap.add_argument("--result-delay", type=int, default=0,
+                    help="pipelined: hold each result this many ticks")
     ap.add_argument("--v", type=float, default=8.0)
     ap.add_argument("--radius", type=float, default=30.0)
     ap.add_argument("--base-port", type=int, default=49500)
@@ -161,6 +168,7 @@ def main(argv=None):
         run_deployment_loop(args.ticks, args.rate, base_port=args.base_port,
                             v_target=args.v, pipelined=args.pipelined,
                             lag_compensation=not args.no_lag_comp,
+                            result_delay_ticks=args.result_delay,
                             track_radius=args.radius, device=args.device),
         indent=1,
     ))

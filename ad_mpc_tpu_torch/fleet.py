@@ -161,6 +161,36 @@ def pacejka_draw(B):
     return dyn, draw_p(p_of, zeros, zeros)
 
 
+def init_carry(batch, N, p_of_scenario, device, v_cap=None, seed=0):
+    """A fleet's first carry (x0, s0, v, kappa, p, states) on ``device``:
+    draw (v, kappa), then the extras from ``default_rng(1)``, then p, then
+    cap v, the JAX bench's order (``bench.py:172-200``); each vehicle at the
+    start of its arc, its warm start the constant state."""
+    v, kappa = make_scenarios(batch, seed)
+    p_np = draw_p(p_of_scenario, v, kappa)
+    if v_cap is not None:
+        v = np.minimum(v, v_cap(v, kappa, p_np)).astype(np.float32)
+    v = torch.as_tensor(v, device=device)
+    x0 = torch.zeros((batch, 7), dtype=torch.float32, device=device)
+    x0[:, 3] = v
+    states = SolverState(
+        xs=x0[:, None].expand(-1, N + 1, -1).contiguous(),
+        us=x0.new_zeros((batch, N, 2)),
+    )
+    return (x0, torch.zeros_like(v), v, torch.as_tensor(kappa, device=device),
+            torch.as_tensor(p_np, device=device), states)
+
+
+def tick_inputs(carry, N, dt):
+    """A tick's solve inputs from its carry: the new arc anchor s0 and
+    (x0, yref_x, yref_u, p, states), the arguments of the solve."""
+    x0, s0, v, kappa, p, states = carry
+    s0 = _project_arc(x0, s0, kappa)
+    yref_x = arc_reference(v, kappa, s0, N, dt, WHEELBASE)
+    yref_u = x0.new_zeros((x0.shape[0], N, 2))
+    return s0, (x0, yref_x, yref_u, p, states)
+
+
 def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
                 sqp_iters=1, v_cap=None, device="cuda", backend="auto"):
     """Closed-loop fleet over :class:`BatchedSQPSolver`.
@@ -180,10 +210,8 @@ def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
     N, dt = spec.n_nodes, spec.dt
 
     def tick(carry):
-        x0, s0, v, kappa, p, states = carry
-        s0 = _project_arc(x0, s0, kappa)
-        yref_x = arc_reference(v, kappa, s0, N, dt, WHEELBASE)
-        yref_u = x0.new_zeros((x0.shape[0], N, 2))
+        _, _, v, kappa, _, _ = carry
+        s0, (x0, yref_x, yref_u, p, states) = tick_inputs(carry, N, dt)
         res = solver.solve(x0, yref_x, yref_u, p, states)
         with torch.no_grad():
             x_next = solver.F(x0, res.us[:, 0], p)
@@ -193,22 +221,7 @@ def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
         return (x_next, s0, v, kappa, p, states), (res.kkt_residual, lat.mean())
 
     def init(batch, seed=0):
-        """Draw (v, kappa), then the extras from ``default_rng(1)``, then p,
-        then cap v: the JAX bench's order (``bench.py:172-200``)."""
-        v, kappa = make_scenarios(batch, seed)
-        p_np = draw_p(p_of_scenario, v, kappa)
-        if v_cap is not None:
-            v = np.minimum(v, v_cap(v, kappa, p_np)).astype(np.float32)
-        dev = solver.Q.device
-        v = torch.as_tensor(v, device=dev)
-        x0 = torch.zeros((batch, 7), dtype=torch.float32, device=dev)
-        x0[:, 3] = v
-        states = SolverState(
-            xs=x0[:, None].expand(-1, N + 1, -1).contiguous(),
-            us=x0.new_zeros((batch, N, 2)),
-        )
-        return (x0, torch.zeros_like(v), v, torch.as_tensor(kappa, device=dev),
-                torch.as_tensor(p_np, device=dev), states)
+        return init_carry(batch, N, p_of_scenario, solver.Q.device, v_cap, seed)
 
     return tick, init, solver, spec
 

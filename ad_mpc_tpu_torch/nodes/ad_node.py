@@ -19,6 +19,7 @@ fetches the 4-float result once; nothing else waits for the card.
 
 from __future__ import annotations
 
+import collections
 import queue
 import threading
 import time
@@ -73,6 +74,7 @@ class ADControllerNode:
         status_port: int = topics.STATUS_PORT,
         pipelined: bool = False,
         lag_compensation: bool = True,
+        result_delay_ticks: int = 0,
         device="cuda",
         backend: str = "auto",
     ):
@@ -86,7 +88,19 @@ class ADControllerNode:
         ``lag_compensation`` (pipelined mode only): the command computed
         from this tick's state is actuated one control period later, so the
         solve is anchored at the state forward-predicted one period through
-        the plant model under the command the node published last."""
+        the plant model under the command the node published last.
+
+        ``result_delay_ticks`` (pipelined mode only) holds each completed
+        result back: the result of the solve launched on tick k is
+        published no earlier than tick k + 1 + ``result_delay_ticks``. It
+        emulates the link to the device that the JAX package's deployment
+        rows ran behind (``BENCH_DETAIL.json``: ``host_link_floor_p50_ms``
+        23.8-24.7 ms over a 20 ms period, so that their commands were two
+        ticks old at p50; here 1 gives that age). It is no capability of
+        the controller; at 0 the node publishes the newest completed
+        result, as without it."""
+        if result_delay_ticks < 0 or (result_delay_ticks and not pipelined):
+            raise ValueError("result_delay_ticks >= 0, and > 0 only pipelined")
         spec = bicycle_spec(t_horizon=t_horizon, n_nodes=n_nodes,
                             qp_iters=qp_iters)
         self.mpc = BicycleMPC(spec=spec, device=device, backend=backend)
@@ -119,9 +133,11 @@ class ADControllerNode:
         self._carry = None
         self.pipelined = pipelined
         self.lag_compensation = lag_compensation
+        self.result_delay_ticks = result_delay_ticks
         self._fetch_q = None
-        self._latest = None
-        self._latest_lock = threading.Lock()
+        # The completed results (solve number, output), oldest first.
+        self._done = collections.deque(maxlen=16)
+        self._done_lock = threading.Lock()
         self._predict = None
         # [accel, steer_rate] the node actually returned last tick (MPC
         # command or brake fallback): the lag-compensation plant input.
@@ -153,8 +169,8 @@ class ADControllerNode:
             if done is not None:
                 done.synchronize()
             out_np = host.numpy().copy()
-            with self._latest_lock:
-                self._latest = solve, out_np
+            with self._done_lock:
+                self._done.append((solve, out_np))
 
     def start_io(self):
         for sub, q in ((self.state_sub, self.state_q),
@@ -193,8 +209,12 @@ class ADControllerNode:
         if self.pipelined:
             # The newest COMPLETED result is the command published this
             # tick (one-slot actuation pipeline).
-            with self._latest_lock:
-                latest = self._latest
+            # The newest completed result old enough to publish: of a solve
+            # at least 1 + result_delay_ticks ticks back.
+            newest = self.n_solves - self.result_delay_ticks
+            with self._done_lock:
+                latest = next((d for d in reversed(self._done) if d[0] <= newest),
+                              None)
             if latest is not None:
                 solve, out_np = latest
                 self.result_age.append(self.n_solves + 1 - solve)
@@ -269,16 +289,16 @@ class ADControllerNode:
             # Drain the warm-up result, then clear it so that the real loop
             # starts from a clean pipeline.
             for _ in range(50):
-                with self._latest_lock:
-                    got = self._latest is not None
+                with self._done_lock:
+                    got = bool(self._done)
                 if got or self._stop.is_set():
                     break
                 time.sleep(0.05)
         self.mpc.reset()
         self._carry = None
         self._last_pub_u = None
-        with self._latest_lock:
-            self._latest = None
+        with self._done_lock:
+            self._done.clear()
         self.ref_gen._path = None
         self.gate.count = 0
         self.n_solves = 0
@@ -342,12 +362,16 @@ def main(argv=None):
     ap.add_argument("--nodes", type=int, default=20)
     ap.add_argument("--ticks", type=int, default=None)
     ap.add_argument("--pipelined", action="store_true")
+    ap.add_argument("--result-delay", type=int, default=0,
+                    help="pipelined: hold each result this many ticks (the "
+                    "emulated link of the JAX package's rows)")
     ap.add_argument("--device", default="cuda",
                     help="the solver's device; cpu runs the plain versions")
     args = ap.parse_args(argv)
 
     node = ADControllerNode(rate_hz=args.rate, n_nodes=args.nodes,
-                            pipelined=args.pipelined, device=args.device)
+                            pipelined=args.pipelined,
+                            result_delay_ticks=args.result_delay, device=args.device)
     try:
         node.run(max_ticks=args.ticks)
     except KeyboardInterrupt:

@@ -14,12 +14,15 @@ library of their own. ``-Xptxas -v`` (registers, spills) is
 kept beside the library as ``<name>-<hash>.ptxas.txt``. No
 ``--use_fast_math``: the parity tolerances assume IEEE ``sinf``/``cosf``
 and division. Nothing is built at import; :func:`load` builds on first use
-and :func:`build_all` builds every source at once, one ``nvcc`` each.
+and :func:`build_all` builds every source at once, one ``nvcc`` each,
+holding a lock on the build directory, so that processes started together
+(the multi-process fleet's ranks) build a library once and never race.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -69,6 +72,16 @@ def build_all(names=SOURCES, defines=()) -> dict:
     processes started together. Returns {name: library path}."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     targets = {n: _target(n, defines) for n in names}
+    if all(so.exists() for so in targets.values()):
+        return targets
+    with open(BUILD_DIR / ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)  # released when the file closes
+        _compile(targets, defines)
+    return targets
+
+
+def _compile(targets: dict, defines) -> None:
+    """Run ``nvcc`` for every target that is missing, all at once."""
     procs = {}
     for n, so in targets.items():
         if so.exists():
@@ -88,7 +101,6 @@ def build_all(names=SOURCES, defines=()) -> dict:
         tmp.replace(so)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
-    return targets
 
 
 def ptxas_report(name: str, defines=()) -> str:

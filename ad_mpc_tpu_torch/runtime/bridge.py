@@ -11,7 +11,11 @@ ROS1 transport/scheduling (TCPROS + rospy.Rate).
 
 Messages are numpy arrays serialized as raw bytes with a tiny header
 (u32 tag, u32 dtype code, u32 ndim, dims...), keeping the hot path
-allocation-free on the C side.
+allocation-free on the C side. A message longer than one datagram (a
+dense quadrotor reference is hundreds of KB) is sent as fragments of
+``FRAGMENT_BYTES``, each behind a header (u32 ``FRAGMENT_MAGIC``, message
+id, index, count), and the subscriber reassembles it; a message with a
+lost fragment is dropped whole, as a lost datagram is.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -28,6 +33,10 @@ import numpy as np
 SRC = Path(__file__).resolve().parent / "cpp" / "rt_bridge.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "runtime"
 CXX_FLAGS = ["-O2", "-shared", "-fPIC", "-std=c++17"]
+
+FRAGMENT_BYTES = 60000  # payload bytes per datagram of a long message
+FRAGMENT_MAGIC = 0xFFFFFFF0  # never a tag: marks a fragment's header
+FRAGMENT_GAP_S = 5e-4  # pause between fragments, for the receiver to drain
 
 _build_lock = threading.Lock()
 _lib = None
@@ -176,11 +185,25 @@ class Publisher:
         self._fd = self._lib.udp_pub_create(host.encode(), port)
         if self._fd < 0:
             raise OSError(f"udp_pub_create failed for {host}:{port}")
+        self._msg_id = 0
+
+    def _send(self, data: bytes) -> None:
+        if self._lib.udp_send(self._fd, data, len(data)) < 0:
+            raise OSError("udp_send failed")
 
     def publish(self, tag: int, arr: np.ndarray) -> None:
         data = encode(tag, arr)
-        if self._lib.udp_send(self._fd, data, len(data)) < 0:
-            raise OSError("udp_send failed")
+        if len(data) <= FRAGMENT_BYTES:
+            self._send(data)
+            return
+        self._msg_id = (self._msg_id + 1) & 0xFFFFFFFF
+        count = -(-len(data) // FRAGMENT_BYTES)
+        for i in range(count):
+            head = np.array([FRAGMENT_MAGIC, self._msg_id, i, count], np.uint32)
+            if i:
+                time.sleep(FRAGMENT_GAP_S)
+            self._send(head.tobytes()
+                       + data[i * FRAGMENT_BYTES:(i + 1) * FRAGMENT_BYTES])
 
     def close(self):
         self._lib.udp_close(self._fd)
@@ -196,13 +219,35 @@ class Subscriber:
             raise OSError(f"udp_sub_create failed for port {port}")
         self._buf = ctypes.create_string_buffer(max_len)
         self._max_len = max_len
+        self._frag_id = None  # the long message being reassembled
+        self._frags: dict[int, bytes] = {}
+
+    def _reassemble(self, buf: bytes):
+        """The whole message once its last missing fragment ``buf`` is in,
+        else None. A fragment of a newer message drops the partial one."""
+        _, msg_id, i, count = (int(v) for v in np.frombuffer(buf[:16], np.uint32))
+        if msg_id != self._frag_id:
+            self._frag_id, self._frags = msg_id, {}
+        self._frags[i] = buf[16:]
+        if len(self._frags) < count:
+            return None
+        data = b"".join(self._frags[k] for k in range(count))
+        self._frag_id, self._frags = None, {}
+        return decode(data)
 
     def receive(self, timeout_ms: int = 100):
-        """(tag, array) or None on timeout."""
-        n = self._lib.udp_recv(self._fd, self._buf, self._max_len, timeout_ms)
-        if n <= 0:
-            return None
-        return decode(self._buf.raw[:n])
+        """(tag, array) or None on timeout; a long message's fragments are
+        received within the same timeout each."""
+        while True:
+            n = self._lib.udp_recv(self._fd, self._buf, self._max_len, timeout_ms)
+            if n <= 0:
+                return None
+            buf = self._buf.raw[:n]
+            if n < 16 or np.frombuffer(buf[:4], np.uint32)[0] != FRAGMENT_MAGIC:
+                return decode(buf)
+            msg = self._reassemble(buf)
+            if msg is not None:
+                return msg
 
     def close(self):
         self._lib.udp_close(self._fd)

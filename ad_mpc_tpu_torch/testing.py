@@ -464,3 +464,67 @@ def routed_bicycle_inputs(B, N, device, seed=5):
     z[::2] = 0.0
     ps = pack(z, torch.ones(1))
     return dyn, xs, us, ps
+
+
+def mission_host_syncs(node, n_msgs):
+    """Step the mission ``node`` (its MPC on the card) through ``n_msgs``
+    hover messages with every host synchronisation a warning. Returns
+    (the node's fetches, QuadMPC's watchdog fetches, {site: count} of the
+    rest, optimized messages)."""
+    import collections
+    import inspect
+    import os
+    import warnings
+
+    import torch
+
+    from ad_mpc_tpu_torch.control import mpc as mpc_mod
+    from ad_mpc_tpu_torch.nodes import quad_node
+
+    src, first = inspect.getsourcelines(mpc_mod.QuadMPC.optimize)
+    watchdog = {first + i for i, line in enumerate(src) if "float(self._health" in line}
+    x = np.zeros(13)
+    x[2], x[3] = 1.0, 1.0
+    n0 = node.n_optimized
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as ws:
+            warnings.simplefilter("always")
+            for k in range(n_msgs):
+                node.step(x, 0.02 * k)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter((os.path.abspath(w.filename), w.lineno) for w in ws
+                                if "synchroniz" in str(w.message))
+    node_file = os.path.abspath(quad_node.__file__)
+    mpc_file = os.path.abspath(mpc_mod.__file__)
+    fetch = sum(n for (f, _), n in sites.items() if f == node_file)
+    wd = sum(n for (f, ln), n in sites.items() if f == mpc_file and ln in watchdog)
+    rest = {f"{os.path.basename(f)}:{ln}": n for (f, ln), n in sites.items()
+            if f != node_file and not (f == mpc_file and ln in watchdog)}
+    return fetch, wd, rest, node.n_optimized - n0
+
+
+def c2_tick_reference(B, device):
+    """The single-process c2 tick (``fleet.build_fleet``) at batch B on
+    ``device``: {u0 of its solve, the shifted warm start (next_xs,
+    next_us), the plant step x_next, the KKT mean in float64}, host arrays.
+    ``tick`` does not return u0: it is the u0 of the same solve re-run on
+    the same inputs (the kernels are deterministic; the KKT bits are
+    checked)."""
+    import torch
+
+    from ad_mpc_tpu_torch import fleet
+
+    tick, init, solver, spec = fleet.build_fleet(fleet.dynamic_bicycle,
+                                                 fleet.switch_on, device=device)
+    carry = init(B)
+    (x_next, _s, _v, _k, _p, nxt), (kkt, _lat) = tick(carry)
+    _s0, args = fleet.tick_inputs(carry, spec.n_nodes, spec.dt)
+    res = solver.solve(*args)
+    if not torch.equal(res.kkt_residual, kkt):
+        raise RuntimeError("c2 tick: the re-solve's bits differ from the tick's")
+    host = lambda t: t.cpu().numpy()
+    return {"u0": host(res.us[:, 0]), "next_xs": host(nxt.xs), "next_us": host(nxt.us),
+            "x_next": host(x_next), "kkt_mean": float(kkt.double().mean())}

@@ -1,8 +1,19 @@
-"""The experiments' result registry.
+"""Live visualization artists and the experiments' result registry (port
+of ``ad_mpc_tpu/utils/live_viz.py``).
 
-Port of ``ad_mpc_tpu/utils/live_viz.py:192-249``, ``ExperimentRegistry``
-alone, which the comparative sweep writes; the live plotters are not
-ported yet.
+- :class:`LiveQuadPlotter`: the drone animation of
+  ``ros_gp_mpc/src/utils/visualization.py:31-459``: persistent matplotlib
+  artists (the drone's arms and rotors, the flown trail, the reference path,
+  the MPC horizon) updated in place per frame; ``snapshot()`` writes a frame.
+- :class:`LiveVehiclePlotter`: the AD counterpart (footprint and heading,
+  track, horizon) of the RViz MarkerArray stream (``gp_ad_mpc_node.py:269-341``).
+- :class:`ExperimentRegistry`: the persistent ``metadata.json`` of RMSE and
+  opt-time means across runs, keyed by (trajectory, model, speed)
+  (``gp_mpc_node.py:556-599``).
+
+The plotters import matplotlib when they are made (headless, Agg, unless
+``interactive`` and a display), so that the module imports where matplotlib
+is missing; making a plotter there raises ``ImportError``.
 """
 
 from __future__ import annotations
@@ -10,6 +21,156 @@ from __future__ import annotations
 import json
 import os
 import threading
+
+import numpy as np
+import torch
+
+from ad_mpc_tpu_torch.utils.math import q_to_rot_mat
+
+
+def _plt(interactive: bool):
+    import matplotlib
+
+    if not interactive or not os.environ.get("DISPLAY"):
+        matplotlib.use("Agg", force=False)
+    import matplotlib.pyplot as plt
+
+    return plt
+
+
+class LiveQuadPlotter:
+    """Persistent-artist 3D drone animation."""
+
+    def __init__(self, world_rad: float = 3.0, arm_length: float = 0.24,
+                 trail_len: int = 400, interactive: bool = False):
+        plt = _plt(interactive)
+        self._plt = plt
+        self.interactive = interactive and bool(os.environ.get("DISPLAY"))
+        self.trail_len = trail_len
+        self.arm = arm_length
+
+        self.fig = plt.figure(figsize=(7, 6))
+        self.ax = self.fig.add_subplot(111, projection="3d")
+        self.ax.set_xlim(-world_rad, world_rad)
+        self.ax.set_ylim(-world_rad, world_rad)
+        self.ax.set_zlim(0, world_rad)
+        self.ax.set_xlabel("x [m]")
+        self.ax.set_ylabel("y [m]")
+        self.ax.set_zlabel("z [m]")
+
+        (self._ref_line,) = self.ax.plot([], [], [], "g--", lw=1, label="reference")
+        (self._trail_line,) = self.ax.plot([], [], [], "b-", lw=1, label="flown")
+        (self._pred_line,) = self.ax.plot([], [], [], "r-", lw=1.5,
+                                          label="MPC horizon")
+        (self._arm1,) = self.ax.plot([], [], [], "k-", lw=2)
+        (self._arm2,) = self.ax.plot([], [], [], "k-", lw=2)
+        self._rotors = self.ax.scatter([], [], [], c="k", s=12)
+        self.ax.legend(loc="upper right")
+        self._trail: list[np.ndarray] = []
+        if self.interactive:
+            plt.ion()
+            self.fig.show()
+
+    def set_reference(self, traj):
+        traj = np.asarray(traj)
+        self._ref_line.set_data(traj[:, 0], traj[:, 1])
+        self._ref_line.set_3d_properties(traj[:, 2])
+
+    def update(self, x, pred_xs=None):
+        """One frame: the 13D state x and optionally the (H, 13) prediction."""
+        x = np.asarray(x)
+        p, q = x[:3], x[3:7]
+        R = q_to_rot_mat(torch.as_tensor(q, dtype=torch.float64)).numpy()
+        h = self.arm
+        # The x-configuration's arm tips, body frame -> world.
+        tips = (R @ np.array([[h, -h, -h, h], [-h, -h, h, h],
+                              [0.0, 0.0, 0.0, 0.0]])).T + p
+        self._arm1.set_data([tips[0, 0], tips[2, 0]], [tips[0, 1], tips[2, 1]])
+        self._arm1.set_3d_properties([tips[0, 2], tips[2, 2]])
+        self._arm2.set_data([tips[1, 0], tips[3, 0]], [tips[1, 1], tips[3, 1]])
+        self._arm2.set_3d_properties([tips[1, 2], tips[3, 2]])
+        self._rotors._offsets3d = (tips[:, 0], tips[:, 1], tips[:, 2])
+
+        self._trail.append(p.copy())
+        if len(self._trail) > self.trail_len:
+            self._trail.pop(0)
+        tr = np.asarray(self._trail)
+        self._trail_line.set_data(tr[:, 0], tr[:, 1])
+        self._trail_line.set_3d_properties(tr[:, 2])
+        if pred_xs is not None:
+            pr = np.asarray(pred_xs)
+            self._pred_line.set_data(pr[:, 0], pr[:, 1])
+            self._pred_line.set_3d_properties(pr[:, 2])
+        if self.interactive:
+            self.fig.canvas.draw_idle()
+            self.fig.canvas.flush_events()
+
+    def snapshot(self, path: str):
+        self.fig.canvas.draw()
+        self.fig.savefig(path, dpi=90)
+        return path
+
+    def close(self):
+        self._plt.close(self.fig)
+
+
+class LiveVehiclePlotter:
+    """Persistent-artist 2D vehicle animation (the RViz marker role)."""
+
+    def __init__(self, track_xy=None, interactive: bool = False,
+                 trail_len: int = 600, length: float = 4.5, width: float = 1.9):
+        plt = _plt(interactive)
+        self._plt = plt
+        self.interactive = interactive and bool(os.environ.get("DISPLAY"))
+        self.trail_len = trail_len
+        self.L, self.W = length, width
+
+        self.fig, self.ax = plt.subplots(figsize=(7, 6))
+        self.ax.set_aspect("equal")
+        if track_xy is not None:
+            t = np.asarray(track_xy)
+            self.ax.plot(t[:, 0], t[:, 1], "g--", lw=1, label="track")
+        (self._trail_line,) = self.ax.plot([], [], "b-", lw=1, label="driven")
+        (self._pred_line,) = self.ax.plot([], [], "r-", lw=1.5, label="MPC horizon")
+        (self._body,) = self.ax.plot([], [], "k-", lw=2)
+        self.ax.legend(loc="upper right")
+        self._trail: list[np.ndarray] = []
+        if self.interactive:
+            plt.ion()
+            self.fig.show()
+
+    def update(self, x, pred_xs=None):
+        """x: the 7D bicycle state; pred_xs: optionally the (H, 7) prediction."""
+        x = np.asarray(x)
+        px, py, psi = x[0], x[1], x[2]
+        c, s = np.cos(psi), np.sin(psi)
+        hl, hw = self.L / 2, self.W / 2
+        corners = np.array([[hl, hw], [hl, -hw], [-hl, -hw], [-hl, hw], [hl, hw],
+                            [hl * 1.4, 0.0], [hl, -hw]])  # the nose marks the heading
+        world = corners @ np.array([[c, s], [-s, c]]) + [px, py]
+        self._body.set_data(world[:, 0], world[:, 1])
+
+        self._trail.append(np.array([px, py]))
+        if len(self._trail) > self.trail_len:
+            self._trail.pop(0)
+        tr = np.asarray(self._trail)
+        self._trail_line.set_data(tr[:, 0], tr[:, 1])
+        if pred_xs is not None:
+            pr = np.asarray(pred_xs)
+            self._pred_line.set_data(pr[:, 0], pr[:, 1])
+        self.ax.relim()
+        self.ax.autoscale_view()
+        if self.interactive:
+            self.fig.canvas.draw_idle()
+            self.fig.canvas.flush_events()
+
+    def snapshot(self, path: str):
+        self.fig.canvas.draw()
+        self.fig.savefig(path, dpi=90)
+        return path
+
+    def close(self):
+        self._plt.close(self.fig)
 
 
 class ExperimentRegistry:

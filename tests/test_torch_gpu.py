@@ -1187,3 +1187,64 @@ def test_routed_one_cluster_tick_matches_gp_quad_tick(cuda):
     want = make_vde(GPQuadDynamics(ens), 0.1, 10, 13, 4, 0, device=cuda)(
         xs, us, torch.zeros((64, 0), device=cuda))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_mission_launches_and_host_syncs_on_card(cuda):
+    """QuadMissionNode on the card, 12 hover messages (6 optimized): per
+    solve one VDE, one LQ and one RK4 launch (the cold start adds the
+    N=10 rollout), and per optimized message two fetches: the node's one
+    copy of u0 and the predicted states, and QuadMPC's watchdog."""
+    from ad_mpc_tpu_torch.nodes.quad_node import QuadMissionNode
+    from ad_mpc_tpu_torch.testing import mission_host_syncs
+
+    node = QuadMissionNode(device=cuda)
+    fetch, watchdog, rest, n = mission_host_syncs(node, 12)
+    s = node.mpc.solver
+    assert n == 6 and fetch == n and watchdog == n, (fetch, watchdog, rest)
+    assert (s.vde.launches, s.qp.launches, s.rk4.launches) == (6, 6, 16)
+    assert node.last_xs.shape == (11, 13) and np.isfinite(node.last_xs).all()
+
+
+def test_one_rank_nccl_fleet_has_the_single_process_bits(cuda, tmp_path):
+    """``multihost --procs 1`` through an nccl group at c2's N=30 and a
+    batch of 1024: the rank's u0, shifted warm start and plant step equal
+    the single-process tick's bit for bit; 2 timed ticks plus the first."""
+    from ad_mpc_tpu_torch.parallel.multihost import launch, parse_line
+    from ad_mpc_tpu_torch.testing import c2_tick_reference
+
+    ref = c2_tick_reference(1024, cuda)
+    f = parse_line(launch(procs=1, batch=1024, nodes=30, qp_iters=12, ticks=2,
+                          device="cuda", scenario="c2", dump=str(tmp_path), timeout=300))
+    got = np.load(tmp_path / "rank0.npz")
+    assert f["backend"] == "nccl" and f["launches"] == "vde:3,lq_ipm:3,rk4:4"
+    for k in ("u0", "next_xs", "next_us", "x_next"):
+        assert np.array_equal(got[k], ref[k]), k
+    assert abs(float(f["kkt0"]) - ref["kkt_mean"]) <= 1e-6 * ref["kkt_mean"]
+
+
+@pytest.mark.parametrize("delay", [0, 1])
+def test_result_delay_sets_the_age_on_card(cuda, delay):
+    """The pipelined AD node on the card: a result is back within its
+    20 ms tick, published one tick after its solve; held one tick more
+    with ``result_delay_ticks=1`` (the JAX rows' age of 2)."""
+    import time
+
+    from ad_mpc_tpu_torch.nodes.ad_node import ADControllerNode
+
+    node = ADControllerNode(n_nodes=20, pipelined=True, result_delay_ticks=delay,
+                            state_port=48760, control_port=48761,
+                            waypoint_port=48762, status_port=48763, device=cuda)
+    try:
+        node.warmup()
+        n = 80
+        node.ref_gen.set_traj(np.linspace(0.0, 80.0, n), np.zeros(n), np.zeros(n),
+                              np.full(n, 8.0))
+        x = np.zeros(7)
+        x[3] = 8.0
+        for _ in range(20):
+            node.control_tick(x)
+            time.sleep(0.02)
+    finally:
+        node.close()
+    assert np.percentile(node.result_age, 50) == 1 + delay
+    assert min(node.result_age) == 1 + delay

@@ -5,7 +5,8 @@ library built under ``build/``, the safety shell's brake streak
 (``tests/test_safety.py:test_unsafe_streak_continuously_brakes_plant``)
 and a short in-process two-node loop on the plain backend.
 
-Ports 48331-48332 and 49620-49667: none of the JAX tests' or ``topics.py``'s,
+Ports 48331-48332, 48750-48753 and 49620-49667: none of the JAX tests' or
+``topics.py``'s,
 since the test files run side by side.
 """
 
@@ -200,6 +201,35 @@ def test_deployment_loop_on_the_plain_backend(pipelined):
     assert d["launches"] == {"vde": 0, "lq_ipm": 0, "rk4": 0}
     if pipelined:
         assert d["result_age_max_ticks"] >= d["result_age_p50_ticks"] >= 1
+
+
+@pytest.mark.parametrize("delay", [0, 1, 2])
+def test_result_delay_sets_the_published_age(delay):
+    """Pipelined, each result is back within its tick here: published one
+    tick after its solve, or 1 + ``result_delay_ticks`` with the delay."""
+    from ad_mpc_tpu_torch.nodes.ad_node import ADControllerNode
+
+    node = ADControllerNode(
+        rate_hz=50.0, n_nodes=8, t_horizon=0.4, qp_iters=4, pipelined=True,
+        lag_compensation=False, result_delay_ticks=delay, state_port=48750,
+        control_port=48751, waypoint_port=48752, status_port=48753, device="cpu")
+    try:
+        n = 80
+        node.ref_gen.set_traj(np.linspace(0.0, 80.0, n), np.zeros(n),
+                              np.zeros(n), np.full(n, 8.0))
+        x = np.zeros(7)
+        x[3] = 8.0
+        for _ in range(8):
+            node.control_tick(x)
+            for _ in range(100):  # let the fetch thread take the result
+                if node._done and node._done[-1][0] == node.n_solves:
+                    break
+                time.sleep(0.01)
+    finally:
+        node.close()
+    assert node.result_age == [1 + delay] * (8 - 1 - delay)
+    with pytest.raises(ValueError, match="only pipelined"):
+        ADControllerNode(result_delay_ticks=1, device="cpu")
 
 
 @pytest.mark.slow
