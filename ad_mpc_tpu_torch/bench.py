@@ -150,7 +150,7 @@ def lag_comp_ab(rows, sfx="_delay1"):
     in ``rows``: each row's RMSE, result age at p50 and unsafe ticks, and
     whether lag compensation beat none (the JAX package's result, 2.780
     against 0.160 m behind its 24 ms link). A reported verdict, not a gate
-    (ROADMAP Queue C 2)."""
+    (ROADMAP's open question on the reference's lag-compensation rows)."""
     ab = {k: {f: rows[f"deployment_aggr_{k}{sfx}"].get(f) for f in (
         "tracking_rmse_m", "result_age_p50_ticks", "result_age_max_ticks",
         "n_unsafe_ticks")} for k in ("lagcomp", "nolagcomp")}

@@ -28,10 +28,11 @@ from ad_mpc_tpu_torch.models.bicycle import (
     blend_switch,
 )
 from ad_mpc_tpu_torch.models.gp_quad import (
-    GPQuadDualDynamics, GPQuadDynamics, dual_gp_rows)
+    GP_QUAD_POINTS, GPQuadDualDynamics, GPQuadDynamics, GPQuadSelectDynamics,
+    dual_gp_rows)
 from ad_mpc_tpu_torch.models.quadrotor import (
-    QuadDragDynamics, QuadDynamics, QuadrotorParams, quad_drag_rows,
-    quad_dynamics_lane)
+    QuadDragDynamics, QuadDynamics, QuadrotorParams, drag_matrix,
+    quad_drag_rows, quad_dynamics_lane)
 from ad_mpc_tpu_torch.ocp.solver import SolverState, SQPSolver, resolve_backend
 from ad_mpc_tpu_torch.ocp.spec import OCPSpec
 
@@ -234,8 +235,7 @@ class QuadModel(nn.Module):
                  ensemble: Optional[GPEnsemble] = None):
         super().__init__()
         self.params, self.residual_fn, self.ensemble = params, residual_fn, ensemble
-        self.D = (None if rdrv_d is None else
-                  [[float(v) for v in row] for row in np.asarray(rdrv_d, float)])
+        self.D = None if rdrv_d is None else drag_matrix(rdrv_d)
         self.p_dim = 0 if ensemble is None else 1 + 2 * len(ensemble.out_idx)
 
     def forward(self, x, u, p):
@@ -254,25 +254,34 @@ def quad_dynamics_for(params: QuadrotorParams = QuadrotorParams(), rdrv_d=None,
     """The dynamics of a QuadMPC mode: the one with a CUDA functor where the
     mode has one, else :class:`QuadModel` (plain backend only).
 
-    ============================================  ==========================
-    mode                                          dynamics (functor)
-    ============================================  ==========================
-    nominal                                       QuadDynamics (QuadDyn)
-    ``rdrv_d=D``                                  QuadDragDynamics
-    ``residual_fn=quad_residual_fn(ens)``, one    GPQuadDynamics (GPQuadDyn:
-    cluster                                       the cluster is 0 at every
-                                                  evaluation)
-    ``ensemble=ens``                              GPQuadDualDynamics
-    ============================================  ==========================
+    ==============================================  ========================
+    mode                                            dynamics (functor)
+    ==============================================  ========================
+    nominal                                         QuadDynamics (QuadDyn)
+    ``rdrv_d=D``                                    QuadDragDynamics
+    ``residual_fn=quad_residual_fn(ens)``, one      GPQuadDynamics
+    cluster on the velocity layout (7, 8, 9)        (GPQuadDyn)
+    ``residual_fn=quad_residual_fn(ens, c)``, any   GPQuadSelectDynamics
+    other (the nearest centroid at every            (GPQuadSelectDyn)
+    evaluation, or the clusters c pinned), and any
+    of these with ``rdrv_d=D``
+    ``ensemble=ens``, with or without ``rdrv_d=D``  GPQuadDualDynamics
+    any other ``residual_fn``, or ``residual_fn``   QuadModel (plain only)
+    with ``ensemble``
+    ==============================================  ========================
     """
     if residual_fn is None and ensemble is None:
         return (QuadDynamics(params) if rdrv_d is None
                 else QuadDragDynamics(rdrv_d, params))
-    if rdrv_d is None and residual_fn is None:
-        return GPQuadDualDynamics(ensemble, params)
-    if (rdrv_d is None and ensemble is None and isinstance(residual_fn, QuadResidual)
-            and residual_fn.ensemble.n_clusters == 1):
-        return GPQuadDynamics(residual_fn.ensemble, params)
+    if residual_fn is None:
+        return GPQuadDualDynamics(ensemble, params, rdrv_d)
+    if ensemble is None and isinstance(residual_fn, QuadResidual):
+        ens = residual_fn.ensemble
+        if (rdrv_d is None and ens.n_clusters == 1
+                and tuple(ens.out_idx) == tuple(ens.feat_idx) == (7, 8, 9)
+                and ens.x_train.shape[2] <= GP_QUAD_POINTS):
+            return GPQuadDynamics(ens, params)
+        return GPQuadSelectDynamics(ens, params, residual_fn.fixed_cluster, rdrv_d)
     return QuadModel(params, rdrv_d, residual_fn, ensemble)
 
 
@@ -292,9 +301,8 @@ class QuadMPC:
     tensor and fetched when it is read.
 
     ``device``/``backend``/``dtype`` are the solver's. On ``backend="cuda"``
-    a mode without a functor (any other combination of ``rdrv_d``,
-    ``residual_fn`` and ``ensemble``, a residual other than
-    ``quad_residual_fn`` of a one-cluster ensemble) raises
+    a mode without a functor (a ``residual_fn`` other than
+    ``quad_residual_fn``, or ``residual_fn`` with ``ensemble``) raises
     ``NotImplementedError``; the plain backend takes them all.
     """
 
@@ -314,11 +322,10 @@ class QuadMPC:
         if (resolve_backend(backend, device) == "cuda"
                 and getattr(dyn, "cuda_entry", None) is None):
             raise NotImplementedError(
-                "QuadMPC on backend='cuda' runs the nominal, rdrv_d, "
-                "quad_residual_fn of a one-cluster ensemble and ensemble "
-                "modes alone; this combination needs a functor that picks the "
-                "cluster at every evaluation (ROADMAP Queue B1 (c)) or "
-                "backend='plain'")
+                "QuadMPC on backend='cuda' has a functor for every mode but a "
+                "residual_fn other than quad_residual_fn (the JAX package "
+                "traces any callable) and residual_fn together with ensemble "
+                "(ROADMAP Queue A 8); use backend='plain' for these")
         self.solver = SQPSolver(self.spec, dyn, p_dim=dyn.p_dim, dtype=dtype,
                                 device=device, backend=backend)
         N = self.spec.n_nodes

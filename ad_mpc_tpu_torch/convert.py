@@ -15,6 +15,24 @@ rows was written so, from the repository's root, on a machine with JAX:
         from ad_mpc_tpu_torch.convert import save_gp_ensemble; \
         save_gp_ensemble(load_model('gp_flagship_c1'), \
                          'ad_mpc_tpu_torch/data/gp_flagship_c1.npz')"
+
+The two-cluster candidate beside it (``gp_flagship_c2.npz``) was fitted on
+a CPU by the JAX package's own steps (``experiments/gp_flagship.py:74-104``)
+on the committed recording and written so:
+
+    JAX_PLATFORMS=cpu python -c "from ad_mpc_tpu.utils import io; \
+        from ad_mpc_tpu.learned.dataset import ResidualDataset; \
+        from ad_mpc_tpu.learned.fitting import fit_gp_ensemble; \
+        from ad_mpc_tpu_torch.convert import save_gp_ensemble; \
+        a = io.load_arrays('results/experiments/gp_flagship/dataset'); \
+        ds = ResidualDataset.from_rollouts(a['x_in'], a['u'], a['x_out'], \
+                                           a['x_pred'], a['dt']); \
+        train, _ = ds.prune(vel_cap=20.0, hist_thresh=1e-3, \
+                            vel_idx=(7, 8, 9)).split(test_frac=0.2, seed=0); \
+        save_gp_ensemble(fit_gp_ensemble(train, out_idx=(7, 8, 9), \
+                                         feat_idx=(7, 8, 9), n_clusters=2, \
+                                         n_points=60, n_restarts=3, seed=0), \
+                         'ad_mpc_tpu_torch/data/gp_flagship_c2.npz')"
 """
 
 from __future__ import annotations

@@ -78,8 +78,9 @@
 // its own (ops/_build.py compiles them in parallel): vde_bicycle.cu
 // (BicycleDyn, PacejkaDyn), vde_gp_bicycle.cu (GPBicycleDyn, GPRoutedDyn),
 // vde_quad.cu (QuadDyn, QuadDragDyn), vde_gp_quad.cu (GPQuadDyn),
-// vde_gp_quad_routed.cu (GPQuadRoutedDyn) and vde_gp_quad_dual.cu
-// (GPQuadDualDyn).
+// vde_gp_quad_routed.cu (GPQuadRoutedDyn), vde_gp_quad_dual.cu
+// (GPQuadDualDyn), vde_gp_quad_dual_drag.cu (GPQuadDualDragDyn) and
+// vde_gp_quad_select.cu (GPQuadSelectDyn).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC vde_<family>.cu (no --use_fast_math: IEEE
@@ -249,7 +250,8 @@ DI float value(const Dual<NT>& a) { return a.v; }
 
 // ------------------------------------------------------------- functor traits
 
-// A functor with a table in dynamic shared memory (GPQuadDualDyn): the
+// A functor with a table in dynamic shared memory (GPQuadDualDyn,
+// GPQuadSelectDyn): the
 // kernels stage it after their own shared memory and hand each thread's
 // context its address.
 template <class Dyn, class = void>
@@ -668,6 +670,21 @@ static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
                            N, nx, nu, pd, defect, dt, rk4_steps, Dyn{params}, \
                            stream);                                          \
   }
+
+// Let a dyn_table functor's kernels take the shared memory of its largest
+// table (`table` floats; at the library's first load, so that no launch
+// sets an attribute and a launch may be captured in a CUDA graph).
+template <class Dyn>
+static cudaError_t prepare_table(int table) {
+  const int vde_bytes = (int)(sizeof(float) * (Dyn::ROW_WARPS * (vde_tile<Dyn>() +
+                                                                 WARP * Dyn::CACHE_FLOATS) +
+                                               table));
+  const cudaError_t err = cudaFuncSetAttribute(
+      vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize, vde_bytes);
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(rk4_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(sizeof(float) * table));
+}
 
 // Let a dyn_rows functor's kernels take the most dynamic shared memory the
 // device allows (at the library's first load, so that no launch sets an

@@ -259,3 +259,97 @@ DI void gp_quad_jacobian(const float* q, const float* v, float (*R)[3],
                 (H[r][0] * dvb[0] + H[r][1] * dvb[1] + H[r][2] * dvb[2]);
   }
 }
+
+// ------------------------------------------------------------- GP quads' tables
+
+// Capacity of the table of every cluster that GPQuadDualDyn and
+// GPQuadSelectDyn stage into dynamic shared memory: clusters, and clusters
+// x points of each output dim.
+constexpr int GP_DUAL_CLUSTERS = 16, GP_DUAL_POINTS = 512;
+// Floats of the largest such table (gp_dual_table_floats at the capacity).
+constexpr int GP_DUAL_TABLE_MAX = 3 * (4 * GP_DUAL_POINTS + 4 * GP_DUAL_CLUSTERS);
+
+// The table of GPQuadDualDyn, as the wrapper lays it out in device memory
+// and each block copies it to shared memory, padded to the 3 body
+// velocities as outputs and features (an unused output has a = 0 and
+// y_mean = 0, an unused feature 1/l = 0: exact zeros that leave the used
+// dims' arithmetic as it is): X (3, C, n, 3), a = k_inv_y sigma_f
+// (3, C, n), 1/l (3, C, 3), y_mean (3, C). GPQuadSelectDyn's table appends
+// the centroids (3, C, 3).
+struct GPDualTable {
+  const float* base;
+  int clusters, n;
+  DI const float* X(int d, int c) const { return base + (d * clusters + c) * n * 3; }
+  DI const float* a(int d, int c) const {
+    return base + 9 * clusters * n + (d * clusters + c) * n;
+  }
+  DI const float* inv_l(int d, int c) const {
+    return base + 12 * clusters * n + (d * clusters + c) * 3;
+  }
+  DI float y_mean(int d, int c) const {
+    return base[12 * clusters * n + 9 * clusters + d * clusters + c];
+  }
+  DI const float* centroids(int d) const {
+    return base + 12 * clusters * n + 12 * clusters + d * clusters * 3;
+  }
+};
+__host__ __device__ constexpr int gp_dual_table_floats(int clusters, int n) {
+  return 3 * clusters * (4 * n + 4);
+}
+
+// The RDRv drag beside a GP quad's residual (QuadMPC with rdrv_d and a GP
+// mode), by value in the functor's struct: on, and the 3x3 matrix D.
+struct QuadDragOptC {
+  int on;
+  float D[3][3];
+};
+
+// A GP quad's velocity rows: x_dot[7:10] plus, where the drag is on, the
+// RDRv drag t = R D v_b (w = D v_b, t = R w: the order of
+// models/quadrotor.py:quad_drag_rows), then the residual res = R mu, the
+// order of ad_mpc_tpu/control/mpc.py (quad_dynamics(rdrv_d=D), then the
+// residual). Both are float functions of (q, v) with values at the primal;
+// a dual takes their values and the Jacobian of their sum, the Jacobian
+// being linear in (mu, G): one gp_quad_jacobian of (mu + D v_b, G + D),
+// lifted by one contraction. vb = R^T v at the primal.
+template <class T>
+DI void gp_quad_rows(const T* x, const float* q, const float* v, float (*R)[3],
+                     const float* vb, const float* mu, float (*g)[GP_QUAD_FEATS],
+                     const QuadDragOptC& drag, T* xd) {
+  float res[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) res[r] = R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2];
+  float m[3], G[3][GP_QUAD_FEATS];
+#pragma unroll
+  for (int d = 0; d < 3; ++d) {
+    m[d] = mu[d];
+#pragma unroll
+    for (int k = 0; k < GP_QUAD_FEATS; ++k) G[d][k] = g[d][k];
+  }
+  if (drag.on) {
+    float w[3];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      w[r] = drag.D[r][0] * vb[0] + drag.D[r][1] * vb[1] + drag.D[r][2] * vb[2];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+      xd[7 + r] = xd[7 + r] + (R[r][0] * w[0] + R[r][1] * w[1] + R[r][2] * w[2]);
+    if constexpr (!std::is_same<T, float>::value) {
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        m[d] = m[d] + w[d];
+#pragma unroll
+        for (int k = 0; k < GP_QUAD_FEATS; ++k) G[d][k] = G[d][k] + drag.D[d][k];
+      }
+    }
+  }
+  if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + res[r];
+  } else {
+    float J[3][7];
+    gp_quad_jacobian(q, v, R, m, G, J);
+#pragma unroll
+    for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + gp_lift<7>(res[r], J[r], x + 3);
+  }
+}

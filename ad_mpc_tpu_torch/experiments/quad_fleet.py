@@ -51,6 +51,9 @@ RTI_GATE = 1e-3  # max |u0_deployed - u0_converged|, c5 and c6
 # (results/model_fitting/256298c/gp_flagship_c1), carried across by
 # ``convert.save_gp_ensemble``.
 FITTED_NPZ = Path(__file__).resolve().parents[1] / "data" / "gp_flagship_c1.npz"
+# The JAX package's two-cluster candidate of the same fit (its
+# gp_flagship.stage_fit fits one every time), carried across likewise.
+FITTED_C2_NPZ = FITTED_NPZ.with_name("gp_flagship_c2.npz")
 # The flagship's fitted RDRv drag matrix (a copy of the JAX package's
 # results/experiments/gp_flagship/rdrv_d.npy).
 FITTED_RDRV = FITTED_NPZ.with_name("rdrv_d.npy")
@@ -124,6 +127,13 @@ def fitted_ensemble() -> GPEnsemble:
     """The fitted ``gp_flagship_c1`` ensemble (1 cluster, 60 points) of the
     bench's c6-fitted rows (``bench.py:833-854``)."""
     return load_npz(FITTED_NPZ)
+
+
+def fitted_ensemble_c2() -> GPEnsemble:
+    """The JAX package's fitted two-cluster candidate ``gp_flagship_c2`` (2
+    clusters of 60 points per output, on the committed recording): the
+    clustered GP of QuadMPC's ``quad_residual_fn`` rows."""
+    return load_npz(FITTED_C2_NPZ)
 
 
 def fitted_rdrv_d() -> np.ndarray:

@@ -3,7 +3,8 @@
 Port of ``ad_mpc_tpu/learned/lane.py``. Baked: the posterior mean of one
 (output dim, cluster) GP with its training set as constants, evaluated on
 entries of any shape, the residual rows of the bicycle layout and the
-quadrotor's body-frame residual. Parameter-routed: each scenario's
+quadrotor's body-frame residual, of one cluster or, per evaluation, of the
+nearest centroid. Parameter-routed: each scenario's
 selected cluster rides in its parameter row, gathered outside the
 dynamics by nearest centroid (:func:`gather_cluster_params`, and the
 fleet-batched ``pack`` of :func:`param_residual_dynamics`), so that one
@@ -92,6 +93,67 @@ def quad_lane_residual_terms(ens: GPEnsemble, x, cluster=0) -> dict:
     v_b = [R[0][r] * v[0] + R[1][r] * v[1] + R[2][r] * v[2] for r in range(3)]
     mu_b = [lane_gp_mean(*_ens_cluster(ens, k, cluster), v_b) for k in range(3)]
     return {7 + r: R[r][0] * mu_b[0] + R[r][1] * mu_b[1] + R[r][2] * mu_b[2]
+            for r in range(3)}
+
+
+def centroid_dists(centroids, z) -> list:
+    """The squared distance of the features z (d entries) to each centroid
+    of ``centroids`` (C, d; host constants rounded to z's type), summed over
+    the features in order, each product and sum rounded on its own (the
+    kernels' ``nearest_cluster``)."""
+    cen = torch.as_tensor(np.asarray(centroids), dtype=z[0].dtype, device=z[0].device)
+    out = []
+    for c in range(cen.shape[0]):
+        t = [cen[c, j] - zj for j, zj in enumerate(z)]
+        d2 = t[0] * t[0]
+        for tj in t[1:]:
+            d2 = d2 + tj * tj
+        out.append(d2)
+    return out
+
+
+def nearest_mean(centroids, means, z):
+    """The mean of the nearest centroid at the features z, entrywise
+    (``means``: one entry per cluster): the first strict minimum of
+    :func:`centroid_dists` in cluster order, picked by ``torch.where`` as
+    ``argmin`` picks it (a NaN distance never wins), so that the choice
+    carries no derivative, as JAX's ``jacfwd`` through an integer index."""
+    d2 = centroid_dists(centroids, z)
+    best, m = d2[0], means[0]
+    for c in range(1, len(means)):
+        take = d2[c] < best
+        m = torch.where(take, means[c], m)
+        best = torch.where(take, d2[c], best)
+    return m
+
+
+def quad_select_residual_terms(ens: GPEnsemble, x, pin=None,
+                               choose=nearest_mean) -> dict:
+    """The quadrotor's clustered body-frame GP residual of
+    ``quad_residual_fn(ens, fixed_cluster)``
+    (``ad_mpc_tpu/learned/ensemble.py:216-244``), entrywise: the features
+    are ``x[feat_idx]`` with the velocities rotated into the body frame,
+    ``R(q)^T v``; each output k takes the cluster ``pin[k]``, or, with no
+    pin, the nearest centroid at every evaluation (``choose(centroids,
+    means, z)``, :func:`nearest_mean`); its mean on the body velocity
+    ``out_idx[k] - 7`` (zeros on the others) is rotated back,
+    ``{7 + r: (R(q) mu)_r}``. The plain version of the ``GPQuadSelectDyn``
+    functor."""
+    if not set(ens.out_idx) <= {7, 8, 9}:
+        raise ValueError(f"the quad residual corrects the velocity rows 7-9 "
+                         f"only; got out_idx={ens.out_idx}")
+    R = _rot_rows(x)
+    v_b = [R[0][k] * x[7] + R[1][k] * x[8] + R[2][k] * x[9] for k in range(3)]
+    z = [v_b[i - 7] if i in (7, 8, 9) else x[i] for i in ens.feat_idx]
+    mu = [torch.zeros_like(x[7])] * 3
+    for k, dim in enumerate(ens.out_idx):
+        if pin is not None:
+            mu[dim - 7] = lane_gp_mean(*_ens_cluster(ens, k, pin[k]), z)
+        else:
+            means = [lane_gp_mean(*_ens_cluster(ens, k, c), z)
+                     for c in range(ens.n_clusters)]
+            mu[dim - 7] = choose(ens.centroids[k], means, z)
+    return {7 + r: R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2]
             for r in range(3)}
 
 

@@ -1,5 +1,7 @@
-"""The GP-augmented quadrotors: bench config c6 and QuadMPC's dual-state
-GP (:class:`GPQuadDualDynamics`, below).
+"""The GP-augmented quadrotors: bench config c6, QuadMPC's dual-state GP
+(:class:`GPQuadDualDynamics`) and its clustered ``quad_residual_fn``
+(:class:`GPQuadSelectDynamics`), the last two with the RDRv drag where
+asked (below).
 
 The counterpart of the dynamics closure that
 ``ad_mpc_tpu/experiments/quad_fleet.py:110-121`` builds from an ensemble:
@@ -27,9 +29,11 @@ from torch import nn
 
 from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble
 from ad_mpc_tpu_torch.learned.lane import (
-    _ens_cluster, _rot_rows, add_rows, lane_gp_mean, quad_lane_residual_terms)
+    _ens_cluster, _rot_rows, add_rows, lane_gp_mean, quad_lane_residual_terms,
+    quad_select_residual_terms)
 from ad_mpc_tpu_torch.models.quadrotor import (
-    NU, NX, QuadDynamics, QuadParamsC, QuadrotorParams, quad_dynamics_lane)
+    NU, NX, QuadDynamics, QuadParamsC, QuadrotorParams, drag_matrix,
+    quad_drag_rows, quad_dynamics_lane)
 from ad_mpc_tpu_torch.ops import _build
 
 # Capacity of the functor's table (GP_QUAD_POINTS, GP_QUAD_DIMS,
@@ -118,18 +122,65 @@ class GPQuadDynamics(nn.Module):
         return s
 
 
-# Capacity of GPQuadDualDyn's table (GP_DUAL_CLUSTERS, GP_DUAL_POINTS of
-# csrc/vde_gp_quad_dual.cu): clusters, and clusters x points per output dim.
+# Capacity of the tables of GPQuadDualDyn and GPQuadSelectDyn
+# (GP_DUAL_CLUSTERS, GP_DUAL_POINTS of csrc/vde_models.cuh): clusters, and
+# clusters x points per output dim.
 GP_DUAL_CLUSTERS, GP_DUAL_POINTS = 16, 512
 BODY_VELOCITIES = (7, 8, 9)
+
+
+def gp_quad_table(ens: GPEnsemble, functor: str, centroids: bool = False) -> np.ndarray:
+    """The padded table of every cluster that the ``functor`` (the
+    ``GPQuadDualDyn`` or ``GPQuadSelectDyn`` of ``csrc/``) stages, as
+    float32 numpy: X (3, C, n, 3), a = k_inv_y sigma_f (3, C, n), 1/l
+    (3, C, 3), y_mean (3, C), flat, by body velocity; zeros on the outputs
+    and features that the ensemble does not have. With ``centroids``, then
+    the centroids (3, C, 3), each output's in the ensemble's feature order.
+    Refuses a layout the functor cannot hold."""
+    D, C, n, d = ens.x_train.shape
+    out, feat = tuple(ens.out_idx), tuple(ens.feat_idx)
+    body = set(BODY_VELOCITIES)
+    if (not set(out) <= body or not set(feat) <= body
+            or len(set(out)) != D or len(set(feat)) != d):
+        raise ValueError(
+            f"the {functor} functor serves distinct out_idx and "
+            f"feat_idx within {BODY_VELOCITIES}; got out_idx={out}, "
+            f"feat_idx={feat}")
+    if C > GP_DUAL_CLUSTERS or C * n > GP_DUAL_POINTS:
+        raise ValueError(
+            f"the {functor} functor holds {GP_DUAL_CLUSTERS} clusters "
+            f"and {GP_DUAL_POINTS} points per output over all clusters; "
+            f"got {C} clusters of {n} points ({C * n})")
+    X = np.zeros((3, C, n, 3))
+    a = np.zeros((3, C, n))
+    inv_l = np.zeros((3, C, 3))
+    y_mean = np.zeros((3, C))
+    cen = np.zeros((3, C, 3))
+    cols = [dim - 7 for dim in feat]
+    for k, dim in enumerate(out):
+        r = dim - 7
+        X[r][..., cols] = ens.x_train[k]
+        a[r] = ens.k_inv_y[k] * ens.sigma_f[k][:, None]
+        inv_l[r][..., cols] = 1.0 / ens.len_scale[k]
+        y_mean[r] = ens.y_mean[k]
+        cen[r][..., :d] = ens.centroids[k]
+    parts = (X, a, inv_l, y_mean) + ((cen,) if centroids else ())
+    return np.concatenate([t.ravel() for t in parts]).astype(np.float32)
+
+
+class QuadDragOptC(ctypes.Structure):
+    """``QuadDragOptC`` of ``csrc/vde_models.cuh``: the RDRv drag beside a GP
+    quad's residual, on or off, and D, row-major, rounded once to float32."""
+
+    _fields_ = [("on", ctypes.c_int), ("D", (ctypes.c_float * 3) * 3)]
 
 
 class GPQuadDualParamsC(ctypes.Structure):
     """``GPQuadDualParamsC`` of ``csrc/vde_gp_quad_dual.cu``, passed to the kernel by
     value: the quad's scalars, the device address of the padded table
-    (:meth:`GPQuadDualDynamics.cuda_table`), its clusters and points per
-    cluster, the ensemble's D and, per body velocity, its output's place
-    in p (or -1)."""
+    (:func:`gp_quad_table`), its clusters and points per cluster, the
+    ensemble's D, per body velocity its output's place in p (or -1), and
+    the drag."""
 
     _fields_ = [
         ("quad", QuadParamsC),
@@ -138,6 +189,27 @@ class GPQuadDualParamsC(ctypes.Structure):
         ("n", ctypes.c_int),
         ("d_out", ctypes.c_int),
         ("slot", ctypes.c_int * 3),
+        ("drag", QuadDragOptC),
+    ]
+
+
+class GPQuadSelectParamsC(ctypes.Structure):
+    """``GPQuadSelectParamsC`` of ``csrc/vde_gp_quad_select.cu``, passed to the
+    kernel by value: the quad's scalars, the device address of the padded
+    table with the centroids, its clusters and points per cluster, the
+    ensemble's features (d, and the body velocity of each), per body
+    velocity its pinned cluster (or -1: the nearest centroid), and the
+    drag."""
+
+    _fields_ = [
+        ("quad", QuadParamsC),
+        ("table", ctypes.c_void_p),
+        ("clusters", ctypes.c_int),
+        ("n", ctypes.c_int),
+        ("d_feat", ctypes.c_int),
+        ("feat", ctypes.c_int * 3),
+        ("pin", ctypes.c_int * 3),
+        ("drag", QuadDragOptC),
     ]
 
 
@@ -170,71 +242,98 @@ def dual_gp_rows(ens: GPEnsemble, x, p) -> dict:
             for r in range(3)}
 
 
-class GPQuadDualDynamics(nn.Module):
-    """``f(x, u, p)``: the quad (:func:`quad_dynamics_lane`) plus the
+def pinned_clusters(ens: GPEnsemble, fixed_cluster):
+    """None, or each output's cluster (D,) from ``quad_residual_fn``'s
+    ``fixed_cluster`` (an int or D ints): a negative index counted from the
+    last cluster and the rest clamped to the ensemble, as a JAX gather
+    takes them."""
+    if fixed_cluster is None:
+        return None
+    C = ens.n_clusters
+    c = np.broadcast_to(np.asarray(fixed_cluster, np.int64), (len(ens.out_idx),))
+    return tuple(int(v) for v in np.clip(np.where(c < 0, c + C, c), 0, C - 1))
+
+
+class _ClusterTableDynamics(nn.Module):
+    """A GP quad whose functor stages a table of every cluster
+    (:func:`gp_quad_table`) from a device buffer: the quad, the RDRv drag
+    ``rdrv_d`` where given, and a residual; the struct
+    (:meth:`cuda_params`) holds the quad, the table's address (the module
+    keeps the copy on the card) and the drag, and a subclass's layout
+    (:meth:`_layout`)."""
+
+    nx, nu = NX, NU
+
+    def __init__(self, ensemble: GPEnsemble, params: QuadrotorParams, rdrv_d):
+        super().__init__()
+        self.ensemble = ensemble
+        self.params = params
+        self.D = None if rdrv_d is None else drag_matrix(rdrv_d)
+        self._device_table = None  # (tensor, struct), built at first use
+
+    def _nominal(self, x, u):
+        """The quad, plus the drag rows where there is a drag."""
+        base = quad_dynamics_lane(x, u, None, self.params)
+        return base if self.D is None else add_rows(base, quad_drag_rows(x, self.D))
+
+    def cuda_params(self):
+        """The functor's struct, with the table copied once to the current
+        CUDA device; the layout is checked before the card is asked for."""
+        if self._device_table is None:
+            flat = self.cuda_table()
+            _build.require_card("cuda")
+            table = torch.as_tensor(
+                flat, device=torch.device("cuda", torch.cuda.current_device()))
+            s = self._layout()
+            s.quad = QuadDynamics(self.params).cuda_params()
+            s.table = table.data_ptr()
+            s.drag.on = int(self.D is not None)
+            if self.D is not None:
+                for r in range(3):
+                    s.drag.D[r][:] = self.D[r]
+            self._device_table = (table, s)
+        return self._device_table[1]
+
+
+class GPQuadDualDynamics(_ClusterTableDynamics):
+    """``f(x, u, p)``: the quad (:func:`quad_dynamics_lane`), plus the RDRv
+    drag (``rdrv_d``, :func:`quad_drag_rows`) where given, plus the
     dual-state GP residual (:func:`dual_gp_rows`) of ``ensemble``, with
     ``p_dim = 1 + 2D``: the dynamics of QuadMPC's ensemble mode.
 
-    On the card the ``GPQuadDualDyn`` functor of ``csrc/vde_gp_quad_dual.cu`` computes
-    the same function (``cuda_entry``, ``cuda_rk4_entry``). Its table
-    (:meth:`cuda_table`) lies in a device buffer whose address rides in the
-    struct (:meth:`cuda_params`): every cluster, padded to the three body
-    velocities as outputs and features. It serves ``out_idx`` and
+    On the card the ``GPQuadDualDyn`` functor of ``csrc/vde_gp_quad_dual.cu``
+    computes the same function (``cuda_entry``, ``cuda_rk4_entry``; with
+    the drag ``GPQuadDualDragDyn``, the same template with the drag on, of
+    ``csrc/vde_gp_quad_dual_drag.cu``; both in ``vde_gp_quad_dual.cuh``). Its
+    table (:meth:`cuda_table`) lies in a device buffer whose address rides
+    in the struct (:meth:`cuda_params`): every cluster, padded to the three
+    body velocities as outputs and features. It serves ``out_idx`` and
     ``feat_idx`` within (7, 8, 9), up to :data:`GP_DUAL_CLUSTERS` clusters
     and :data:`GP_DUAL_POINTS` points per output over all clusters.
     """
 
-    nx, nu = NX, NU
     cuda_functor = "GPQuadDualDyn"
     cuda_source = "vde_gp_quad_dual"
     cuda_entry = "vde_gp_quad_dual"
     cuda_rk4_entry = "rk4_gp_quad_dual"
 
     def __init__(self, ensemble: GPEnsemble,
-                 params: QuadrotorParams = QuadrotorParams()):
-        super().__init__()
-        self.ensemble = ensemble
-        self.params = params
+                 params: QuadrotorParams = QuadrotorParams(), rdrv_d=None):
+        super().__init__(ensemble, params, rdrv_d)
         self.p_dim = 1 + 2 * len(ensemble.out_idx)
-        self._device_table = None  # (tensor, struct), built at first use
+        if self.D is not None:  # the drag's instantiation, in a source of its own
+            self.cuda_functor = "GPQuadDualDragDyn"
+            self.cuda_source = self.cuda_entry = "vde_gp_quad_dual_drag"
+            self.cuda_rk4_entry = "rk4_gp_quad_dual_drag"
+
+    def with_ensemble(self, ensemble: GPEnsemble) -> "GPQuadDualDynamics":
+        return GPQuadDualDynamics(ensemble, self.params, self.D)
 
     def forward(self, x, u, p):
-        base = quad_dynamics_lane(x, u, None, self.params)
-        return add_rows(base, dual_gp_rows(self.ensemble, x, p))
+        return add_rows(self._nominal(x, u), dual_gp_rows(self.ensemble, x, p))
 
     def cuda_table(self) -> np.ndarray:
-        """The functor's padded table as float32 numpy: X (3, C, n, 3),
-        a = k_inv_y sigma_f (3, C, n), 1/l (3, C, 3), y_mean (3, C), flat,
-        by body velocity; zeros on the outputs and features that the
-        ensemble does not have. Refuses a layout the functor cannot hold."""
-        ens = self.ensemble
-        D, C, n, d = ens.x_train.shape
-        out, feat = tuple(ens.out_idx), tuple(ens.feat_idx)
-        body = set(BODY_VELOCITIES)
-        if (not set(out) <= body or not set(feat) <= body
-                or len(set(out)) != D or len(set(feat)) != d):
-            raise ValueError(
-                f"the GPQuadDualDyn functor serves distinct out_idx and "
-                f"feat_idx within {BODY_VELOCITIES}; got out_idx={out}, "
-                f"feat_idx={feat}")
-        if C > GP_DUAL_CLUSTERS or C * n > GP_DUAL_POINTS:
-            raise ValueError(
-                f"the GPQuadDualDyn functor holds {GP_DUAL_CLUSTERS} clusters "
-                f"and {GP_DUAL_POINTS} points per output over all clusters; "
-                f"got {C} clusters of {n} points ({C * n})")
-        X = np.zeros((3, C, n, 3))
-        a = np.zeros((3, C, n))
-        inv_l = np.zeros((3, C, 3))
-        y_mean = np.zeros((3, C))
-        cols = [dim - 7 for dim in feat]
-        for k, dim in enumerate(out):
-            r = dim - 7
-            X[r][..., cols] = ens.x_train[k]
-            a[r] = ens.k_inv_y[k] * ens.sigma_f[k][:, None]
-            inv_l[r][..., cols] = 1.0 / ens.len_scale[k]
-            y_mean[r] = ens.y_mean[k]
-        return np.concatenate([t.ravel() for t in (X, a, inv_l, y_mean)]
-                              ).astype(np.float32)
+        return gp_quad_table(self.ensemble, self.cuda_functor)
 
     def cuda_layout(self) -> tuple:
         """(clusters, points per cluster, D, the output k in p of each body
@@ -244,19 +343,65 @@ class GPQuadDualDynamics(nn.Module):
                      for r in range(3))
         return ens.x_train.shape[1], ens.x_train.shape[2], len(ens.out_idx), slot
 
-    def cuda_params(self) -> GPQuadDualParamsC:
-        """The functor's struct, with the table copied once to the current
-        CUDA device (the module keeps the copy for the struct's address);
-        the layout is checked before the card is asked for."""
-        if self._device_table is None:
-            flat = self.cuda_table()
-            _build.require_card("cuda")
-            table = torch.as_tensor(
-                flat, device=torch.device("cuda", torch.cuda.current_device()))
-            s = GPQuadDualParamsC()
-            s.quad = QuadDynamics(self.params).cuda_params()
-            s.table = table.data_ptr()
-            s.clusters, s.n, s.d_out, slot = self.cuda_layout()
-            s.slot[:] = slot
-            self._device_table = (table, s)
-        return self._device_table[1]
+    def _layout(self) -> GPQuadDualParamsC:
+        s = GPQuadDualParamsC()
+        s.clusters, s.n, s.d_out, slot = self.cuda_layout()
+        s.slot[:] = slot
+        return s
+
+
+class GPQuadSelectDynamics(_ClusterTableDynamics):
+    """``f(x, u, p)``: the quad, plus the RDRv drag (``rdrv_d``) where
+    given, plus the clustered body-frame GP residual of
+    ``quad_residual_fn(ensemble, fixed_cluster)``
+    (:func:`lane.quad_select_residual_terms`): each output's cluster pinned
+    by ``fixed_cluster`` (:func:`pinned_clusters`), or, with none, the
+    nearest centroid at every evaluation; ``p_dim = 0``. The dynamics of
+    QuadMPC's ``residual_fn`` mode beyond one cluster, and of any
+    ``quad_residual_fn`` with the drag.
+
+    On the card the ``GPQuadSelectDyn`` functor of
+    ``csrc/vde_gp_quad_select.cu`` computes the same function: the table of
+    :class:`GPQuadDualDynamics` with the centroids appended, from a device
+    buffer; the same layouts and capacity.
+    """
+
+    p_dim = 0
+    cuda_functor = "GPQuadSelectDyn"
+    cuda_source = "vde_gp_quad_select"
+    cuda_entry = "vde_gp_quad_select"
+    cuda_rk4_entry = "rk4_gp_quad_select"
+
+    def __init__(self, ensemble: GPEnsemble,
+                 params: QuadrotorParams = QuadrotorParams(), fixed_cluster=None,
+                 rdrv_d=None):
+        super().__init__(ensemble, params, rdrv_d)
+        self.pin = pinned_clusters(ensemble, fixed_cluster)
+
+    def with_ensemble(self, ensemble: GPEnsemble) -> "GPQuadSelectDynamics":
+        return GPQuadSelectDynamics(ensemble, self.params, self.pin, self.D)
+
+    def forward(self, x, u, p):
+        return add_rows(self._nominal(x, u),
+                        quad_select_residual_terms(self.ensemble, x, self.pin))
+
+    def cuda_table(self) -> np.ndarray:
+        return gp_quad_table(self.ensemble, self.cuda_functor, centroids=True)
+
+    def cuda_layout(self) -> tuple:
+        """(clusters, points per cluster, d, the body velocity of each
+        feature (0 past d), each body velocity's pinned cluster or -1; 0 on
+        a body velocity that is no output) of the functor's struct."""
+        ens = self.ensemble
+        feat = tuple(i - 7 for i in ens.feat_idx) + (0,) * (3 - len(ens.feat_idx))
+        pin = [0, 0, 0]
+        for k, dim in enumerate(ens.out_idx):
+            pin[dim - 7] = -1 if self.pin is None else self.pin[k]
+        return (ens.x_train.shape[1], ens.x_train.shape[2], len(ens.feat_idx),
+                feat, tuple(pin))
+
+    def _layout(self) -> GPQuadSelectParamsC:
+        s = GPQuadSelectParamsC()
+        s.clusters, s.n, s.d_feat, feat, pin = self.cuda_layout()
+        s.feat[:], s.pin[:] = feat, pin
+        return s

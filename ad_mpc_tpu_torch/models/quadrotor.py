@@ -151,14 +151,23 @@ def quad_dynamics_lane(x, u, p=None, params: QuadrotorParams = QuadrotorParams()
 
 def quad_drag_rows(x, D) -> dict:
     """The RDRv drag ``R(q) D R(q)^T v`` of :func:`quad_dynamics` entrywise,
-    by velocity row: ``{7 + r: t_r}``, in the order of ``csrc/vde_models.cuh:
-    quad_drag_terms`` (v_b = R^T v, w = D v_b, t = R w). ``D`` is a 3x3
-    array of Python floats."""
+    by velocity row: ``{7 + r: t_r}``, in the order of ``csrc/vde_quad.cu:
+    quad_drag_terms`` and ``csrc/vde_models.cuh:gp_quad_rows`` (v_b = R^T v,
+    w = D v_b, t = R w). ``D`` is a 3x3 array of Python floats."""
     R = _rot_rows(x)
     v_b = [R[0][k] * x[7] + R[1][k] * x[8] + R[2][k] * x[9] for k in range(3)]
     w = [D[r][0] * v_b[0] + D[r][1] * v_b[1] + D[r][2] * v_b[2] for r in range(3)]
     return {7 + r: R[r][0] * w[0] + R[r][1] * w[1] + R[r][2] * w[2]
             for r in range(3)}
+
+
+def drag_matrix(rdrv_d) -> list:
+    """The RDRv drag matrix as a 3x3 list of Python floats (the constants
+    :func:`quad_drag_rows` folds in); refuses another shape."""
+    D = np.asarray(rdrv_d, np.float64)
+    if D.shape != (3, 3):
+        raise ValueError(f"rdrv_d must be 3x3, got {D.shape}")
+    return [[float(v) for v in row] for row in D]
 
 
 def normalize_quat_state(x):
@@ -248,10 +257,7 @@ class QuadDragDynamics(nn.Module):
 
     def __init__(self, rdrv_d, params: QuadrotorParams = QuadrotorParams()):
         super().__init__()
-        D = np.asarray(rdrv_d, np.float64)
-        if D.shape != (3, 3):
-            raise ValueError(f"rdrv_d must be 3x3, got {D.shape}")
-        self.D = [[float(v) for v in row] for row in D]
+        self.D = drag_matrix(rdrv_d)
         self.params = params
 
     def forward(self, x, u, p):

@@ -41,7 +41,8 @@ NVCC_FLAGS = [
 # The VDE sweep's functors lie in one source per family over the shared
 # headers vde.cuh and vde_models.cuh, so that their builds run in parallel.
 VDE_SOURCES = ("vde_bicycle", "vde_gp_bicycle", "vde_quad", "vde_gp_quad",
-               "vde_gp_quad_routed", "vde_gp_quad_dual")
+               "vde_gp_quad_routed", "vde_gp_quad_dual", "vde_gp_quad_dual_drag",
+               "vde_gp_quad_select")
 SOURCES = VDE_SOURCES + ("lq_ipm", "lane_chain")
 
 _LIBS: dict = {}

@@ -422,6 +422,131 @@ def dual_gp_ps(rng, B, ens, trigger_every=10):
     return p
 
 
+def tie_gap(centroids, z):
+    """How far the features z lie from a tie of their two nearest
+    centroids, entrywise: (d2_second - d2_best) / (d2_second + d2_best) of
+    ``lane.centroid_dists``, 0 at a tie, up to 1."""
+    import torch
+
+    from ad_mpc_tpu_torch.learned.lane import centroid_dists
+
+    d2, _ = torch.sort(torch.stack(centroid_dists(centroids, z)), dim=0)
+    return (d2[1] - d2[0]) / (d2[1] + d2[0])
+
+
+class _Chosen:
+    """A select dynamics (``GPQuadSelectDynamics``) whose plain version
+    picks among the clusters by ``choose`` (``lane.nearest_mean``'s
+    signature), for the checks near cluster boundaries."""
+
+    def __init__(self, dyn, choose):
+        self.dyn, self.choose = dyn, choose
+
+    def __call__(self, x, u, p):
+        from ad_mpc_tpu_torch.learned.lane import add_rows, quad_select_residual_terms
+
+        d = self.dyn
+        return add_rows(d._nominal(x, u), quad_select_residual_terms(
+            d.ensemble, x, d.pin, choose=self.choose))
+
+
+def select_tie_gaps(dyn, dt, xs, us):
+    """(B,) the smallest :func:`tie_gap` over every evaluation of every
+    output's cluster choice in the RK4 maps of each scenario's stages, for
+    the select dynamics ``dyn`` on xs (B, N+1, 13), us (B, N, 4), in
+    float64 (inf where the clusters are pinned): the states at which the
+    kernel and the plain version could pick different clusters by rounding
+    lie near 0."""
+    import torch
+
+    from ad_mpc_tpu_torch.learned.lane import nearest_mean
+    from ad_mpc_tpu_torch.ops.integrators import discrete_step
+
+    gaps = []
+
+    def choose(centroids, means, z):
+        gaps.append(tie_gap(centroids, z))
+        return nearest_mean(centroids, means, z)
+
+    x, u = xs[:, :-1].double(), us.double()
+    discrete_step(_Chosen(dyn, choose), dt, 1, x, u, x.new_zeros(x.shape[:-1] + (0,)))
+    if not gaps:  # pinned clusters: no choice is made
+        return torch.full((xs.shape[0],), float("inf"), dtype=x.dtype, device=x.device)
+    return torch.stack(gaps).reshape(len(gaps), xs.shape[0], -1).amin(dim=(0, 2))
+
+
+def margin_quad_traj(rng, B, N, dyns, dt, margin=1e-4, v_scale=5.0, device="cpu"):
+    """A float32 quad iterate as :func:`quad_traj` draws it, its
+    velocities scaled by ``v_scale`` (so that they span the clusters), of
+    the B scenarios whose every cluster choice for each select dynamics of
+    ``dyns`` (one, or a list) lies at least ``margin`` from a tie
+    (:func:`select_tie_gaps`, run on ``device``), drawn in rounds."""
+    import torch
+
+    dyns = dyns if isinstance(dyns, (list, tuple)) else [dyns]
+    keep_x, keep_u, n = [], [], 0
+    while n < B:
+        xs, us = quad_traj(rng, B, N)
+        xs[..., 7:10] *= v_scale
+        xt, ut = (torch.as_tensor(a, device=device) for a in (xs, us))
+        gaps = torch.stack([select_tie_gaps(d, dt, xt, ut) for d in dyns]).amin(0)
+        ok = (gaps >= margin).cpu().numpy()
+        keep_x.append(xs[ok])
+        keep_u.append(us[ok])
+        n += int(ok.sum())
+    return np.concatenate(keep_x)[:B], np.concatenate(keep_u)[:B]
+
+
+def boundary_quad_states(rng, B, ens, offset=1e-6):
+    """(x (B, 13), u (B, 4)) float32: level-ish attitudes, inputs in
+    [0, 1], and body velocities on the plane between the first two
+    centroids of the ensemble's first output, moved off it by ``offset``
+    times a normal draw along its normal and spread within it: the states
+    at which the kernel's cluster choice (on its own rounding of R(q)^T v)
+    and the plain version's may differ."""
+    c0, c1 = (np.asarray(ens.centroids[0, c], np.float64) for c in (0, 1))
+    n = (c1 - c0) / np.linalg.norm(c1 - c0)
+    a = np.cross(n, [1.0, 0.0, 0.0] if abs(n[0]) < 0.9 else [0.0, 1.0, 0.0])
+    a /= np.linalg.norm(a)
+    b = np.cross(n, a)
+    s, t = rng.uniform(-1.5, 1.5, (2, B))
+    vb = 0.5 * (c0 + c1) + s[:, None] * a + t[:, None] * b
+    vb += offset * np.linalg.norm(c1 - c0) * rng.normal(size=(B, 1)) * n
+    import torch
+
+    from ad_mpc_tpu_torch.learned.lane import _rot_rows
+
+    x = np.zeros((B, 13))
+    x[:, :3] = rng.normal(0.0, 1.0, (B, 3))
+    q = np.concatenate([np.ones((B, 1)), rng.normal(0.0, 0.1, (B, 3))], axis=1)
+    x[:, 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    x[:, 10:13] = rng.normal(0.0, 0.3, (B, 3))
+    R = _rot_rows(torch.as_tensor(x.T))  # v = R(q) v_b
+    x[:, 7:10] = np.stack([sum(R[r][k].numpy() * vb[:, k] for k in range(3))
+                           for r in range(3)], axis=1)
+    u = rng.uniform(0.0, 1.0, (B, 4))
+    return x.astype(np.float32), u.astype(np.float32)
+
+
+def tie_flipped(dyn, rel=1e-4):
+    """The plain version of the select dynamics ``dyn`` with every cluster
+    choice that lies within ``rel`` of a tie (:func:`tie_gap`) flipped to
+    the other of the two nearest centroids: at a state on a boundary, the
+    kernel's answer is the plain version's or this one's."""
+    import torch
+
+    from ad_mpc_tpu_torch.learned.lane import centroid_dists
+
+    def choose(centroids, means, z):
+        d2 = torch.stack(centroid_dists(centroids, z))
+        order = torch.argsort(d2, dim=0, stable=True)
+        m = torch.stack(list(means))
+        first, second = (torch.gather(m, 0, order[i:i + 1])[0] for i in (0, 1))
+        return torch.where(tie_gap(centroids, z) < rel, second, first)
+
+    return _Chosen(dyn, choose)
+
+
 def routed_bicycle_ensemble(seed=4, n=6, d=4):
     """The two-cluster ensemble on the bicycle layout (outputs rows 4 and
     5, features x[3..6]) of the JAX package's routed-GP test

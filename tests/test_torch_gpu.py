@@ -18,7 +18,8 @@ import torch
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
 from ad_mpc_tpu_torch.experiments import capture, long_horizon, mxu_riccati, quad_fleet
-from ad_mpc_tpu_torch.experiments.c2_kernels import c3_c4_bits, c5_bits, c6_bits, digest
+from ad_mpc_tpu_torch.experiments.c2_kernels import (
+    c3_c4_bits, c5_bits, c6_bits, digest, quad_mpc_bits)
 from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
@@ -634,6 +635,18 @@ def test_c6_kernels_keep_their_bits(cuda):
     assert c6_bits(cuda) == C6_BITS
 
 
+# sha256 of QuadMPC's drag and dual-state functors' outputs on the fixed
+# draws of ``experiments/c2_kernels.py:quad_mpc_bits``, as the kernels gave
+# them before the dual-state functor's struct took the drag option (that
+# function run on that tree and on this one, on one card).
+QUAD_MPC_BITS = {"vde_quad_drag": "e7e3c488625cec84", "rk4_quad_drag": "58aa604af2680988",
+                 "vde_quad_dual": "e439e04edc2b4ebd", "rk4_quad_dual": "d4bc98882790ee5b"}
+
+
+def test_quad_mpc_kernels_keep_their_bits(cuda):
+    assert quad_mpc_bits(cuda) == QUAD_MPC_BITS
+
+
 def _gp_quad(fitted):
     ens = (quad_fleet.fitted_ensemble() if fitted
            else quad_fleet.make_quad_gp_ensemble())
@@ -965,16 +978,99 @@ def test_gp_quad_dual_refuses_a_p_of_another_width(cuda):
     assert err != 0
 
 
+def _select(name):
+    """The clustered ``quad_residual_fn`` dynamics (GPQuadSelectDyn): the
+    synthetic two-cluster three-output ensemble, or the fitted two-cluster
+    ``gp_flagship_c2``, the nearest centroid per evaluation, pinned to
+    cluster 1, or with the fitted RDRv drag."""
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadSelectDynamics
+
+    if name == "two_clusters":
+        return GPQuadSelectDynamics(quad_fleet.make_quad_gp_ensemble(n=16, clusters=2))
+    c2 = quad_fleet.fitted_ensemble_c2()
+    return GPQuadSelectDynamics(
+        c2, fixed_cluster=1 if name == "c2_pinned" else None,
+        rdrv_d=quad_fleet.fitted_rdrv_d() if name == "c2_drag" else None)
+
+
+@pytest.mark.parametrize("name", ["two_clusters", "c2", "c2_pinned", "c2_drag"])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 1000])
+def test_gp_quad_select_kernels_match_plain(cuda, B, name):
+    """The select functor's sweep and both modes of its RK4 map on states
+    whose every cluster choice lies 1e-4 or more from a tie
+    (``testing.margin_quad_traj``, velocities across the clusters): the
+    synthetic ensemble at 3e-5, the fitted one held to the float64 plain
+    version with its float32 spread; a relaunch repeats its bits."""
+    from ad_mpc_tpu_torch.testing import margin_quad_traj
+
+    dyn = _select(name)
+    xs, us = (torch.as_tensor(a, device=cuda) for a in margin_quad_traj(
+        np.random.default_rng(B), B, 10, dyn, 0.1))
+    ps = torch.zeros((B, 0), device=cuda)
+    got = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    _hold_to_plain(dyn, got, (xs, us, ps), anchored=name != "two_clusters")
+    again = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gp_quad_select_at_a_cluster_boundary(cuda):
+    """States on the boundary between two clusters of the synthetic
+    ensemble's first output (``testing.boundary_quad_states``): the
+    kernel's step and sweep (N=1) agree at 3e-5 with the plain version on
+    the card, or with it where each choice within 1e-4 of a tie takes the
+    other of the two nearest clusters (``testing.tie_flipped``)."""
+    from ad_mpc_tpu_torch.testing import boundary_quad_states, tie_flipped
+
+    dyn = _select("two_clusters")
+    x, u = (torch.as_tensor(a, device=cuda) for a in boundary_quad_states(
+        np.random.default_rng(3), 4096, dyn.ensemble))
+    xs = torch.stack([x, x], dim=1)
+    us, ps = u[:, None], torch.zeros((4096, 0), device=cuda)
+    got = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    near = [(g - w).flatten(1).abs().amax(1) for g, w in zip(
+        got, _plain_outputs(dyn, xs, us, ps))]
+    flip = [(g - w).flatten(1).abs().amax(1) for g, w in zip(
+        got, _plain_outputs(tie_flipped(dyn), xs, us, ps))]
+    ok = torch.stack(near).amax(0) <= 3e-5
+    assert bool((ok | (torch.stack(flip).amax(0) <= 3e-5)).all())
+    assert 0 < int((~ok).sum()) < 4096  # the tie is reached, not every time
+
+
+def test_gp_quad_dual_drag_kernels_match_plain(cuda):
+    """The dual-state functor with the fitted RDRv drag (QuadMPC's rdrv_d
+    with ensemble=) on the synthetic two-cluster ensemble, at 3e-5."""
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
+    from ad_mpc_tpu_torch.testing import dual_gp_ps
+
+    ens = quad_fleet.make_quad_gp_ensemble(n=16, clusters=2)
+    dyn = GPQuadDualDynamics(ens, rdrv_d=quad_fleet.fitted_rdrv_d())
+    xs, us, _ = _quad_traj(RAGGED_B, 10, cuda, seed=16)
+    xs[..., 7:10] *= 10.0
+    ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(2), RAGGED_B, ens,
+                                    trigger_every=3), device=cuda)
+    got = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    _hold_to_plain(dyn, got, (xs, us, ps), anchored=False)
+
+
 def _quad_modes():
     from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
 
-    fitted = quad_fleet.fitted_ensemble()
-    return {"nominal": {}, "rdrv": {"rdrv_d": quad_fleet.fitted_rdrv_d()},
+    fitted, c2 = quad_fleet.fitted_ensemble(), quad_fleet.fitted_ensemble_c2()
+    D = quad_fleet.fitted_rdrv_d()
+    return {"nominal": {}, "rdrv": {"rdrv_d": D},
             "residual_fn": {"residual_fn": quad_residual_fn(fitted)},
-            "ensemble": {"ensemble": fitted}}
+            "ensemble": {"ensemble": fitted},
+            "residual_fn_c2": {"residual_fn": quad_residual_fn(c2)},
+            "residual_fn_c2_pinned": {"residual_fn": quad_residual_fn(c2, 1)},
+            "rdrv_gp": {"rdrv_d": D, "ensemble": fitted},
+            "rdrv_residual_fn": {"rdrv_d": D, "residual_fn": quad_residual_fn(fitted)}}
 
 
-@pytest.mark.parametrize("mode", ["nominal", "rdrv", "residual_fn", "ensemble"])
+QUAD_MODES = ["nominal", "rdrv", "residual_fn", "ensemble", "residual_fn_c2",
+              "residual_fn_c2_pinned", "rdrv_gp", "rdrv_residual_fn"]
+
+
+@pytest.mark.parametrize("mode", QUAD_MODES)
 def test_quad_mpc_solve_on_card_matches_plain(cuda, mode):
     """One RTI solve of each mode through the kernels against the plain
     solver on the card from the same warm start: u0 within 1e-3, and one
@@ -1002,7 +1098,7 @@ def test_quad_mpc_solve_on_card_matches_plain(cuda, mode):
     assert float((got[0] - want[0]).abs().max()) < 1e-3
 
 
-@pytest.mark.parametrize("mode", ["nominal", "rdrv", "residual_fn", "ensemble"])
+@pytest.mark.parametrize("mode", QUAD_MODES)
 def test_quad_mpc_kernels_match_plain_at_the_solve_inputs(cuda, mode):
     """Each mode's sweep and RK4 map on the inputs one RTI solve gave them
     (B=1, N=10; the dual-state GP's N one-stage scenarios with their
@@ -1023,10 +1119,32 @@ def test_quad_mpc_kernels_match_plain_at_the_solve_inputs(cuda, mode):
     finally:
         hook.remove()
     args = seen[0]
-    assert args[0].shape[:2] == ((10, 2) if mode == "ensemble" else (1, 11))
+    dual = "ensemble" in _quad_modes()[mode]
+    assert args[0].shape[:2] == ((10, 2) if dual else (1, 11))
     dyn = mpc.solver.f
     _hold_to_plain(dyn, _new_functor_outputs(dyn, *args, cuda), args,
-                   anchored=mode in ("residual_fn", "ensemble"))
+                   anchored=mode not in ("nominal", "rdrv"))
+
+
+def test_comparative_gp_option_solves_two_clusters_on_card(cuda):
+    """The comparative experiment's ``gp`` option on the fitted two-cluster
+    GP (``quad_residual_fn``, the nearest centroid at every evaluation):
+    one solve through the select functor, one launch of each kernel."""
+    from ad_mpc_tpu_torch.experiments.comparative import prepare_quad_mpc
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import (
+        get_reference_chunk, reference)
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadSelectDynamics
+
+    traj, t_ref, u_traj = reference("loop", 8.0)
+    mpc = prepare_quad_mpc("gp", ensemble=quad_fleet.fitted_ensemble_c2(), device=cuda)
+    assert type(mpc.solver.f) is GPQuadSelectDynamics
+    mpc.set_reference(*get_reference_chunk(traj, u_traj, t_ref, 6.0, 10, 0.1))
+    x0 = torch.as_tensor(traj[300], dtype=torch.float32, device=cuda)
+    mpc.optimize(x0)
+    mpc.solver.vde.launches = mpc.solver.qp.launches = mpc.solver.rk4.launches = 0
+    us, _ = mpc.optimize(x0)
+    assert fleet.launches(mpc.solver) == {"vde": 1, "lq_ipm": 1, "rk4": 1}
+    assert bool(torch.isfinite(us).all())
 
 
 def test_quad_mpc_gp_mode_makes_no_host_sync_but_the_watchdog(cuda):

@@ -1,10 +1,13 @@
 """Port parity for ``QuadMPC`` (``ad_mpc_tpu/control/mpc.py:221-400``) on
 the plain backend in float64: three consecutive solves with the shifted
-warm start in each of the four modes the JAX package's callers use
-(nominal, the fitted RDRv drag, ``quad_residual_fn`` of the fitted
-one-cluster GP, and the dual-state GP ``ensemble=`` on
-``tests/test_learned.py:TestDualStateGP``'s two-cluster model) within 1e-9
-of the JAX package's u0; mirrors of ``TestDualStateGP``; the solver-health
+warm start in each of the modes the JAX package's callers use (nominal,
+the fitted RDRv drag, ``quad_residual_fn`` of the fitted one-cluster GP,
+the dual-state GP ``ensemble=`` on
+``tests/test_learned.py:TestDualStateGP``'s two-cluster model,
+``quad_residual_fn`` of the fitted two-cluster ``gp_flagship_c2``, the
+nearest centroid at every evaluation and pinned to cluster 1, and the
+drag beside the dual-state and the one-cluster GP) within 1e-9 of the JAX
+package's u0; mirrors of ``TestDualStateGP``; the solver-health
 watchdog; and the quaternion retraction's guard.
 
 One difference from the reference is by design: the RTI retraction
@@ -51,6 +54,9 @@ def models():
     two_j = JaxGPEnsemble.from_gps(gps, out_idx=(7,), feat_idx=(7,))
     fitted_j = load_model("gp_flagship_c1")
     fitted, two = convert.gp_ensemble(fitted_j), convert.gp_ensemble(two_j)
+    c2 = quad_fleet.fitted_ensemble_c2()
+    c2_j = JaxGPEnsemble(**{k: (v if isinstance(v, tuple) else jnp.asarray(v))
+                            for k, v in c2._asdict().items()})
     D = quad_fleet.fitted_rdrv_d()
     return {
         "nominal": ({}, {}),
@@ -58,6 +64,13 @@ def models():
         "residual_fn": ({"residual_fn": jax_quad_residual_fn(fitted_j)},
                         {"residual_fn": quad_residual_fn(fitted)}),
         "ensemble": ({"ensemble": two_j}, {"ensemble": two}),
+        "residual_fn_c2": ({"residual_fn": jax_quad_residual_fn(c2_j)},
+                           {"residual_fn": quad_residual_fn(c2)}),
+        "residual_fn_c2_pinned": ({"residual_fn": jax_quad_residual_fn(c2_j, 1)},
+                                  {"residual_fn": quad_residual_fn(c2, 1)}),
+        "rdrv_gp": ({"rdrv_d": D, "ensemble": two_j}, {"rdrv_d": D, "ensemble": two}),
+        "rdrv_residual_fn": ({"rdrv_d": D, "residual_fn": jax_quad_residual_fn(fitted_j)},
+                             {"rdrv_d": D, "residual_fn": quad_residual_fn(fitted)}),
     }
 
 
@@ -72,7 +85,9 @@ def _pair(kj, kt, **spec_kw):
             QuadMPC(spec=quad_spec(**spec_kw), dtype=F64, device="cpu", **kt))
 
 
-@pytest.mark.parametrize("mode", ["nominal", "rdrv", "residual_fn", "ensemble"])
+@pytest.mark.parametrize("mode", ["nominal", "rdrv", "residual_fn", "ensemble",
+                                  "residual_fn_c2", "residual_fn_c2_pinned",
+                                  "rdrv_gp", "rdrv_residual_fn"])
 def test_quad_mpc_matches_jax(models, loop, mode):
     """Three solves with the shifted warm start along the loop at 8 m/s, the
     plant moved between them; in GP mode a second state for node 0."""
@@ -86,7 +101,7 @@ def test_quad_mpc_matches_jax(models, loop, mode):
         mpc.set_reference(x_ref, u_ref)
         gp_x = x.copy()
         gp_x[7] += 0.5
-        kw = {"gp_x0": gp_x} if mode == "ensemble" else {}
+        kw = {"gp_x0": gp_x} if "ensemble" in models[mode][1] else {}
         uj, xj = jmpc.optimize(x, **kw)
         ut, xt = mpc.optimize(torch.as_tensor(x), **kw)
         np.testing.assert_allclose(ut.numpy(), np.asarray(uj), atol=1e-9, rtol=0)
@@ -94,7 +109,7 @@ def test_quad_mpc_matches_jax(models, loop, mode):
         np.testing.assert_allclose(mpc.state.xs.numpy(), np.asarray(jmpc.state.xs),
                                    atol=1e-9, rtol=0)
         x = np.asarray(xj)[1] + 0.01
-    if mode == "ensemble":
+    if "ensemble" in models[mode][1]:
         np.testing.assert_array_equal(mpc.last_cluster, np.asarray(jmpc.last_cluster))
     assert mpc.n_resets == jmpc.n_resets == 0
 

@@ -3,9 +3,9 @@ reference's smoke test) and the fleet solver's oracle distance at the
 deployed c2 settings.
 
 ``run_tracking`` runs float32 on the CPU's plain versions for 25 ticks of
-the loop at 8 m/s under the flagship's drag (deterministic), nominal and
-with the dual-state fitted GP, against the JAX package's loop of the same
-functions (its QuadMPC in float32, its plant with x64): every applied u0
+the loop at 8 m/s under the flagship's drag (deterministic), nominal,
+with the dual-state fitted GP and with ``quad_residual_fn`` of the fitted
+two-cluster GP, against the JAX package's loop of the same functions (its QuadMPC in float32, its plant with x64): every applied u0
 within 1e-3 and the RMSE within 1e-3 m.
 """
 
@@ -20,12 +20,16 @@ import torch
 from ad_mpc_tpu.control.mpc import QuadMPC as JaxQuadMPC
 from ad_mpc_tpu.control.mpc import quad_spec as jax_quad_spec
 from ad_mpc_tpu.experiments import quad_trajectory_test as jtt
+from ad_mpc_tpu.learned import GPEnsemble as JaxGPEnsemble
+from ad_mpc_tpu.learned.ensemble import quad_residual_fn as jax_quad_residual_fn
 from ad_mpc_tpu.sim.simulator import DisturbanceConfig as JaxDisturbanceConfig
 from ad_mpc_tpu.sim.simulator import QuadrotorSim as JaxQuadrotorSim
 from ad_mpc_tpu.utils.io import load_model
 from ad_mpc_tpu.utils.math import interpol_mse as jax_interpol_mse
 from ad_mpc_tpu_torch import convert
+from ad_mpc_tpu_torch.experiments import quad_fleet
 from ad_mpc_tpu_torch.experiments import quad_trajectory_test as tt
+from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
 from ad_mpc_tpu_torch.sim.simulator import DisturbanceConfig
 from ad_mpc_tpu_torch.testing import fleet_oracle_distance
 from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
@@ -57,13 +61,29 @@ def _jax_tracking(steps, **mpc_kw):
     return np.stack(u0s), rmse
 
 
-@pytest.mark.parametrize("model", ["nominal", "gp"])
+def _modes(model):
+    """(JAX QuadMPC keywords, the port's run_tracking keywords) of a row:
+    nominal, the dual-state fitted GP, and ``quad_residual_fn`` of the
+    fitted two-cluster ``gp_flagship_c2`` (the nearest centroid at every
+    evaluation)."""
+    if model == "nominal":
+        return {}, {}
+    if model == "gp":
+        fitted = load_model("gp_flagship_c1")
+        return {"ensemble": fitted}, {"ensemble": convert.gp_ensemble(fitted)}
+    c2 = quad_fleet.fitted_ensemble_c2()
+    c2_j = JaxGPEnsemble(**{k: (v if isinstance(v, tuple) else jnp.asarray(v))
+                            for k, v in c2._asdict().items()})
+    return ({"residual_fn": jax_quad_residual_fn(c2_j)},
+            {"residual_fn": quad_residual_fn(c2)})
+
+
+@pytest.mark.parametrize("model", ["nominal", "gp", "residual_fn_c2"])
 def test_run_tracking_matches_jax(model):
-    fitted = load_model("gp_flagship_c1") if model == "gp" else None
-    u0_j, rmse_j = _jax_tracking(TICKS, **({"ensemble": fitted} if fitted else {}))
+    jax_kw, kw = _modes(model)
+    u0_j, rmse_j = _jax_tracking(TICKS, **jax_kw)
     res = tt.run_tracking(disturbances=DisturbanceConfig(drag=True),
-                          max_steps=TICKS, device="cpu",
-                          ensemble=convert.gp_ensemble(fitted) if fitted else None)
+                          max_steps=TICKS, device="cpu", **kw)
     assert res.n_steps == TICKS and res.u0s.shape == (TICKS, 4)
     np.testing.assert_allclose(res.u0s, u0_j, atol=1e-3, rtol=0)
     assert abs(res.rmse - rmse_j) < 1e-3
