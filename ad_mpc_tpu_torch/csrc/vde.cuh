@@ -40,9 +40,29 @@
 //     which recomputes the primal. The bicycle runs all 9 in one pass: 255
 //     registers and no spill once the divisions are branch-free, 8 warps
 //     per SM; 3 passes of 3 and 2 of 5 + 4 took 8% and 4% longer, and a
-//     warp per pass 60-80% (PERF.md). The quad's 17 tangents cannot share
-//     one pass without spilling; its width was measured (PERF.md,
-//     experiments/quad_kernels.py).
+//     warp per pass 60-80% (PERF.md).
+//   - The quads (QuadDyn, GPQuadDyn) run a team of lanes per row instead
+//     (ROW_TEAM, vde_team). In the thread-per-row design their 17 tangents
+//     took 3 passes of 6 (the quad: 255 registers, 456 B spilled, a 29,952
+//     B tile per warp, so 7 warps per SM) or 6 of 3 (the GP quad, whose
+//     first pass summed 3 means over every training point in one thread,
+//     6 warps per SM): each thread a long dependent chain with too few
+//     warps to hide its latency, and at B=1 (QuadMPC) the whole chain was
+//     the latency. A team of ROW_TEAM consecutive lanes of a warp shares
+//     one row: lane r takes columns [r COLS, (r+1) COLS) as Dual<COLS>, all
+//     in one pass, and carries the primal in lockstep (the same float
+//     arithmetic in every lane, so no pass recomputes it). Fewer live
+//     floats per lane let MIN_BLOCKS, a trait, cap the registers through
+//     __launch_bounds__ for more warps per SM; the GP quad's 3 output dims
+//     sum their means in 3 lanes of the team at once and broadcast them
+//     by __shfl_sync, each sum in the plain version's order. A block's
+//     rows lie in one tile, which one thread copies out by three
+//     cp.async.bulk copies (VDE_BULK_STORE; the block's 16-byte stores are
+//     the measured alternative). Tensor cores (wgmma, mma) do not apply: the
+//     largest product is 13 x 17 per row, each step a dependent chain of
+//     elementwise dual arithmetic, and a row's tiles cannot share
+//     operands with another's. Widths measured in
+//     experiments/quad_kernels.py (PERF.md).
 //   - A dual division computes its value once with the bits of IEEE '/'
 //     (fdiv_rcp of ieee_div.cuh, branch-free) and multiplies the tangents by
 //     the reciprocal it refined; one sincosf per angle; a dual atan takes
@@ -56,10 +76,12 @@
 //     slot of shared memory after the tiles, and its later passes read it
 //     there.
 // The dynamics is a __device__ functor templated on the scalar type, with
-// one pair of C entries per functor (vde_<model>, rk4_<model>, VDE_ENTRIES).
+// one pair of C entries per functor (vde_<model>, rk4_<model>; VDE_ENTRIES,
+// or VDE_TEAM_ENTRIES for a team functor).
 // A functor states NX, NU, NP (parameter entries it reads; a launch with
-// fewer is refused, and NP = 0 never reads ps), TANGENTS_PER_PASS and
-// ROW_WARPS, and a per-thread context Ctx built once from the scenario's
+// fewer is refused, and NP = 0 never reads ps), TANGENTS_PER_PASS (or
+// ROW_TEAM and MIN_BLOCKS) and ROW_WARPS, and a per-thread context Ctx
+// built once from the scenario's
 // parameter row (context(p)), before any pass: what depends on p alone is
 // computed there in float, not as duals. The functor rides in the kernel's
 // parameter space (__grid_constant__, never copied to local memory). Where
@@ -84,8 +106,9 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC vde_<family>.cu (no --use_fast_math: IEEE
-//        sinf/cosf/atanf/expf and division). -D<MODEL>_TANGENTS_PER_PASS=n
-//        and -D<MODEL>_ROW_WARPS=n override a functor's traits (the
+//        sinf/cosf/atanf/expf and division). -D<MODEL>_TANGENTS_PER_PASS=n,
+//        -D<MODEL>_ROW_TEAM=n, -D<MODEL>_MIN_BLOCKS=n and
+//        -D<MODEL>_ROW_WARPS=n override a functor's traits (the
 //        measurements of experiments/quad_kernels.py and
 //        experiments/bicycle_kernels.py).
 
@@ -268,6 +291,22 @@ struct dyn_rows : std::false_type {};
 template <class Dyn>
 struct dyn_rows<Dyn, std::void_t<decltype(Dyn::P_ROWS)>> : std::true_type {};
 
+// A functor's team: ROW_TEAM consecutive lanes of a warp share one (b, k)
+// row and split its tangent columns (vde_team); 1, the thread-per-row path
+// with TANGENTS_PER_PASS, where the functor states none. MIN_BLOCKS, the
+// blocks per SM that vde_kernel's registers are capped for
+// (__launch_bounds__), is 1 where it states none.
+template <class Dyn, class = void>
+struct row_team : std::integral_constant<int, 1> {};
+template <class Dyn>
+struct row_team<Dyn, std::void_t<decltype(Dyn::ROW_TEAM)>>
+    : std::integral_constant<int, Dyn::ROW_TEAM> {};
+template <class Dyn, class = void>
+struct min_blocks : std::integral_constant<int, 1> {};
+template <class Dyn>
+struct min_blocks<Dyn, std::void_t<decltype(Dyn::MIN_BLOCKS)>>
+    : std::integral_constant<int, Dyn::MIN_BLOCKS> {};
+
 // A launch's parameter struct that its functor cannot take: none, unless a
 // source declares an overload for its struct (GPQuadDualDyn's table layout,
 // the routed GPs' p_dim).
@@ -346,14 +385,15 @@ DI void rk4_map(T* x, const T* u, const typename Dyn::Ctx& p, const Dyn& f,
 // row from their tile in shared memory: 16-byte stores, then the ragged
 // tail. row0 is a multiple of 32 and dst 16-byte aligned, so the range
 // starts on 16 bytes; the tile does too.
+// A team functor's block copies its rows likewise, `stride` threads apart.
 DI void store_rows(float* __restrict__ dst, const float* tile, int w,
-                   long long row0, int rows, int lane) {
+                   long long row0, int rows, int lane, int stride = WARP) {
   float* out = dst + row0 * w;
   const int len = rows * w, len4 = len / 4;
   const float4* t4 = reinterpret_cast<const float4*>(tile);
   float4* o4 = reinterpret_cast<float4*>(out);
-  for (int i = lane; i < len4; i += WARP) o4[i] = t4[i];
-  for (int i = 4 * len4 + lane; i < len; i += WARP) out[i] = tile[i];
+  for (int i = lane; i < len4; i += stride) o4[i] = t4[i];
+  for (int i = 4 * len4 + lane; i < len; i += stride) out[i] = tile[i];
 }
 
 // One pass: tangent columns J0 .. J0+NT-1 of [A | Bm] of the thread's row,
@@ -416,8 +456,159 @@ __host__ __device__ constexpr int vde_tile() {
   return WARP * Dyn::NX * (Dyn::NX + Dyn::NU + 1);
 }
 
+// A team functor's block: its rows, its tangent columns per lane, and its
+// tile in floats (the block's rows of A, then of Bm, then of c).
 template <class Dyn>
-__global__ void __launch_bounds__(Dyn::ROW_WARPS * WARP)
+struct TeamShape {
+  static constexpr int NV = Dyn::NX + Dyn::NU;
+  static constexpr int TEAM = row_team<Dyn>::value;
+  static constexpr int COLS = (NV + TEAM - 1) / TEAM;
+  static constexpr int ROWS = Dyn::ROW_WARPS * WARP / TEAM;
+  static constexpr int TILE_B = ROWS * Dyn::NX * Dyn::NX;
+  static constexpr int TILE_C = TILE_B + ROWS * Dyn::NX * Dyn::NU;
+  static constexpr int TILE = ROWS * Dyn::NX * (NV + 1);
+};
+
+// Whether the team path copies a whole block's tile out by three bulk
+// asynchronous copies (cp.async.bulk, one thread issuing and waiting for
+// their reads of the tile) or by the block's 16-byte stores
+// (-DVDE_BULK_STORE=0, a measured variant); a ragged last block stores.
+#ifndef VDE_BULK_STORE
+#define VDE_BULK_STORE 1
+#endif
+
+#if VDE_BULK_STORE
+DI void bulk_store(float* dst, const float* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"((unsigned)__cvta_generic_to_shared(src)), "r"(bytes)
+               : "memory");
+}
+#endif
+
+// The RK4 map of the team path: rk4_map's arithmetic, with the first
+// sub-step's start x0 read again from the row (its value xk[i], its tangent
+// the lane's one-hot seed) wherever rk4_map reads x, instead of held in
+// registers as duals across the sub-step's four evaluations; later
+// sub-steps (rk4_steps > 1) run rk4_map on the result.
+template <class Dyn, int NT>
+DI void rk4_team(const float* xk, int j0, Dual<NT>* x, const Dual<NT>* u,
+                 const typename Dyn::Ctx& p, const Dyn& f, Steps st) {
+  constexpr int NX = Dyn::NX;
+  const auto x0 = [&](int i) {
+    Dual<NT> s;
+    s.v = xk[i];
+#pragma unroll
+    for (int t = 0; t < NT; ++t) s.d[t] = (i == j0 + t) ? 1.0f : 0.0f;
+    return s;
+  };
+  {
+    Dual<NT> k[NX], xt[NX], acc[NX];
+#pragma unroll
+    for (int i = 0; i < NX; ++i) xt[i] = x0(i);
+    f(xt, u, p, k);  // k1
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = k[i];
+      xt[i] = x0(i) + st.hh * k[i];
+    }
+    f(xt, u, p, k);  // k2
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = acc[i] + 2.0f * k[i];
+      xt[i] = x0(i) + st.hh * k[i];
+    }
+    f(xt, u, p, k);  // k3
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      acc[i] = acc[i] + 2.0f * k[i];
+      xt[i] = x0(i) + st.h * k[i];
+    }
+    f(xt, u, p, k);  // k4
+#pragma unroll
+    for (int i = 0; i < NX; ++i) x[i] = x0(i) + st.h6 * (acc[i] + k[i]);
+  }
+  if (st.n > 1) rk4_map(x, u, p, f, Steps{st.n - 1, st.h, st.hh, st.h6});
+}
+
+// The team path of vde_kernel: ROW_TEAM lanes per (b, k) row, thread t of
+// the block on row t / ROW_TEAM of the block's ROWS, its lane r = t %
+// ROW_TEAM on tangent columns [r COLS, (r + 1) COLS) of [A | Bm], all in
+// one pass. Every lane carries the primal in lockstep with its columns (the
+// same float arithmetic in each), so no pass recomputes it; lane 0 writes
+// c. A ragged last block computes clamped duplicates of the last row and
+// copies only its own rows.
+template <class Dyn>
+DI void vde_team(float* tile, const float* __restrict__ xs, const float* __restrict__ us,
+                 const float* __restrict__ ps, float* __restrict__ A,
+                 float* __restrict__ Bm, float* __restrict__ c, int batch, int N,
+                 int pd, Steps st, const Dyn& f) {
+  using S = TeamShape<Dyn>;
+  constexpr int NX = Dyn::NX;
+  constexpr int NU = Dyn::NU;
+  static_assert(WARP % S::TEAM == 0, "a team lies within a warp");
+  static_assert(S::ROWS % 4 == 0, "a block's rows start on 16 bytes in A, Bm and c");
+  static_assert(!dyn_table<Dyn>::value && !dyn_rows<Dyn>::value &&
+                    Dyn::CACHE_FLOATS == 0,
+                "the team path stages no table, p rows or cache");
+  const int slot = threadIdx.x / S::TEAM, j0 = (threadIdx.x % S::TEAM) * S::COLS;
+  const long long rows = (long long)batch * N;
+  const long long row0 = (long long)blockIdx.x * S::ROWS;
+  const long long row = min(row0 + slot, rows - 1);
+  const long long b = row / N;
+
+  const float* xk = xs + (row + b) * NX;  // (b*(N+1) + k) * NX
+  Dual<S::COLS> x[NX], u[NU];
+#pragma unroll
+  for (int i = 0; i < NU; ++i) {
+    u[i].v = us[row * NU + i];
+#pragma unroll
+    for (int t = 0; t < S::COLS; ++t) u[i].d[t] = (NX + i == j0 + t) ? 1.0f : 0.0f;
+  }
+  const typename Dyn::Ctx ctx = f.context(ps + b * pd);
+
+  rk4_team(xk, j0, x, u, ctx, f, st);
+
+  // a[i*nx + j] = dF_i/dx_j, b[i*nu + j] = dF_i/du_j.
+  float* tA = tile + slot * NX * NX;
+  float* tB = tile + S::TILE_B + slot * NX * NU;
+#pragma unroll
+  for (int t = 0; t < S::COLS; ++t) {
+    const int col = j0 + t;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) {
+      if (col < NX) tA[i * NX + col] = x[i].d[t];
+      else if (col < S::NV) tB[i * NU + (col - NX)] = x[i].d[t];
+    }
+  }
+  if (j0 == 0) {
+    float* tc = tile + S::TILE_C + slot * NX;
+#pragma unroll
+    for (int i = 0; i < NX; ++i) tc[i] = x[i].v - xk[NX + i];
+  }
+
+  const int n = (int)min((long long)S::ROWS, rows - row0);  // >= 1: the grid is exact
+#if VDE_BULK_STORE
+  if (n == S::ROWS) {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      bulk_store(A + row0 * NX * NX, tile, 4u * S::TILE_B);
+      bulk_store(Bm + row0 * NX * NU, tile + S::TILE_B, 4u * (S::TILE_C - S::TILE_B));
+      bulk_store(c + row0 * NX, tile + S::TILE_C, 4u * (S::TILE - S::TILE_C));
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    }
+    return;
+  }
+#endif
+  __syncthreads();
+  store_rows(A, tile, NX * NX, row0, n, threadIdx.x, blockDim.x);
+  store_rows(Bm, tile + S::TILE_B, NX * NU, row0, n, threadIdx.x, blockDim.x);
+  store_rows(c, tile + S::TILE_C, NX, row0, n, threadIdx.x, blockDim.x);
+}
+
+template <class Dyn>
+__global__ void __launch_bounds__(Dyn::ROW_WARPS * WARP, min_blocks<Dyn>::value)
 vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
            const float* __restrict__ ps, float* __restrict__ A,
            float* __restrict__ Bm, float* __restrict__ c, int batch, int N,
@@ -430,7 +621,7 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   constexpr int TILE = vde_tile<Dyn>();
   static_assert(TILE % 4 == 0, "tiles start on 16 bytes");
   // ROW_WARPS tiles, then the functor's cache, then its table (dyn_table) or
-  // the block's p rows (dyn_rows)
+  // the block's p rows (dyn_rows); a team functor's block tile (vde_team)
   extern __shared__ float4 smem[];
   float* const table =
       reinterpret_cast<float*>(smem) + ROW_WARPS * (TILE + WARP * Dyn::CACHE_FLOATS);
@@ -438,57 +629,61 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
     f.stage();
     __syncthreads();
   }
-  if constexpr (dyn_table<Dyn>::value) {
-    f.stage_to(table);
-    __syncthreads();
-  }
-  static_assert(!(dyn_table<Dyn>::value && dyn_rows<Dyn>::value),
-                "one table in dynamic shared memory");
-
-  const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
-  float* tile = reinterpret_cast<float*>(smem) + warp * TILE;
-  const long long rows = (long long)batch * N;
-  const long long row0 = ((long long)blockIdx.x * ROW_WARPS + warp) * WARP;
-  const long long row = min(row0 + lane, rows - 1);
-  const long long b = row / N;
-  long long b_first = 0;
-  if constexpr (dyn_rows<Dyn>::value) {
-    if (rows_staged(N)) {
-      const long long first = (long long)blockIdx.x * ROW_WARPS * WARP;
-      b_first = stage_rows(table, ps, pd, pd, first,
-                           min(first + ROW_WARPS * WARP, rows) - 1, N);
+  if constexpr (row_team<Dyn>::value > 1) {
+    vde_team(reinterpret_cast<float*>(smem), xs, us, ps, A, Bm, c, batch, N, pd, st, f);
+  } else {
+    if constexpr (dyn_table<Dyn>::value) {
+      f.stage_to(table);
       __syncthreads();
     }
-  }
+    static_assert(!(dyn_table<Dyn>::value && dyn_rows<Dyn>::value),
+                  "one table in dynamic shared memory");
 
-  const float* xk = xs + (row + b) * NX;  // (b*(N+1) + k) * NX
-  float x0[NX], u0[NU], xn[NX];
+    const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
+    float* tile = reinterpret_cast<float*>(smem) + warp * TILE;
+    const long long rows = (long long)batch * N;
+    const long long row0 = ((long long)blockIdx.x * ROW_WARPS + warp) * WARP;
+    const long long row = min(row0 + lane, rows - 1);
+    const long long b = row / N;
+    long long b_first = 0;
+    if constexpr (dyn_rows<Dyn>::value) {
+      if (rows_staged(N)) {
+        const long long first = (long long)blockIdx.x * ROW_WARPS * WARP;
+        b_first = stage_rows(table, ps, pd, pd, first,
+                             min(first + ROW_WARPS * WARP, rows) - 1, N);
+        __syncthreads();
+      }
+    }
+
+    const float* xk = xs + (row + b) * NX;  // (b*(N+1) + k) * NX
+    float x0[NX], u0[NU], xn[NX];
 #pragma unroll
-  for (int i = 0; i < NX; ++i) {
-    x0[i] = xk[i];
-    xn[i] = xk[NX + i];
-  }
+    for (int i = 0; i < NX; ++i) {
+      x0[i] = xk[i];
+      xn[i] = xk[NX + i];
+    }
 #pragma unroll
-  for (int i = 0; i < NU; ++i) u0[i] = us[row * NU + i];
+    for (int i = 0; i < NU; ++i) u0[i] = us[row * NU + i];
 
-  const float* prow = ps + b * pd;
-  if constexpr (dyn_rows<Dyn>::value) {
-    if (rows_staged(N)) prow = table + (b - b_first) * pd;
-  }
-  typename Dyn::Ctx ctx = f.context(prow);
-  if constexpr (dyn_table<Dyn>::value) f.use_table(ctx, table);
-  if constexpr (Dyn::CACHE_FLOATS > 0)
-    f.use_cache(ctx, reinterpret_cast<float*>(smem) + ROW_WARPS * TILE + threadIdx.x,
-                4 * st.n);
-  vde_passes<0>(x0, u0, xn, ctx, f, st, tile + lane * NX * NX,
-                tile + TILE_B + lane * NX * NU, tile + TILE_C + lane * NX);
+    const float* prow = ps + b * pd;
+    if constexpr (dyn_rows<Dyn>::value) {
+      if (rows_staged(N)) prow = table + (b - b_first) * pd;
+    }
+    typename Dyn::Ctx ctx = f.context(prow);
+    if constexpr (dyn_table<Dyn>::value) f.use_table(ctx, table);
+    if constexpr (Dyn::CACHE_FLOATS > 0)
+      f.use_cache(ctx, reinterpret_cast<float*>(smem) + ROW_WARPS * TILE + threadIdx.x,
+                  4 * st.n);
+    vde_passes<0>(x0, u0, xn, ctx, f, st, tile + lane * NX * NX,
+                  tile + TILE_B + lane * NX * NU, tile + TILE_C + lane * NX);
 
-  __syncwarp();
-  if (row0 < rows) {
-    const int n = (int)min((long long)WARP, rows - row0);
-    store_rows(A, tile, NX * NX, row0, n, lane);
-    store_rows(Bm, tile + TILE_B, NX * NU, row0, n, lane);
-    store_rows(c, tile + TILE_C, NX, row0, n, lane);
+    __syncwarp();
+    if (row0 < rows) {
+      const int n = (int)min((long long)WARP, rows - row0);
+      store_rows(A, tile, NX * NX, row0, n, lane);
+      store_rows(Bm, tile + TILE_B, NX * NU, row0, n, lane);
+      store_rows(c, tile + TILE_C, NX, row0, n, lane);
+    }
   }
 }
 
@@ -611,6 +806,62 @@ static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
   return cudaGetLastError();
 }
 
+// A team functor's sweep, launched with the geometry the wrapper computed
+// (ops/cuda_vde.py:vde_geometry): refused unless it is the functor's, so
+// that the launch bounds, the block's rows and its tile agree with the
+// kernel's.
+template <class Dyn>
+static cudaError_t launch_vde_team(const float* xs, const float* us, const float* ps,
+                                   float* A, float* Bm, float* c, int batch, int N,
+                                   int nx, int nu, int pd, int grid, int threads,
+                                   int bytes, double dt, int steps, Dyn f,
+                                   void* stream) {
+  using S = TeamShape<Dyn>;
+  if (!shape_ok<Dyn>(nx, nu, pd, steps)) return cudaErrorInvalidValue;
+  const long long rows = (long long)batch * N;
+  if (rows == 0) return cudaSuccess;
+  if (threads != Dyn::ROW_WARPS * WARP || bytes != (int)sizeof(float) * S::TILE ||
+      grid != (rows + S::ROWS - 1) / S::ROWS)
+    return cudaErrorInvalidValue;
+  vde_kernel<Dyn><<<(unsigned)grid, threads, bytes, (cudaStream_t)stream>>>(
+      xs, us, ps, A, Bm, c, batch, N, pd, steps_of(dt, steps), f);
+  return cudaGetLastError();
+}
+
+// A team functor's traits as its source was built: ROW_TEAM, ROW_WARPS,
+// MIN_BLOCKS, tangent columns per lane, vde_kernel's static shared bytes
+// and its registers.
+template <class Dyn>
+static cudaError_t team_traits(int* out) {
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, vde_kernel<Dyn>);
+  if (err != cudaSuccess) return err;
+  const int v[6] = {TeamShape<Dyn>::TEAM, Dyn::ROW_WARPS, min_blocks<Dyn>::value,
+                    TeamShape<Dyn>::COLS, (int)attr.sharedSizeBytes, attr.numRegs};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return cudaSuccess;
+}
+
+// Blocks of vde_kernel<Dyn> of `threads` threads and `bytes` of dynamic
+// shared memory resident on one SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus the error.
+template <class Dyn>
+static int team_occupancy(int threads, int bytes) {
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, vde_kernel<Dyn>, threads, bytes);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Let a team functor's sweep take its block tile's shared memory (at the
+// library's first load, so that no launch sets an attribute and a launch
+// may be captured in a CUDA graph).
+template <class Dyn>
+static cudaError_t prepare_team() {
+  return cudaFuncSetAttribute(vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(float) * TeamShape<Dyn>::TILE);
+}
+
 template <class Dyn>
 static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
                               long long us_b, long long us_k, const float* ps,
@@ -651,15 +902,13 @@ static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
 // that params_ok refuses (GPQuadDualDyn's layout, a routed GP's p_dim) is
 // refused likewise, and so is a launch whose block's p rows (dyn_rows) would
 // take more shared memory than the device allows.
-#define VDE_ENTRIES(model, Dyn, ParamsC)                                      \
-  int vde_##model(const float* xs, const float* us, const float* ps,         \
-                  float* A, float* Bm, float* c, int batch, int N, int nx,   \
-                  int nu, int pd, double dt, int rk4_steps, ParamsC params,  \
-                  void* stream) {                                            \
-    if (!params_ok(params, pd)) return (int)cudaErrorInvalidValue;           \
-    return (int)launch_vde(xs, us, ps, A, Bm, c, batch, N, nx, nu, pd, dt,   \
-                           rk4_steps, Dyn{params}, stream);                  \
-  }                                                                          \
+//
+// A team functor's entries (VDE_TEAM_ENTRIES): vde_<model> takes the launch
+// geometry (grid, threads, dynamic shared bytes) after pd, as
+// ops/cuda_vde.py:vde_geometry computes it, and refuses any other;
+// vde_<model>_traits writes team_traits' six ints and
+// vde_<model>_occupancy(threads, bytes) gives team_occupancy.
+#define RK4_ENTRY(model, Dyn, ParamsC)                                        \
   int rk4_##model(const float* xs, long long xs_b, const float* us,          \
                   long long us_b, long long us_k, const float* ps,           \
                   long long ps_b, float* out, int batch, int N, int nx,      \
@@ -670,6 +919,33 @@ static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
                            N, nx, nu, pd, defect, dt, rk4_steps, Dyn{params}, \
                            stream);                                          \
   }
+
+#define VDE_ENTRIES(model, Dyn, ParamsC)                                      \
+  int vde_##model(const float* xs, const float* us, const float* ps,         \
+                  float* A, float* Bm, float* c, int batch, int N, int nx,   \
+                  int nu, int pd, double dt, int rk4_steps, ParamsC params,  \
+                  void* stream) {                                            \
+    if (!params_ok(params, pd)) return (int)cudaErrorInvalidValue;           \
+    return (int)launch_vde(xs, us, ps, A, Bm, c, batch, N, nx, nu, pd, dt,   \
+                           rk4_steps, Dyn{params}, stream);                  \
+  }                                                                          \
+  RK4_ENTRY(model, Dyn, ParamsC)
+
+#define VDE_TEAM_ENTRIES(model, Dyn, ParamsC)                                 \
+  int vde_##model(const float* xs, const float* us, const float* ps,         \
+                  float* A, float* Bm, float* c, int batch, int N, int nx,   \
+                  int nu, int pd, int grid, int threads, int bytes,          \
+                  double dt, int rk4_steps, ParamsC params, void* stream) {  \
+    if (!params_ok(params, pd)) return (int)cudaErrorInvalidValue;           \
+    return (int)launch_vde_team(xs, us, ps, A, Bm, c, batch, N, nx, nu, pd,  \
+                                grid, threads, bytes, dt, rk4_steps,         \
+                                Dyn{params}, stream);                        \
+  }                                                                          \
+  int vde_##model##_traits(int* out) { return (int)team_traits<Dyn>(out); }  \
+  int vde_##model##_occupancy(int threads, int bytes) {                      \
+    return team_occupancy<Dyn>(threads, bytes);                              \
+  }                                                                          \
+  RK4_ENTRY(model, Dyn, ParamsC)
 
 // Let a dyn_table functor's kernels take the shared memory of its largest
 // table (`table` floats; at the library's first load, so that no launch

@@ -1,11 +1,14 @@
 // The GP quadrotor of config c6 in the VDE sweep and its RK4 map
 // (vde.cuh): the quad plus the baked body-frame GP (GPQuadDyn).
 
-#ifndef GP_QUAD_TANGENTS_PER_PASS
-#define GP_QUAD_TANGENTS_PER_PASS 3
+#ifndef GP_QUAD_ROW_TEAM
+#define GP_QUAD_ROW_TEAM 4
 #endif
 #ifndef GP_QUAD_ROW_WARPS
-#define GP_QUAD_ROW_WARPS 2
+#define GP_QUAD_ROW_WARPS 4
+#endif
+#ifndef GP_QUAD_MIN_BLOCKS
+#define GP_QUAD_MIN_BLOCKS 2
 #endif
 
 #include "vde_models.cuh"
@@ -24,11 +27,27 @@ struct GPQuadParamsC {  // by value from the wrapper (models/gp_quad.py)
 };
 static_assert(offsetof(GPQuadParamsC, a) ==
                   offsetof(GPQuadParamsC, X) +
-                      sizeof(float) * GP_QUAD_DIMS * GP_QUAD_POINTS * GP_QUAD_FEATS,
-              "stage() copies X and a as one range");
+                      sizeof(float) * GP_QUAD_DIMS * GP_QUAD_POINTS * GP_QUAD_FEATS &&
+              offsetof(GPQuadParamsC, inv_l) ==
+                  offsetof(GPQuadParamsC, a) + sizeof(float) * GP_QUAD_DIMS * GP_QUAD_POINTS &&
+              offsetof(GPQuadParamsC, y_mean) ==
+                  offsetof(GPQuadParamsC, inv_l) + sizeof(float) * GP_QUAD_DIMS * GP_QUAD_FEATS,
+              "stage() copies X, a, inv_l and y_mean as one range");
 
-// GPQuadDyn's table (X, then a), as gp_table is GPBicycleDyn's.
-constexpr int GP_QUAD_TABLE = GP_QUAD_DIMS * GP_QUAD_POINTS * (GP_QUAD_FEATS + 1);
+// GPQuadDyn's table (X, a, 1/l, y_mean), as gp_table is GPBicycleDyn's,
+// each output dim's X and a one float past the last dim's: the team's
+// lanes 0-2 read the same point of the 3 dims at once, and without the
+// pad the 3 addresses (192 and 64 floats apart) would lie in one bank.
+constexpr int GP_QUAD_X_DIM = GP_QUAD_POINTS * GP_QUAD_FEATS + 1;
+constexpr int GP_QUAD_A_DIM = GP_QUAD_POINTS + 1;
+constexpr int GP_QUAD_X = 0;
+constexpr int GP_QUAD_A = GP_QUAD_X + GP_QUAD_DIMS * GP_QUAD_X_DIM;
+constexpr int GP_QUAD_INV_L = GP_QUAD_A + GP_QUAD_DIMS * GP_QUAD_A_DIM;
+constexpr int GP_QUAD_Y_MEAN = GP_QUAD_INV_L + GP_QUAD_DIMS * GP_QUAD_FEATS;
+constexpr int GP_QUAD_TABLE = GP_QUAD_Y_MEAN + GP_QUAD_DIMS;
+// Floats of the struct's range X .. y_mean that stage() copies.
+constexpr int GP_QUAD_PARAMS = GP_QUAD_DIMS * (GP_QUAD_POINTS * (GP_QUAD_FEATS + 1) +
+                                               GP_QUAD_FEATS + 1);
 __shared__ float gp_quad_table[GP_QUAD_TABLE];
 
 // The quadrotor plus the baked cluster-0 GP of bench config c6
@@ -37,42 +56,80 @@ __shared__ float gp_quad_table[GP_QUAD_TABLE];
 // velocity dims. The residual is a float function of the 7 entries
 // (q, v); a dual gets it as its primal value and its Jacobian
 // (gp_quad_jacobian) lifted to the tangents by one contraction, so no dual
-// rotation is held in registers. The means depend on the primal alone,
-// which every pass of a sweep would recompute: the first pass keeps each
-// evaluation's means and gradients in the thread's slot of shared memory
-// (a column of GP_QUAD_EVAL floats, ROW_WARPS * 32 apart), and the later
-// passes read them there.
+// rotation is held in registers. The sweep runs a team of ROW_TEAM lanes
+// per row (vde.cuh: vde_team), every lane on the same primal: at each
+// evaluation lanes 0-2 of the team each sum one output dim's mean and
+// gradient over the training points in gp_table_mean's order (one sum is
+// never split across lanes: the fitted model's terms reach 2,755 and
+// cancel to under 6), and the team reads the 3 means and their 3 x 3
+// gradients from them by __shfl_sync. The RK4 map (T = float) computes the
+// 3 sums itself.
 struct GPQuadDyn {
   static constexpr int NX = 13, NU = 4, NP = 0;
-  static constexpr int TANGENTS_PER_PASS = GP_QUAD_TANGENTS_PER_PASS;
+  static constexpr int ROW_TEAM = GP_QUAD_ROW_TEAM;
   static constexpr int ROW_WARPS = GP_QUAD_ROW_WARPS;
+  static constexpr int MIN_BLOCKS = GP_QUAD_MIN_BLOCKS;
   static constexpr bool STAGES = true;
-  static constexpr int CACHE_FLOATS = GP_QUAD_CACHE_EVALS * GP_QUAD_EVAL;
-  using Ctx = GPQuadCache;
+  static constexpr int CACHE_FLOATS = 0;
+  static_assert(ROW_TEAM >= GP_QUAD_DIMS, "a lane of the team per output dim");
+  using Ctx = const float*;
   GPQuadParamsC P;
 
-  DI Ctx context(const float*) const { return Ctx{}; }
-
-  DI void use_cache(Ctx& c, float* slot, int evals) const { c.use(slot, evals); }
+  DI Ctx context(const float* p) const { return p; }
 
   DI void stage() const {
+    constexpr int NXF = GP_QUAD_DIMS * GP_QUAD_POINTS * GP_QUAD_FEATS;
+    constexpr int NA = GP_QUAD_DIMS * GP_QUAD_POINTS;
     const float* src = &P.X[0][0][0];
-    for (int i = threadIdx.x; i < GP_QUAD_TABLE; i += blockDim.x) gp_quad_table[i] = src[i];
+    for (int i = threadIdx.x; i < GP_QUAD_PARAMS; i += blockDim.x) {
+      const int j = i - NXF;
+      const int dst =
+          i < NXF  ? GP_QUAD_X + (i / (GP_QUAD_X_DIM - 1)) * GP_QUAD_X_DIM + i % (GP_QUAD_X_DIM - 1)
+          : j < NA ? GP_QUAD_A + (j / GP_QUAD_POINTS) * GP_QUAD_A_DIM + j % GP_QUAD_POINTS
+                   : GP_QUAD_INV_L + (j - NA);
+      gp_quad_table[dst] = src[i];
+    }
   }
 
-  DI void means(const float* z, float* mu, float (*g)[GP_QUAD_FEATS]) const {
-#pragma unroll
-    for (int d = 0; d < GP_QUAD_DIMS; ++d)
-      mu[d] = gp_table_mean<GP_QUAD_FEATS>(
-          gp_quad_table + d * GP_QUAD_POINTS * GP_QUAD_FEATS,
-          gp_quad_table + GP_QUAD_DIMS * GP_QUAD_POINTS * GP_QUAD_FEATS +
-              d * GP_QUAD_POINTS,
-          P.n, P.inv_l[d], P.y_mean[d], z, g[d]);
+  // Output dim d's mean and gradient at the body velocity z.
+  DI float mean(int d, const float* z, float* g) const {
+    return gp_table_mean<GP_QUAD_FEATS>(
+        gp_quad_table + GP_QUAD_X + d * GP_QUAD_X_DIM,
+        gp_quad_table + GP_QUAD_A + d * GP_QUAD_A_DIM, P.n,
+        gp_quad_table + GP_QUAD_INV_L + d * GP_QUAD_FEATS,
+        gp_quad_table[GP_QUAD_Y_MEAN + d], z, g);
   }
 
   template <class T>
-  DI void operator()(const T* x, const T* u, const Ctx& c, T* xd) const {
-    quad_xdot(P.quad, x, u, xd);
+  DI void means(const float* z, float* mu, float (*g)[GP_QUAD_FEATS]) const {
+    if constexpr (std::is_same<T, float>::value) {
+#pragma unroll
+      for (int d = 0; d < GP_QUAD_DIMS; ++d)
+        mu[d] = gp_table_mean<GP_QUAD_FEATS>(
+            gp_quad_table + GP_QUAD_X + d * GP_QUAD_X_DIM,
+            gp_quad_table + GP_QUAD_A + d * GP_QUAD_A_DIM, P.n, P.inv_l[d],
+            P.y_mean[d], z, g[d]);
+    } else {
+      const int d = threadIdx.x % ROW_TEAM;
+      float m = 0.0f, gd[GP_QUAD_FEATS] = {};
+      if (d < GP_QUAD_DIMS) m = mean(d, z, gd);
+#pragma unroll
+      for (int e = 0; e < GP_QUAD_DIMS; ++e) {
+        mu[e] = __shfl_sync(0xffffffffu, m, e, ROW_TEAM);
+#pragma unroll
+        for (int k = 0; k < GP_QUAD_FEATS; ++k)
+          g[e][k] = __shfl_sync(0xffffffffu, gd[k], e, ROW_TEAM);
+      }
+    }
+  }
+
+  // The team's duals sum the means before the quad's rows, while the
+  // evaluation's outputs hold no registers yet; the RK4 map (T = float)
+  // keeps the order of its first design, and its bits.
+  template <class T>
+  DI void operator()(const T* x, const T* u, const Ctx&, T* xd) const {
+    constexpr bool scalar = std::is_same<T, float>::value;
+    if constexpr (scalar) quad_xdot(P.quad, x, u, xd);
     float q[4], v[3];
 #pragma unroll
     for (int i = 0; i < 4; ++i) q[i] = value(x[3 + i]);
@@ -84,12 +141,12 @@ struct GPQuadDyn {
 #pragma unroll
     for (int r = 0; r < 3; ++r) vb[r] = R[0][r] * v[0] + R[1][r] * v[1] + R[2][r] * v[2];
     float mu[GP_QUAD_DIMS], g[GP_QUAD_DIMS][GP_QUAD_FEATS];
-    c.means_of<T, ROW_WARPS * WARP>(
-        [&](float* m, float (*gm)[GP_QUAD_FEATS]) { means(vb, m, gm); }, mu, g);
+    means<T>(vb, mu, g);
+    if constexpr (!scalar) quad_xdot(P.quad, x, u, xd);
     float res[3];
 #pragma unroll
     for (int r = 0; r < 3; ++r) res[r] = R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2];
-    if constexpr (std::is_same<T, float>::value) {
+    if constexpr (scalar) {
 #pragma unroll
       for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + res[r];
     } else {
@@ -103,10 +160,10 @@ struct GPQuadDyn {
 
 extern "C" {
 
-VDE_ENTRIES(gp_quad, GPQuadDyn, GPQuadParamsC)
+VDE_TEAM_ENTRIES(gp_quad, GPQuadDyn, GPQuadParamsC)
 
-// No functor here has a table in dynamic shared memory: nothing to set.
-int vde_prepare() { return 0; }
+// The team sweep's block tile.
+int vde_prepare() { return (int)prepare_team<GPQuadDyn>(); }
 
 VDE_ERROR_STRING
 

@@ -34,7 +34,7 @@ static bool params_ok(const GPQuadRoutedParamsC& P, int pd) {
 // kernels copy the block's p rows to shared memory (P_ROWS) before any row,
 // so that the scenarios of one launch may each carry another cluster; the
 // residual is lifted by its float Jacobian and its means cached by the
-// first pass, as GPQuadDyn does.
+// first pass, as GPQuadDualDyn does.
 struct GPQuadRoutedDyn {
   static constexpr int NX = 13, NU = 4, NP = 0;
   static constexpr int TANGENTS_PER_PASS = 3, ROW_WARPS = 2;

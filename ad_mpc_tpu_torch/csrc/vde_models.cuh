@@ -173,11 +173,12 @@ DI void rot_matrix(const T* q, T (*R)[3]) {
   R[2][2] = 1.0f - 2.0f * (qx * qx + qy * qy);
 }
 
-// The means cache of a GP quad's sweep (GPQuadDyn, GPQuadDualDyn,
-// GPQuadRoutedDyn): the
-// thread's slot of shared memory, a column of GP_QUAD_EVAL floats per
-// evaluation (STRIDE apart), which the first pass fills and the later
-// passes read, since the means depend on the primal alone.
+// The means cache of a GP quad's thread-per-row sweep (GPQuadDualDyn,
+// GPQuadRoutedDyn, GPQuadSelectDyn; GPQuadDyn's team computes its means
+// once per evaluation instead): the thread's slot of shared memory, a
+// column of GP_QUAD_EVAL floats per evaluation (STRIDE apart), which the
+// first pass fills and the later passes read, since the means depend on
+// the primal alone.
 struct GPQuadCache {
   float* cache = nullptr;  // the thread's slot, or none
   int evals = 0;           // evaluations per pass

@@ -2,11 +2,14 @@
 // quad of config c5 and QuadMPC's nominal mode (QuadDyn) and QuadMPC's
 // RDRv-drag mode (QuadDragDyn).
 
-#ifndef QUAD_TANGENTS_PER_PASS
-#define QUAD_TANGENTS_PER_PASS 6
+#ifndef QUAD_ROW_TEAM
+#define QUAD_ROW_TEAM 8
 #endif
 #ifndef QUAD_ROW_WARPS
-#define QUAD_ROW_WARPS 1
+#define QUAD_ROW_WARPS 4
+#endif
+#ifndef QUAD_MIN_BLOCKS
+#define QUAD_MIN_BLOCKS 4
 #endif
 #ifndef QUAD_DRAG_TANGENTS_PER_PASS
 #define QUAD_DRAG_TANGENTS_PER_PASS 3
@@ -17,11 +20,15 @@
 
 #include "vde_models.cuh"
 
-// The quadrotor; p is not read.
+// The quadrotor; p is not read. A team of ROW_TEAM lanes per row
+// (vde.cuh: vde_team), the 17 tangent columns split across them in one
+// pass, registers capped for MIN_BLOCKS blocks of ROW_WARPS warps per SM
+// (the sweep of experiments/quad_kernels.py).
 struct QuadDyn {
   static constexpr int NX = 13, NU = 4, NP = 0;
-  static constexpr int TANGENTS_PER_PASS = QUAD_TANGENTS_PER_PASS;
+  static constexpr int ROW_TEAM = QUAD_ROW_TEAM;
   static constexpr int ROW_WARPS = QUAD_ROW_WARPS;
+  static constexpr int MIN_BLOCKS = QUAD_MIN_BLOCKS;
   static constexpr bool STAGES = false;
   static constexpr int CACHE_FLOATS = 0;
   using Ctx = const float*;
@@ -85,11 +92,11 @@ struct QuadDragDyn {
 
 extern "C" {
 
-VDE_ENTRIES(quad, QuadDyn, QuadParamsC)
+VDE_TEAM_ENTRIES(quad, QuadDyn, QuadParamsC)
 VDE_ENTRIES(quad_drag, QuadDragDyn, QuadDragParamsC)
 
-// No functor here has a table in dynamic shared memory: nothing to set.
-int vde_prepare() { return 0; }
+// The team sweep's block tile.
+int vde_prepare() { return (int)prepare_team<QuadDyn>(); }
 
 VDE_ERROR_STRING
 

@@ -2,9 +2,12 @@
 7x2 LQ kernel), bits of the c5 kernels (the quad VDE sweep, the quad RK4
 map and the 13x4 LQ kernel), of the c3 and c4 functors (the GP-bicycle's
 and the Pacejka's VDE sweep and RK4 map) of the c6 functor (the GP
-quad's) and of QuadMPC's drag and dual-state GP functors, and device times of the 13x4 LQ
-kernel, of whichever ``ad_mpc_tpu_torch`` is imported, so that two trees
-can be compared on one card in one call:
+quad's), of QuadMPC's drag and dual-state GP functors and of the other
+functors that keep the thread-per-row sweep (:func:`other_functor_bits`),
+device times of the 13x4 LQ kernel, and the quad's and GP quad's sweeps'
+device times, resources and RTI solves (:func:`quad_vde_ms`), of whichever
+``ad_mpc_tpu_torch`` is imported, so that two trees can be compared on one
+card in one call:
 
     python ad_mpc_tpu_torch/experiments/c2_kernels.py [--out PATH]
     PYTHONPATH=<other tree> python ad_mpc_tpu_torch/experiments/c2_kernels.py
@@ -150,6 +153,123 @@ def quad_mpc_bits(dev):
     return out
 
 
+def other_functor_bits(dev):
+    """Digests of the functors outside :func:`c3_c4_bits`, :func:`c6_bits`
+    and :func:`quad_mpc_bits` (the VDE sweep and both modes of the RK4 map,
+    B=37): the routed GP bicycle (its test ensemble, N=3), the routed GP
+    quad and the dual-state GP with the fitted drag (the synthetic
+    two-cluster ensemble, N=10), and the select functor on the fitted
+    two-cluster model (nearest centroid, pinned to cluster 1, with the
+    drag; states 1e-4 or more from a tie)."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
+    from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
+    from ad_mpc_tpu_torch.models.gp_quad import (
+        GPQuadDualDynamics, GPQuadSelectDynamics)
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import (
+        dual_gp_ps, margin_quad_traj, quad_traj, routed_bicycle_inputs)
+
+    B = 37
+    two = quad_fleet.make_quad_gp_ensemble(n=16, clusters=2)
+    c2, D = quad_fleet.fitted_ensemble_c2(), quad_fleet.fitted_rdrv_d()
+    xs, us = (torch.as_tensor(a, device=dev)
+              for a in quad_traj(np.random.default_rng(17), B, 10))
+    xs[..., 7:10] *= 10.0
+    routed, _, pack = param_residual_dynamics(two, QuadDynamics(), 0, quad_frame=True)
+    dyn, bxs, bus, bps = routed_bicycle_inputs(B, 3, dev)
+    cases = {"gp_routed": (dyn, 0.05, (bxs, bus, bps)),
+             "gp_quad_routed": (routed, 0.1, (xs, us, pack(body_velocities(xs[:, 0])))),
+             "gp_quad_dual_drag": (GPQuadDualDynamics(two, rdrv_d=D), 0.1, (
+                 xs, us, torch.as_tensor(dual_gp_ps(np.random.default_rng(2), B, two, 3),
+                                         device=dev)))}
+    for name, kw in (("c2", {}), ("c2_pinned", {"fixed_cluster": 1}),
+                     ("c2_drag", {"rdrv_d": D})):
+        sel = GPQuadSelectDynamics(c2, **kw)
+        sxs, sus = (torch.as_tensor(a, device=dev) for a in margin_quad_traj(
+            np.random.default_rng(B), B, 10, sel, 0.1))
+        cases[f"gp_quad_select_{name}"] = (sel, 0.1, (sxs, sus, torch.zeros((B, 0),
+                                                                            device=dev)))
+    out = {}
+    for name, (dyn, dt, (xs_, us_, ps_)) in cases.items():
+        nx, nu = xs_.shape[-1], us_.shape[-1]
+        vde = make_vde(dyn, dt, us_.shape[1], nx, nu, ps_.shape[1], device=dev)
+        rk4 = make_rk4(dyn, dt, nx, nu, ps_.shape[1], device=dev)
+        out[f"vde_{name}"] = digest(*vde(xs_, us_, ps_))
+        out[f"rk4_{name}"] = digest(rk4.defect(xs_, us_, ps_),
+                                    rk4(xs_[:, 0], us_[:, 0], ps_))
+    return out
+
+
+def quad_solve_inputs(dev, kw):
+    """A QuadMPC (N=10, 15 IPM iterations, ``kw`` its mode) on the loop at
+    8 m/s, its reference and warm start as ``chip_smoke.py``'s
+    ``quad_solve_case`` sets them, after one RTI solve: (the module, the
+    sweep's inputs in that solve, a function that runs the solve again)."""
+    from ad_mpc_tpu_torch.control.mpc import QuadMPC, quad_spec
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import (
+        get_reference_chunk, reference)
+    from ad_mpc_tpu_torch.ocp.solver import SolverState
+
+    traj, t_ref, u_traj = reference("loop", 8.0)
+    x_ref, u_ref = get_reference_chunk(traj, u_traj, t_ref, 6.0, 10, 0.1)
+    x0 = torch.as_tensor(traj[300], dtype=torch.float32, device=dev)
+    mpc = QuadMPC(spec=quad_spec(qp_iters=15), device=dev, backend="cuda", **kw)
+    start = mpc.solver.init_state(x0)
+    mpc.set_reference(x_ref, u_ref)
+    mpc.state = SolverState(start.xs.clone(), start.us.clone())
+    seen = []
+    hook = mpc.solver.vde.register_forward_pre_hook(lambda m, a: seen.append(a))
+    mpc.optimize(x0)
+    hook.remove()
+    st = SolverState(start.xs.clone(), start.us.clone())
+    params = mpc._stage_params(x0, None)
+    return mpc, seen[0], lambda: mpc.solver.solve(x0, mpc._yref_x, mpc._yref_u,
+                                                  params, st)
+
+
+def quad_vde_ms(dev):
+    """The quad's and the GP quad's sweeps (``QuadDyn``, ``GPQuadDyn``):
+    device ms by graph replay, warm and cold, at B=16384, N=10 (c5's and
+    c6's shapes, ``quad_traj`` seed 13; the GP quad on the synthetic 32-point
+    and the fitted 60-point models) and at B=1, N=10 on the inputs of
+    QuadMPC's RTI solve (nominal; the one-cluster fitted
+    ``quad_residual_fn``), with that solve's device ms; each functor's
+    registers and spills, and its blocks per SM where the tree reports them
+    (the team sweep's ``occupancy``)."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+    from ad_mpc_tpu_torch.ops import _build
+    from ad_mpc_tpu_torch.testing import quad_traj
+
+    B = 16384
+    xs, us = (torch.as_tensor(a, device=dev)
+              for a in quad_traj(np.random.default_rng(13), B, 10))
+    ps = torch.zeros((B, 0), device=dev)
+    fitted = quad_fleet.fitted_ensemble()
+    out = {}
+    for name, dyn in (("quad", QuadDynamics()),
+                      ("gp_quad_n32", GPQuadDynamics(quad_fleet.make_quad_gp_ensemble())),
+                      ("gp_quad_fitted", GPQuadDynamics(fitted))):
+        vde = make_vde(dyn, 0.1, 10, 13, 4, 0, device=dev)
+        run = lambda: vde(xs, us, ps)
+        row = out[name] = {"ms": replay_ms(run), "cold_ms": replay_ms(run, cold=True)}
+        row |= _build.functor_resources(dyn.cuda_source, "vde_kernel", dyn.cuda_functor)
+        if hasattr(vde, "occupancy"):
+            row["blocks_per_sm"] = vde.occupancy(B)
+            row["geometry"] = vde.geometry(B)._asdict()
+    for name, kw in (("quad_b1_nominal", {}),
+                     ("gp_quad_b1_residual_fn", {"residual_fn": quad_residual_fn(fitted)})):
+        mpc, args, solve = quad_solve_inputs(dev, kw)
+        run = lambda: mpc.solver.vde(*args)
+        out[name] = {"ms": replay_ms(run), "cold_ms": replay_ms(run, cold=True),
+                     "solve_ms": replay_ms(solve, 5), "functor": mpc.solver.f.cuda_functor}
+    return out
+
+
 FLUSH_BYTES = 128 * 2**20  # written before each call when cold (the L2 is 50 MB)
 
 
@@ -235,6 +355,8 @@ def main(argv=None):
     res["bits_c3_c4"] = c3_c4_bits(dev)
     res["bits_c6"] = c6_bits(dev)
     res["bits_quad_mpc"] = quad_mpc_bits(dev)
+    res["bits_others"] = other_functor_bits(dev)
+    res["quad_vde"] = quad_vde_ms(dev)
 
     # Device times at c2's B=16384.
     B = 16384

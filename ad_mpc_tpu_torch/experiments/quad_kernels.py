@@ -4,21 +4,25 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
     python -m ad_mpc_tpu_torch.experiments.quad_kernels [--out PATH]
         [--only quad,gp_quad,drag,dual,lq]
 
-1. The VDE sweep with the quad functor (``csrc/vde_quad.cu``), built once per
-   variant of its traits, ``-DQUAD_TANGENTS_PER_PASS`` (the 17 tangents per
-   pass) and ``-DQUAD_ROW_WARPS`` (warps per block, each with a 29,952 B
-   output tile), all ``nvcc`` started together: registers and spills from
-   ``ptxas``, device time by CUDA-graph replay (``experiments.graph_ms``),
-   the largest error against ``vde_plain`` (held at 3e-5) and whether its
-   bits are the default build's.
-2. The same for the GP-quad functor of c6 (``GPQuadDyn``), on the
-   synthetic 32-point ensemble and the fitted 60-point one:
-   ``-DGP_QUAD_TANGENTS_PER_PASS`` and ``-DGP_QUAD_ROW_WARPS`` (the first
-   pass keeps each evaluation's GP means and gradients in shared memory for
-   the later passes at every width). Each variant is held to ``vde_plain``
-   (3e-5 on the synthetic ensemble; on the fitted one its distance is
-   printed).
-3. The same for QuadMPC's two functors: the RDRv drag (``QuadDragDyn``,
+1. The VDE sweep with the quad functor (``csrc/vde_quad.cu``), a team of
+   lanes per row (``vde.cuh:vde_team``), built once per variant of its
+   traits, all ``nvcc`` started together: ``-DQUAD_ROW_TEAM`` (lanes per
+   row), ``-DQUAD_ROW_WARPS`` (warps per block) and ``-DQUAD_MIN_BLOCKS``
+   (the blocks per SM its registers are capped for), and the block's tile
+   copied out by bulk asynchronous copies or by 16-byte stores
+   (``-DVDE_BULK_STORE=1`` or ``0``):
+   registers and spills from ``ptxas``, the launch geometry
+   (``cuda_vde.vde_geometry``) and the blocks resident per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), device time by
+   CUDA-graph replay (``experiments.graph_ms``) warm and cold at B=16384
+   and warm at B=1, the largest error against ``vde_plain`` (held at
+   3e-5) and whether its bits are the first variant's (the committed
+   traits).
+2. The same for the GP-quad functor of c6 (``GPQuadDyn``, the
+   ``GP_QUAD_`` traits), on the synthetic 32-point ensemble and the
+   fitted 60-point one, each held to ``vde_plain`` (3e-5 on the synthetic
+   ensemble; on the fitted one its distance is printed).
+3. QuadMPC's two thread-per-row functors: the RDRv drag (``QuadDragDyn``,
    ``-DQUAD_DRAG_TANGENTS_PER_PASS`` and ``-DQUAD_DRAG_ROW_WARPS``) and
    the dual-state GP (``GPQuadDualDyn``,
    ``-DGP_QUAD_DUAL_TANGENTS_PER_PASS``, ``-DGP_QUAD_DUAL_ROW_WARPS``) on
@@ -52,15 +56,25 @@ from ad_mpc_tpu_torch.ops.cuda_lq import MAX_TEAMS
 from ad_mpc_tpu_torch.ops.cuda_vde import make_vde, vde_plain
 from ad_mpc_tpu_torch.testing import quad_traj
 
-# (tangents per pass, row warps); the first is the committed default.
-VDE_VARIANTS = ((6, 1), (4, 1), (9, 1), (17, 1), (6, 2), (6, 4))
-GP_VDE_VARIANTS = ((3, 2), (3, 1), (2, 1), (4, 1), (6, 1), (9, 1))
+# Team functors: (lanes per row, row warps, min blocks per SM, bulk store);
+# the first is the committed default (the source's #defines and
+# vde.cuh's VDE_BULK_STORE).
+QUAD_TEAMS = ((8, 4, 4, 1), (8, 4, 4, 0), (8, 4, 3, 1), (8, 4, 5, 1),
+              (4, 4, 2, 1), (4, 4, 2, 0), (16, 4, 4, 1), (32, 4, 5, 1))
+GP_QUAD_TEAMS = ((4, 4, 2, 1), (4, 4, 2, 0), (4, 4, 3, 1), (4, 2, 5, 1),
+                 (8, 4, 2, 1), (8, 4, 3, 1))
+# Thread-per-row functors: (tangents per pass, row warps).
 DRAG_VARIANTS = ((3, 1), (4, 1), (6, 1), (3, 2))
 DUAL_VARIANTS = ((3, 2), (3, 1), (2, 2), (4, 1), (6, 1))
 
 
 def _defines(tpp, rw, model="QUAD"):
     return (f"{model}_TANGENTS_PER_PASS={tpp}", f"{model}_ROW_WARPS={rw}")
+
+
+def _team_defines(team, rw, min_blocks, bulk, model="QUAD"):
+    return (f"{model}_ROW_TEAM={team}", f"{model}_ROW_WARPS={rw}",
+            f"{model}_MIN_BLOCKS={min_blocks}", f"VDE_BULK_STORE={bulk}")
 
 
 def _cases(kind, B):
@@ -72,11 +86,12 @@ def _cases(kind, B):
     from ad_mpc_tpu_torch.testing import dual_gp_ps
 
     none = torch.zeros((B, 0), device="cuda")
+    team = ("team", "rw", "min_blocks", "bulk")
     if kind == "quad":
-        return {"quad": (QuadDynamics(), none)}, ("tpp", "rw")
+        return {"quad": (QuadDynamics(), none)}, team
     if kind == "gp_quad":
         return {"n=32": (GPQuadDynamics(make_quad_gp_ensemble()), none),
-                "n=60": (GPQuadDynamics(fitted_ensemble()), none)}, ("tpp", "rw")
+                "n=60": (GPQuadDynamics(fitted_ensemble()), none)}, team
     if kind == "drag":
         return {"drag": (QuadDragDynamics(fitted_rdrv_d()), none)}, ("tpp", "rw")
     ens = fitted_ensemble()
@@ -85,8 +100,8 @@ def _cases(kind, B):
 
 
 VARIANTS = {
-    "quad": (VDE_VARIANTS, lambda v: _defines(*v)),
-    "gp_quad": (GP_VDE_VARIANTS, lambda v: _defines(*v, model="GP_QUAD")),
+    "quad": (QUAD_TEAMS, lambda v: _team_defines(*v)),
+    "gp_quad": (GP_QUAD_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD")),
     "drag": (DRAG_VARIANTS, lambda v: _defines(*v, model="QUAD_DRAG")),
     "dual": (DUAL_VARIANTS, lambda v: _defines(*v, model="GP_QUAD_DUAL")),
 }
@@ -94,14 +109,15 @@ VARIANTS = {
 
 def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
     """One row per variant of a functor's traits (``kind``: the quad, the
-    GP quad, the drag or the dual-state GP)."""
+    GP quad, the drag or the dual-state GP); a team functor's rows add its
+    geometry, its blocks per SM, its cold time and its time at B=1."""
     variants, defines = VARIANTS[kind]
+    cases, keys = _cases(kind, B)
+    source = next(iter(cases.values()))[0].cuda_source
     with ThreadPoolExecutor(len(variants)) as pool:
-        list(pool.map(lambda v: _build.build_all(_build.VDE_SOURCES, defines(v)),
-                      variants))
+        list(pool.map(lambda v: _build.build_all((source,), defines(v)), variants))
     xs, us = (torch.as_tensor(a, device="cuda")
               for a in quad_traj(np.random.default_rng(13), B, N))
-    cases, keys = _cases(kind, B)
     rows = {}
     for case, (dyn, ps) in cases.items():
         want = vde_plain(dyn, dt, 1, xs, us, ps)
@@ -114,7 +130,7 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
             res = _build.functor_resources(dyn.cuda_source, "vde_kernel",
                                            dyn.cuda_functor, vde.defines)
             name = "_".join(f"{k}{n}" for k, n in zip(keys, v))
-            rows[f"{case} {name}" if len(cases) > 1 else name] = res | dict(
+            row = rows[f"{case} {name}" if len(cases) > 1 else name] = res | dict(
                 zip(keys, v)) | {
                 "max_abs_err": max(float((g - w).abs().max())
                                    for g, w in zip(got, want)),
@@ -122,6 +138,14 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
                                        for g, f in zip(got, first)),
                 "ms": graph_ms(lambda: vde(xs, us, ps)),
             }
+            if getattr(dyn, "cuda_team", False):
+                x1, u1, p1 = xs[:1], us[:1], ps[:1]
+                geo = vde.geometry(B)
+                row |= {"geometry": geo._asdict(),
+                        "blocks_per_sm": vde.occupancy(B),
+                        "cold_ms": graph_ms(lambda: vde(xs, us, ps), cold=True),
+                        "b1_ms": graph_ms(lambda: vde(x1, u1, p1))}
+                row["warps_per_sm"] = row["blocks_per_sm"] * geo.threads // 32
     return rows
 
 

@@ -67,9 +67,12 @@ class GPQuadDynamics(nn.Module):
     and ``cuda_rk4_entry`` name the C entries of ``csrc/vde_gp_quad.cu`` that run
     the VDE kernel and its RK4 kernel with the ``GPQuadDyn`` functor
     (``cuda_functor``), and ``cuda_params`` builds the struct both take.
+    ``cuda_team``: the sweep runs a team of lanes per row
+    (``ops/cuda_vde.py:vde_geometry``).
     """
 
     nx, nu, p_dim = NX, NU, 0
+    cuda_team = True
     cuda_functor = "GPQuadDyn"
     cuda_source = "vde_gp_quad"
     cuda_entry = "vde_gp_quad"

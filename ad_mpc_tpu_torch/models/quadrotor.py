@@ -205,10 +205,12 @@ class QuadDynamics(nn.Module):
     ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
     ``csrc/vde_quad.cu`` that run the VDE kernel and its tangent-free RK4 kernel
     with the ``QuadDyn`` functor, and ``cuda_params`` builds the parameter
-    struct both take by value.
+    struct both take by value. ``cuda_team``: the sweep runs a team of lanes
+    per row (``ops/cuda_vde.py:vde_geometry``).
     """
 
     nx, nu, p_dim = NX, NU, 0
+    cuda_team = True
     cuda_functor = "QuadDyn"
     cuda_source = "vde_quad"
     cuda_entry = "vde_quad"

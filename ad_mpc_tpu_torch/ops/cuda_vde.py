@@ -17,17 +17,26 @@ The plain versions are :func:`vde_plain` (``integrators.linearize``, i.e.
 ``torch.func.vmap(jacfwd)``, vmapped over the batch) and
 ``integrators.discrete_step``. A wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.
+
+A team functor (a dynamics with ``cuda_team``: ``QuadDyn``, ``GPQuadDyn``)
+runs ``vde_kernel``'s team path, ROW_TEAM lanes per (scenario, stage) row
+on the row's tangent columns in one pass. Its launch geometry is
+:func:`vde_geometry`'s, from the traits the library was built with
+(:meth:`VDE.team_traits`), here so that the CPU tests reach it; the C
+entry refuses any other.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 from torch import nn
 from torch.func import vmap
 
 from ad_mpc_tpu_torch.ops import _build
+from ad_mpc_tpu_torch.ops.cuda_lq import SMEM_BLOCK_MAX, SMEM_BLOCK_RESERVED, SMEM_SM
 from ad_mpc_tpu_torch.ops.integrators import discrete_step, discretize, linearize
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -36,6 +45,67 @@ _ARGS = {
     "cuda_entry": [_P] * 6 + [_I] * 5,  # vde_<model>
     "cuda_rk4_entry": [_P, _L, _P, _L, _L, _P, _L, _P] + [_I] * 6,  # rk4_<model>
 }
+
+
+WARP = 32
+REGS_SM = 65536  # 32-bit registers of one H100 SM
+THREADS_SM = 2048  # resident threads of one SM at most
+MAX_REGS = 255  # registers of one thread at most
+
+
+class VdeGeometry(NamedTuple):
+    """A team functor's launch of ``vde_kernel``."""
+
+    team: int  # lanes per (b, k) row (ROW_TEAM)
+    cols: int  # tangent columns per lane
+    rows_per_block: int
+    threads: int  # per block: ROW_WARPS warps, the kernel's launch bound
+    grid: int  # blocks
+    shared_bytes: int  # dynamic: the block's rows of A, Bm and c
+    block_bytes: int  # dynamic and static shared bytes of a block
+    max_registers: int  # per thread, as the launch bounds cap them
+
+
+def vde_geometry(batch, N, nx, nu, team, row_warps, min_blocks=1, static_bytes=0):
+    """The launch of a team functor's sweep: ``team`` consecutive lanes of a
+    warp per (b, k) row, thread t of a block on row t // team of its
+    ``rows_per_block`` and on tangent columns [cols (t % team), cols (t %
+    team + 1)) of [A | Bm]; ``row_warps`` warps per block; registers capped
+    so that ``min_blocks`` blocks fit an SM (``__launch_bounds__``). Raises
+    for a team that does not divide a warp, a block whose rows do not start
+    on 16 bytes in every output, or a block or an SM's ``min_blocks`` that
+    does not fit the shared memory or the threads."""
+    nv = nx + nu
+    if team < 2 or WARP % team:
+        raise ValueError(f"VDE: a team of {team} lanes does not divide a warp")
+    cols = -(-nv // team)
+    threads = row_warps * WARP
+    rows_per_block = threads // team
+    if rows_per_block % 4:
+        raise ValueError(f"VDE: {rows_per_block} rows per block do not start "
+                         "on 16 bytes in c")
+    shared = 4 * rows_per_block * nx * (nv + 1)
+    block = shared + static_bytes
+    if (block > SMEM_BLOCK_MAX or min_blocks * threads > THREADS_SM
+            or min_blocks * (block + SMEM_BLOCK_RESERVED) > SMEM_SM):
+        raise ValueError(f"VDE: {min_blocks} blocks of {threads} threads and "
+                         f"{block} shared bytes do not fit an SM")
+    units = REGS_SM // (min_blocks * row_warps * 256)  # of 256 registers a warp
+    return VdeGeometry(team, cols, rows_per_block, threads,
+                       -(-batch * N // rows_per_block), shared, block,
+                       min(MAX_REGS, 8 * units))
+
+
+def lane_work(geo, rows, nv, block, thread):
+    """What thread ``thread`` of block ``block`` computes in ``geo`` over
+    ``rows`` rows of ``nv`` tangent columns: (its row, its columns, whether
+    it writes the row's c, whether its block stores the row). The last
+    block's threads past ``rows`` compute the last row again and store
+    nothing; a lane's columns past ``nv`` are computed and not stored."""
+    rank = thread % geo.team
+    row = block * geo.rows_per_block + thread // geo.team
+    cols = range(geo.cols * rank, min(geo.cols * (rank + 1), nv))
+    return min(row, rows - 1), cols, rank == 0, row < rows
 
 
 def _entry_name(f, kind="cuda_entry"):
@@ -73,10 +143,17 @@ def _entry(f, kind="cuda_entry", defines=()):
     lib = _lib(f.cuda_source, defines)
     fn = getattr(lib, _entry_name(f, kind))
     if fn.argtypes is None:
-        fn.argtypes = _ARGS[kind] + [ctypes.c_double, _I,
-                                     type(f.cuda_params()), _P]
+        geometry = [_I] * 3 if kind == "cuda_entry" and _is_team(f) else []
+        fn.argtypes = _ARGS[kind] + geometry + [ctypes.c_double, _I,
+                                                type(f.cuda_params()), _P]
         fn.restype = ctypes.c_int
     return fn, lib.error_string
+
+
+def _is_team(f):
+    """Whether ``f``'s sweep runs the team path (its entry takes the
+    geometry)."""
+    return getattr(f, "cuda_team", False)
 
 
 def _check_shape(what, f, nx, nu):
@@ -137,6 +214,46 @@ class VDE(nn.Module):
         self.p_dim, self.rk4_steps = p_dim, rk4_steps
         self.defines = ()
         self.launches = 0
+        self._team = {}
+
+    def team_traits(self):
+        """A team functor's {"team", "row_warps", "min_blocks", "cols",
+        "static_bytes", "registers"} as its library was built with this
+        sweep's ``defines`` (``vde_<model>_traits``)."""
+        key = ("traits", self.defines)
+        if key not in self._team:
+            lib = _lib(self.f.cuda_source, self.defines)
+            fn = getattr(lib, f"{_entry_name(self.f)}_traits")
+            fn.argtypes, fn.restype = [ctypes.POINTER(_I)], _I
+            out = (_I * 6)()
+            if err := fn(out):
+                raise RuntimeError(f"{fn.__name__}: {lib.error_string(err).decode()}")
+            self._team[key] = dict(zip(("team", "row_warps", "min_blocks", "cols",
+                                        "static_bytes", "registers"), out))
+        return self._team[key]
+
+    def geometry(self, batch, N=None):
+        """The team path's :func:`vde_geometry` at ``batch`` scenarios of
+        ``N`` stages (the sweep's horizon by default)."""
+        key = (self.defines, batch, self.N if N is None else N)
+        if key not in self._team:
+            t = self.team_traits()
+            self._team[key] = vde_geometry(batch, key[2], self.nx, self.nu, t["team"],
+                                           t["row_warps"], t["min_blocks"],
+                                           t["static_bytes"])
+        return self._team[key]
+
+    def occupancy(self, batch, N=None):
+        """Blocks of the team path's :meth:`geometry` resident on one SM of
+        the current device (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+        geo = self.geometry(batch, N)
+        lib = _lib(self.f.cuda_source, self.defines)
+        fn = getattr(lib, f"{_entry_name(self.f)}_occupancy")
+        fn.argtypes, fn.restype = [_I, _I], _I
+        n = fn(geo.threads, geo.shared_bytes)
+        if n < 0:
+            raise RuntimeError(f"{fn.__name__}: {lib.error_string(-n).decode()}")
+        return n
 
     def plain(self, xs, us, ps):
         """:func:`vde_plain` with this sweep's dynamics and step."""
@@ -160,9 +277,13 @@ class VDE(nn.Module):
         A = torch.empty((B, N, nx, nx), dtype=torch.float32, device=xs.device)
         Bm = torch.empty((B, N, nx, nu), dtype=torch.float32, device=xs.device)
         c = torch.empty((B, N, nx), dtype=torch.float32, device=xs.device)
+        geometry = ()
+        if _is_team(self.f):
+            geo = self.geometry(B, N)
+            geometry = (geo.grid, geo.threads, geo.shared_bytes)
         _run(fn, error_string, self.f, xs.device, xs.data_ptr(), us.data_ptr(),
              ps.data_ptr(), A.data_ptr(), Bm.data_ptr(), c.data_ptr(), B, N,
-             nx, nu, ps.shape[-1], self.dt, self.rk4_steps)
+             nx, nu, ps.shape[-1], *geometry, self.dt, self.rk4_steps)
         self.launches += 1
         return A, Bm, c
 

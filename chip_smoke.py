@@ -521,8 +521,29 @@ def vde_case(torch, out, key, cases, dt, xs, us, atol, flops_per_stage=None,
     out[key] = {"cases": rows, "bytes": n_bytes, "flops": n_flops,
                 "bound_ms": bms, "bound_by": by, "ptxas": ptxas,
                 "functor": dyn.cuda_functor, "resources": res}
+    if getattr(dyn, "cuda_team", False):
+        out[key]["team"] = team_geometry(make_vde(dyn, dt, N, nx, nu, ps.shape[-1],
+                                                  device="cuda"), key, B, N)
     return first | res | {"bound_ms": bms, "bound_by": by, "max_abs_err": max(
         r["max_abs_err"] for r in rows.values()), "source": functor_source(dyn)}
+
+
+def team_geometry(vde, key, B, N):
+    """A team functor's launch (``cuda_vde.vde_geometry``) at B x N rows and
+    its blocks resident per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    printed beside its registers."""
+    geo, traits = vde.geometry(B, N), vde.team_traits()
+    blocks = vde.occupancy(B, N)
+    warps = blocks * geo.threads // 32
+    print(f"{key}: team of {geo.team} lanes per row, {geo.cols} tangent columns "
+          f"per lane, {geo.rows_per_block} rows per block of {geo.threads} "
+          f"threads, grid {geo.grid}, {geo.block_bytes} shared bytes per block; "
+          f"{traits['registers']} registers (capped at {geo.max_registers} for "
+          f"{traits['min_blocks']} blocks per SM); {blocks} blocks, {warps} "
+          f"warps resident per SM")
+    return geo._asdict() | {"registers": traits["registers"],
+                            "min_blocks": traits["min_blocks"],
+                            "blocks_per_sm": blocks, "warps_per_sm": warps}
 
 
 def bicycle_cases(torch, B):

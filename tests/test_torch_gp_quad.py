@@ -281,7 +281,7 @@ def test_gp_quad_functor_params():
     scalars, then n, then the table at the source's capacity (3,208 bytes)."""
     src = "\n".join(p.read_text() for p in sorted(
         (REPO / "ad_mpc_tpu_torch" / "csrc").glob("vde*")))
-    assert re.search(r"\bVDE_ENTRIES\(gp_quad, GPQuadDyn, GPQuadParamsC\)", src)
+    assert re.search(r"\bVDE_TEAM_ENTRIES\(gp_quad, GPQuadDyn, GPQuadParamsC\)", src)
     cap = re.search(r"constexpr int GP_QUAD_POINTS = (\d+);(?s:.*)"
                     r"constexpr int GP_QUAD_DIMS = (\d+), GP_QUAD_FEATS = (\d+);",
                     "\n".join(p.read_text() for p in (

@@ -19,7 +19,7 @@ from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.control.mpc import bicycle_spec
 from ad_mpc_tpu_torch.experiments import capture, long_horizon, mxu_riccati, quad_fleet
 from ad_mpc_tpu_torch.experiments.c2_kernels import (
-    c3_c4_bits, c5_bits, c6_bits, digest, quad_mpc_bits)
+    c3_c4_bits, c5_bits, c6_bits, digest, other_functor_bits, quad_mpc_bits)
 from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver
@@ -319,8 +319,9 @@ def _quad_traj(B, N, device, seed=13):
 
 @pytest.mark.parametrize("B", [1, RAGGED_B])
 def test_vde_quad_kernel_matches_plain(cuda, B):
-    """B*N = 10 and 370 rows: one partial warp, and a ragged last warp of
-    the one-warp blocks; p_dim = 0, so the kernel gets a null ps."""
+    """The team sweep (``vde_team``) at B*N = 10 and 370 rows: one partial
+    block, and a ragged last block; p_dim = 0, so the kernel gets a null
+    ps."""
     N = 10
     xs, us, ps = _quad_traj(B, N, cuda)
     vde = make_vde(QUAD, 0.1, N, 13, 4, 0, device=cuda)
@@ -452,24 +453,63 @@ def test_lq_layout_matches_the_kernel(cuda, shape):
                 cuda_lq.scenario_floats(N, nx, nu, nc)
 
 
-def test_quad_kernels_repeat_their_bits(cuda):
-    xs, us, ps = _quad_traj(RAGGED_B, 10, cuda, seed=8)
+@pytest.mark.parametrize("B", [1, RAGGED_B])
+def test_quad_kernels_repeat_their_bits(cuda, B):
+    """A relaunch repeats each c5 kernel's bits and the GP quad's team
+    sweep's, at one partial block (B=1) and at a ragged last block."""
+    xs, us, ps = _quad_traj(B, 10, cuda, seed=8)
     vde = make_vde(QUAD, 0.1, 10, 13, 4, 0, device=cuda)
+    gp = make_vde(_gp_quad(False), 0.1, 10, 13, 4, 0, device=cuda)
     rk4 = make_rk4(QUAD, 0.1, 13, 4, 0, device=cuda)
     qp = _quad_qp(cuda)
     args = [torch.as_tensor(a, device=cuda)
-            for a in random_lq(np.random.default_rng(7), RAGGED_B, 10, 13, 4)]
-    for call in (lambda: vde(xs, us, ps), lambda: (rk4.defect(xs, us, ps),),
+            for a in random_lq(np.random.default_rng(7), B, 10, 13, 4)]
+    for call in (lambda: vde(xs, us, ps), lambda: gp(xs, us, ps),
+                 lambda: (rk4.defect(xs, us, ps),),
                  lambda: (rk4(xs[:, 0], us[:, 0], ps),), lambda: qp(*args)):
         first, second = call(), call()
         assert all(torch.equal(a, b) for a, b in zip(first, second))
-    assert vde.launches == 2 and rk4.launches == 4 and qp.launches == 2
+    assert vde.launches == gp.launches == 2 and rk4.launches == 4 and qp.launches == 2
+
+
+@pytest.mark.parametrize("gp", [False, True], ids=["quad", "gp_quad"])
+def test_team_sweep_takes_only_its_geometry(cuda, gp):
+    """The team functors' C entry launches the geometry ``vde_geometry``
+    computes from the traits it was built with and refuses any other (a
+    grid, a block or a tile other than the kernel's); the kernel's
+    registers stay under the launch bounds' cap and MIN_BLOCKS blocks fit
+    an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    dyn = _gp_quad(False) if gp else QUAD
+    B, N = RAGGED_B, 10
+    xs, us, ps = _quad_traj(B, N, cuda)
+    vde = make_vde(dyn, 0.1, N, 13, 4, 0, device=cuda)
+    geo, traits = vde.geometry(B), vde.team_traits()
+    assert traits["registers"] <= geo.max_registers
+    assert vde.occupancy(B) >= traits["min_blocks"]
+    out = [torch.empty(s, device=cuda) for s in ((B, N, 13, 13), (B, N, 13, 4), (B, N, 13))]
+    fn, _ = _entry(dyn)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+
+    def launch(grid, threads, nbytes):
+        return fn(xs.data_ptr(), us.data_ptr(), ps.data_ptr(),
+                  *(o.data_ptr() for o in out), B, N, 13, 4, 0, grid, threads,
+                  nbytes, 0.1, 1, dyn.cuda_params(), stream)
+
+    assert launch(geo.grid, geo.threads, geo.shared_bytes) == 0
+    torch.cuda.synchronize()
+    for o, w in zip(out, vde(xs, us, ps)):
+        assert torch.equal(o, w)
+    for bad in ((geo.grid + 1, geo.threads, geo.shared_bytes),
+                (geo.grid, geo.threads // 2, geo.shared_bytes),
+                (geo.grid, geo.threads, geo.shared_bytes - 16)):
+        assert launch(*bad) != 0
 
 
 def test_quad_kernels_refuse_another_shape(cuda):
     """A sweep of another (nx, nu) than its functor's is refused by the
-    wrapper and by the C entry, which also refuses fewer parameter entries
-    than its functor reads; the LQ kernel has no 13x2 instantiation."""
+    wrapper and by the C entry (the quad's team entry given its own launch
+    geometry), which also refuses fewer parameter entries than its functor
+    reads; the LQ kernel has no 13x2 instantiation."""
     with pytest.raises(ValueError):
         make_vde(QUAD, 0.1, 10, 7, 2, 0, device=cuda)
     with pytest.raises(ValueError):
@@ -480,11 +520,14 @@ def test_quad_kernels_refuse_another_shape(cuda):
     Bm = torch.empty((B, N, 13, 4), device=cuda)
     c = torch.empty((B, N, 13), device=cuda)
     stream = torch.cuda.current_stream(cuda).cuda_stream
+    geo = make_vde(QUAD, 0.1, N, 13, 4, 0, device=cuda).geometry(B)
     for f, nx, nu, pd in ((QUAD, 7, 2, 0), (QUAD, 13, 2, 0),
                           (fleet.dynamic_bicycle, 7, 2, 0)):
         fn, _ = _entry(f)
+        launch = (geo.grid, geo.threads, geo.shared_bytes) if f is QUAD else ()
         err = fn(xs.data_ptr(), us.data_ptr(), None, A.data_ptr(), Bm.data_ptr(),
-                 c.data_ptr(), B, N, nx, nu, pd, 0.1, 1, f.cuda_params(), stream)
+                 c.data_ptr(), B, N, nx, nu, pd, *launch, 0.1, 1, f.cuda_params(),
+                 stream)
         assert err != 0
     Q, R = np.eye(13), np.eye(2)
     qp = make_lq_solver(6, 13, 2, Q, R, Q, *BOUNDS["unit"](13, 2), iters=2,
@@ -623,11 +666,14 @@ def test_c3_c4_kernels_keep_their_bits(cuda):
 
 
 # sha256 of the c6 functor's outputs on the fixed draws of
-# ``experiments/c2_kernels.py:c6_bits``, as the kernels gave them before
-# GPQuadDyn's means cache and rotation were shared with GPQuadDualDyn (that
-# function run on that tree and on this one, on one card).
-C6_BITS = {"vde_gp_quad_n32": "6d7be73b6e468547", "rk4_gp_quad_n32": "59b2ab82177f4066",
-           "vde_gp_quad_fitted": "b88df69fcf79e808",
+# ``experiments/c2_kernels.py:c6_bits``: the RK4 map's as the kernels gave
+# them before GPQuadDyn's means cache and rotation were shared with
+# GPQuadDualDyn (that function run on that tree and on this one, on one
+# card); the sweep's as its team design gives them, whose FMA contractions
+# differ from the thread-per-row passes' (their digests 6d7be73b6e468547 and
+# b88df69fcf79e808; the function run on both trees, on one card; PERF.md).
+C6_BITS = {"vde_gp_quad_n32": "cc52c0bf272276d6", "rk4_gp_quad_n32": "59b2ab82177f4066",
+           "vde_gp_quad_fitted": "b70638b439a31889",
            "rk4_gp_quad_fitted": "d40b726b227d43c3"}
 
 
@@ -645,6 +691,29 @@ QUAD_MPC_BITS = {"vde_quad_drag": "e7e3c488625cec84", "rk4_quad_drag": "58aa604a
 
 def test_quad_mpc_kernels_keep_their_bits(cuda):
     assert quad_mpc_bits(cuda) == QUAD_MPC_BITS
+
+
+# sha256 of the outputs of the functors that keep the thread-per-row sweep
+# and are in none of the sets above, on the fixed draws of
+# ``experiments/c2_kernels.py:other_functor_bits``, as the kernels gave them
+# before the quads' team sweep (that function run on that tree and on this
+# one, on one card).
+OTHER_BITS = {"vde_gp_routed": "5d6e693f2d06a3f9",
+              "rk4_gp_routed": "50e387a3f50f692e",
+              "vde_gp_quad_routed": "3f0511d38a03bca7",
+              "rk4_gp_quad_routed": "7be0891a60486384",
+              "vde_gp_quad_dual_drag": "6cb4c60dd64bf32c",
+              "rk4_gp_quad_dual_drag": "0e768636f14e1c41",
+              "vde_gp_quad_select_c2": "98b0e5a2e0556a14",
+              "rk4_gp_quad_select_c2": "38f2585b9bbbf5b2",
+              "vde_gp_quad_select_c2_pinned": "8c9394281d2fe44e",
+              "rk4_gp_quad_select_c2_pinned": "97bb2d0d87c1bd40",
+              "vde_gp_quad_select_c2_drag": "945d6af993ec2e89",
+              "rk4_gp_quad_select_c2_drag": "0ea3d41bf21a8b87"}
+
+
+def test_other_functors_keep_their_bits(cuda):
+    assert other_functor_bits(cuda) == OTHER_BITS
 
 
 def _gp_quad(fitted):
@@ -1274,13 +1343,16 @@ def test_gp_quad_routed_refuses_a_p_of_another_width(cuda):
 def test_routed_one_cluster_tick_matches_gp_quad_tick(cuda):
     """The fitted one-cluster model routed through p gives the c6-fitted
     tick through ``GPQuadDyn`` (the same means, in the same order): u0
-    within 1e-5 after one tick at B=256, the sweeps' bits equal. The two
-    functors' RK4 maps on the tick's states and inputs are each held to
-    the float64 plain version with its float32 spread, and to each other
-    within ``testing.RK4_PAIR_TOL``: the fitted model's terms of up to
-    2,755 sum to means under 6, so the two maps' float32 rounding moves a
-    step by up to about 7e-5, and later ticks start from states that
-    differ by that much."""
+    within 1e-5 after one tick at B=256. The two functors' RK4 maps on the
+    tick's states and inputs are each held to the float64 plain version
+    with its float32 spread, and to each other within
+    ``testing.RK4_PAIR_TOL``: the fitted model's terms of up to 2,755 sum to
+    means under 6, so the two maps' float32 rounding moves a step by up to
+    about 7e-5, and later ticks start from states that differ by that much.
+    Their sweeps (the routed functor's thread-per-row passes, ``GPQuadDyn``'s
+    team, whose FMA contractions differ) are each held to the float64 plain
+    version with its float32 spread (``testing.f64_anchored``), the check of
+    the fitted model's kernels."""
     from ad_mpc_tpu_torch.experiments.routed_fleet import (
         body_velocities, build_routed_quad_fleet)
     from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
@@ -1300,11 +1372,10 @@ def test_routed_one_cluster_tick_matches_gp_quad_tick(cuda):
         dyn, pack(body_velocities(x)), GPQuadDynamics(ens), x.new_zeros((256, 0)), x, u, 0.1)
     assert held and diff <= RK4_PAIR_TOL, (diff, err_r, err_b, spread)
     xs, us, _ = _quad_traj(64, 10, cuda)
-    ps = pack(body_velocities(xs[:, 0]))
-    got = make_vde(dyn, 0.1, 10, 13, 4, p_dim, device=cuda)(xs, us, ps)
-    want = make_vde(GPQuadDynamics(ens), 0.1, 10, 13, 4, 0, device=cuda)(
-        xs, us, torch.zeros((64, 0), device=cuda))
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for f, ps in ((dyn, pack(body_velocities(xs[:, 0]))),
+                  (GPQuadDynamics(ens), torch.zeros((64, 0), device=cuda))):
+        _hold_to_plain(f, _new_functor_outputs(f, xs, us, ps, cuda), (xs, us, ps),
+                       anchored=True)
 
 
 def test_mission_launches_and_host_syncs_on_card(cuda):

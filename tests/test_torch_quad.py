@@ -315,7 +315,7 @@ def test_quad_functor_params():
     scalars."""
     csrc = Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
     src = "\n".join(p.read_text() for p in sorted(csrc.glob("vde*")))
-    assert re.search(r"\bVDE_ENTRIES\(quad, QuadDyn, QuadParamsC\)", src)
+    assert re.search(r"\bVDE_TEAM_ENTRIES\(quad, QuadDyn, QuadParamsC\)", src)
     body = re.sub(r"//[^\n]*", "",
                   re.search(r"struct QuadParamsC \{(.*?)\};", src, re.S).group(1))
     names = [n.strip().split("[")[0] for line in body.split(";") if line.strip()
