@@ -41,7 +41,9 @@
 //     registers and no spill once the divisions are branch-free, 8 warps
 //     per SM; 3 passes of 3 and 2 of 5 + 4 took 8% and 4% longer, and a
 //     warp per pass 60-80% (PERF.md).
-//   - The quads (QuadDyn, GPQuadDyn) run a team of lanes per row instead
+//   - The quads (QuadDyn, GPQuadDyn, and QuadMPC's GPQuadDualDyn,
+//     GPQuadDualDragDyn and GPQuadSelectDyn, whose table of every cluster
+//     the block stages after its tile) run a team of lanes per row instead
 //     (ROW_TEAM, vde_team). In the thread-per-row design their 17 tangents
 //     took 3 passes of 6 (the quad: 255 registers, 456 B spilled, a 29,952
 //     B tile per warp, so 7 warps per SM) or 6 of 3 (the GP quad, whose
@@ -53,9 +55,9 @@
 //     in one pass, and carries the primal in lockstep (the same float
 //     arithmetic in every lane, so no pass recomputes it). Fewer live
 //     floats per lane let MIN_BLOCKS, a trait, cap the registers through
-//     __launch_bounds__ for more warps per SM; the GP quad's 3 output dims
+//     __launch_bounds__ for more warps per SM; a GP quad's 3 output dims
 //     sum their means in 3 lanes of the team at once and broadcast them
-//     by __shfl_sync, each sum in the plain version's order. A block's
+//     by __shfl_sync, each sum in the order of the points. A block's
 //     rows lie in one tile, which one thread copies out by three
 //     cp.async.bulk copies (VDE_BULK_STORE; the block's 16-byte stores are
 //     the measured alternative). Tensor cores (wgmma, mma) do not apply: the
@@ -90,7 +92,8 @@
 // same address (indexed reads of the parameter space cost the RK4 kernel
 // 10x its time, PERF.md): a functor with STAGES copies its table from its
 // parameters (stage()); one with table_floats() from a device buffer into
-// dynamic shared memory (dyn_table); one with P_ROWS (the parameter-routed
+// dynamic shared memory (dyn_table: a team functor's, after the block's
+// tile; the RK4 map's, alone); one with P_ROWS (the parameter-routed
 // GPs, whose table is the scenario's own parameter row) has the p rows of
 // the block's scenarios copied there (dyn_rows) where a scenario owns
 // several rows (rows_staged), and its context points at its scenario's
@@ -274,9 +277,8 @@ DI float value(const Dual<NT>& a) { return a.v; }
 // ------------------------------------------------------------- functor traits
 
 // A functor with a table in dynamic shared memory (GPQuadDualDyn,
-// GPQuadSelectDyn): the
-// kernels stage it after their own shared memory and hand each thread's
-// context its address.
+// GPQuadSelectDyn; team functors): the kernels stage it after their own
+// shared memory and hand each thread's context its address.
 template <class Dyn, class = void>
 struct dyn_table : std::false_type {};
 template <class Dyn>
@@ -536,7 +538,8 @@ DI void rk4_team(const float* xk, int j0, Dual<NT>* x, const Dual<NT>* u,
 // one pass. Every lane carries the primal in lockstep with its columns (the
 // same float arithmetic in each), so no pass recomputes it; lane 0 writes
 // c. A ragged last block computes clamped duplicates of the last row and
-// copies only its own rows.
+// copies only its own rows. A dyn_table functor's table is staged after
+// the block's tile, and every lane's context points at it.
 template <class Dyn>
 DI void vde_team(float* tile, const float* __restrict__ xs, const float* __restrict__ us,
                  const float* __restrict__ ps, float* __restrict__ A,
@@ -547,9 +550,8 @@ DI void vde_team(float* tile, const float* __restrict__ xs, const float* __restr
   constexpr int NU = Dyn::NU;
   static_assert(WARP % S::TEAM == 0, "a team lies within a warp");
   static_assert(S::ROWS % 4 == 0, "a block's rows start on 16 bytes in A, Bm and c");
-  static_assert(!dyn_table<Dyn>::value && !dyn_rows<Dyn>::value &&
-                    Dyn::CACHE_FLOATS == 0,
-                "the team path stages no table, p rows or cache");
+  static_assert(!dyn_rows<Dyn>::value && Dyn::CACHE_FLOATS == 0,
+                "the team path stages no p rows and keeps no cache");
   const int slot = threadIdx.x / S::TEAM, j0 = (threadIdx.x % S::TEAM) * S::COLS;
   const long long rows = (long long)batch * N;
   const long long row0 = (long long)blockIdx.x * S::ROWS;
@@ -564,7 +566,13 @@ DI void vde_team(float* tile, const float* __restrict__ xs, const float* __restr
 #pragma unroll
     for (int t = 0; t < S::COLS; ++t) u[i].d[t] = (NX + i == j0 + t) ? 1.0f : 0.0f;
   }
-  const typename Dyn::Ctx ctx = f.context(ps + b * pd);
+  typename Dyn::Ctx ctx = f.context(ps + b * pd);
+  if constexpr (dyn_table<Dyn>::value) {
+    float* table = tile + S::TILE;
+    f.stage_to(table);
+    __syncthreads();
+    f.use_table(ctx, table);
+  }
 
   rk4_team(xk, j0, x, u, ctx, f, st);
 
@@ -620,8 +628,8 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   constexpr int TILE_C = TILE_B + WARP * NX * NU;
   constexpr int TILE = vde_tile<Dyn>();
   static_assert(TILE % 4 == 0, "tiles start on 16 bytes");
-  // ROW_WARPS tiles, then the functor's cache, then its table (dyn_table) or
-  // the block's p rows (dyn_rows); a team functor's block tile (vde_team)
+  // ROW_WARPS tiles, then the functor's cache, then the block's p rows
+  // (dyn_rows); a team functor's block tile, then its table (vde_team)
   extern __shared__ float4 smem[];
   float* const table =
       reinterpret_cast<float*>(smem) + ROW_WARPS * (TILE + WARP * Dyn::CACHE_FLOATS);
@@ -632,12 +640,8 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   if constexpr (row_team<Dyn>::value > 1) {
     vde_team(reinterpret_cast<float*>(smem), xs, us, ps, A, Bm, c, batch, N, pd, st, f);
   } else {
-    if constexpr (dyn_table<Dyn>::value) {
-      f.stage_to(table);
-      __syncthreads();
-    }
-    static_assert(!(dyn_table<Dyn>::value && dyn_rows<Dyn>::value),
-                  "one table in dynamic shared memory");
+    static_assert(!dyn_table<Dyn>::value,
+                  "a table in dynamic shared memory takes the team path");
 
     const int warp = threadIdx.x / WARP, lane = threadIdx.x % WARP;
     float* tile = reinterpret_cast<float*>(smem) + warp * TILE;
@@ -670,7 +674,6 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
       if (rows_staged(N)) prow = table + (b - b_first) * pd;
     }
     typename Dyn::Ctx ctx = f.context(prow);
-    if constexpr (dyn_table<Dyn>::value) f.use_table(ctx, table);
     if constexpr (Dyn::CACHE_FLOATS > 0)
       f.use_cache(ctx, reinterpret_cast<float*>(smem) + ROW_WARPS * TILE + threadIdx.x,
                   4 * st.n);
@@ -786,12 +789,10 @@ static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
   if (rows == 0) return cudaSuccess;
   constexpr int RW = Dyn::ROW_WARPS;
   // A tile per warp, then CACHE_FLOATS per thread for the functor, then its
-  // table or its block's p rows (the limit of a dyn_table or dyn_rows
-  // functor's kernels is set once, by vde_prepare).
+  // block's p rows (the limit of a dyn_rows functor's kernels is set once,
+  // by vde_prepare).
   size_t bytes = sizeof(float) * RW * (vde_tile<Dyn>() + WARP * Dyn::CACHE_FLOATS);
-  if constexpr (dyn_table<Dyn>::value) {
-    bytes += sizeof(float) * f.table_floats();
-  } else if constexpr (dyn_rows<Dyn>::value) {
+  if constexpr (dyn_rows<Dyn>::value) {
     if (rows_staged(N)) bytes += sizeof(float) * pd * block_scenarios(RW * WARP, N, batch);
     static const int limit = rows_limit((const void*)vde_kernel<Dyn>);
     if (bytes > (size_t)limit) return cudaErrorInvalidValue;
@@ -808,8 +809,8 @@ static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
 
 // A team functor's sweep, launched with the geometry the wrapper computed
 // (ops/cuda_vde.py:vde_geometry): refused unless it is the functor's, so
-// that the launch bounds, the block's rows and its tile agree with the
-// kernel's.
+// that the launch bounds, the block's rows and its tile (and a dyn_table
+// functor's table after it) agree with the kernel's.
 template <class Dyn>
 static cudaError_t launch_vde_team(const float* xs, const float* us, const float* ps,
                                    float* A, float* Bm, float* c, int batch, int N,
@@ -820,7 +821,9 @@ static cudaError_t launch_vde_team(const float* xs, const float* us, const float
   if (!shape_ok<Dyn>(nx, nu, pd, steps)) return cudaErrorInvalidValue;
   const long long rows = (long long)batch * N;
   if (rows == 0) return cudaSuccess;
-  if (threads != Dyn::ROW_WARPS * WARP || bytes != (int)sizeof(float) * S::TILE ||
+  int floats = S::TILE;
+  if constexpr (dyn_table<Dyn>::value) floats += f.table_floats();
+  if (threads != Dyn::ROW_WARPS * WARP || bytes != (int)sizeof(float) * floats ||
       grid != (rows + S::ROWS - 1) / S::ROWS)
     return cudaErrorInvalidValue;
   vde_kernel<Dyn><<<(unsigned)grid, threads, bytes, (cudaStream_t)stream>>>(
@@ -853,13 +856,18 @@ static int team_occupancy(int threads, int bytes) {
   return err == cudaSuccess ? n : -(int)err;
 }
 
-// Let a team functor's sweep take its block tile's shared memory (at the
-// library's first load, so that no launch sets an attribute and a launch
-// may be captured in a CUDA graph).
+// Let a team functor's sweep take its block tile's shared memory, and a
+// dyn_table functor's kernels the shared memory of its largest table
+// (`table` floats) besides (at the library's first load, so that no launch
+// sets an attribute and a launch may be captured in a CUDA graph).
 template <class Dyn>
-static cudaError_t prepare_team() {
-  return cudaFuncSetAttribute(vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)sizeof(float) * TeamShape<Dyn>::TILE);
+static cudaError_t prepare_team(int table = 0) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)sizeof(float) * (TeamShape<Dyn>::TILE + table));
+  if (err != cudaSuccess || table == 0) return err;
+  return cudaFuncSetAttribute(rk4_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(float) * table);
 }
 
 template <class Dyn>
@@ -946,21 +954,6 @@ static cudaError_t launch_rk4(const float* xs, long long xs_b, const float* us,
     return team_occupancy<Dyn>(threads, bytes);                              \
   }                                                                          \
   RK4_ENTRY(model, Dyn, ParamsC)
-
-// Let a dyn_table functor's kernels take the shared memory of its largest
-// table (`table` floats; at the library's first load, so that no launch
-// sets an attribute and a launch may be captured in a CUDA graph).
-template <class Dyn>
-static cudaError_t prepare_table(int table) {
-  const int vde_bytes = (int)(sizeof(float) * (Dyn::ROW_WARPS * (vde_tile<Dyn>() +
-                                                                 WARP * Dyn::CACHE_FLOATS) +
-                                               table));
-  const cudaError_t err = cudaFuncSetAttribute(
-      vde_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize, vde_bytes);
-  if (err != cudaSuccess) return err;
-  return cudaFuncSetAttribute(rk4_kernel<Dyn>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(sizeof(float) * table));
-}
 
 // Let a dyn_rows functor's kernels take the most dynamic shared memory the
 // device allows (at the library's first load, so that no launch sets an

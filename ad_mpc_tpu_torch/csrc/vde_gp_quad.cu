@@ -59,11 +59,9 @@ __shared__ float gp_quad_table[GP_QUAD_TABLE];
 // rotation is held in registers. The sweep runs a team of ROW_TEAM lanes
 // per row (vde.cuh: vde_team), every lane on the same primal: at each
 // evaluation lanes 0-2 of the team each sum one output dim's mean and
-// gradient over the training points in gp_table_mean's order (one sum is
-// never split across lanes: the fitted model's terms reach 2,755 and
-// cancel to under 6), and the team reads the 3 means and their 3 x 3
-// gradients from them by __shfl_sync. The RK4 map (T = float) computes the
-// 3 sums itself.
+// gradient over the training points in gp_table_mean's order, and the
+// team reads the 3 means and their 3 x 3 gradients from them
+// (team_means). The RK4 map (T = float) computes the 3 sums itself.
 struct GPQuadDyn {
   static constexpr int NX = 13, NU = 4, NP = 0;
   static constexpr int ROW_TEAM = GP_QUAD_ROW_TEAM;
@@ -71,7 +69,6 @@ struct GPQuadDyn {
   static constexpr int MIN_BLOCKS = GP_QUAD_MIN_BLOCKS;
   static constexpr bool STAGES = true;
   static constexpr int CACHE_FLOATS = 0;
-  static_assert(ROW_TEAM >= GP_QUAD_DIMS, "a lane of the team per output dim");
   using Ctx = const float*;
   GPQuadParamsC P;
 
@@ -110,16 +107,7 @@ struct GPQuadDyn {
             gp_quad_table + GP_QUAD_A + d * GP_QUAD_A_DIM, P.n, P.inv_l[d],
             P.y_mean[d], z, g[d]);
     } else {
-      const int d = threadIdx.x % ROW_TEAM;
-      float m = 0.0f, gd[GP_QUAD_FEATS] = {};
-      if (d < GP_QUAD_DIMS) m = mean(d, z, gd);
-#pragma unroll
-      for (int e = 0; e < GP_QUAD_DIMS; ++e) {
-        mu[e] = __shfl_sync(0xffffffffu, m, e, ROW_TEAM);
-#pragma unroll
-        for (int k = 0; k < GP_QUAD_FEATS; ++k)
-          g[e][k] = __shfl_sync(0xffffffffu, gd[k], e, ROW_TEAM);
-      }
+      team_means<ROW_TEAM>(true, [&](int d, float* gd) { return mean(d, z, gd); }, mu, g);
     }
   }
 

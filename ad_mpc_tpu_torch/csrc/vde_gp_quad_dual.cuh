@@ -7,11 +7,14 @@
 
 #pragma once
 
-#ifndef GP_QUAD_DUAL_TANGENTS_PER_PASS
-#define GP_QUAD_DUAL_TANGENTS_PER_PASS 3
+#ifndef GP_QUAD_DUAL_ROW_TEAM
+#define GP_QUAD_DUAL_ROW_TEAM 4
 #endif
 #ifndef GP_QUAD_DUAL_ROW_WARPS
-#define GP_QUAD_DUAL_ROW_WARPS 2
+#define GP_QUAD_DUAL_ROW_WARPS 4
+#endif
+#ifndef GP_QUAD_DUAL_MIN_BLOCKS
+#define GP_QUAD_DUAL_MIN_BLOCKS 2
 #endif
 
 #include "vde_models.cuh"
@@ -44,25 +47,31 @@ static bool params_ok(const GPQuadDualParamsC& P, int pd) {
 // (ad_mpc_tpu/control/mpc.py:264-283): each scenario's p is [trigger,
 // mu0 (D), cluster (D)]. With trigger > 0.5 (node 0) the body-frame means
 // are the constants mu0, whose derivative in x is 0: the residual's
-// Jacobian is (dR/dq) mu0 alone, and no GP mean is computed, stored or
-// read. Otherwise each output's mean comes from the cluster its p names
-// (truncated as .astype(int32) truncates, clamped to the table as a JAX
-// gather clamps) at the body-frame velocities, lifted as GPQuadDyn lifts
-// it, its means cached by the first pass for the later ones. The table of
-// every cluster lies in dynamic shared memory (staged once per block), so
-// the scenarios of a block may each read another cluster. With Drag
-// (QuadMPC's rdrv_d beside ensemble=), the RDRv drag is added before the
-// GP (gp_quad_rows). The drag is a template argument and not a run-time
-// flag, since a branch on the flag stops the drag-free rows' products
-// from contracting into one FMA and so changes their bits.
+// Jacobian is (dR/dq) mu0 alone, and no GP mean is computed. Otherwise
+// each output's mean comes from the cluster its p names (truncated as
+// .astype(int32) truncates, clamped to the table as a JAX gather clamps)
+// at the body-frame velocities, lifted as GPQuadDyn lifts it. The table
+// of every cluster lies in dynamic shared memory (staged once per block),
+// so the scenarios of a block may each read another cluster. The sweep
+// runs a team of ROW_TEAM lanes per row, as GPQuadDyn's (vde.cuh:
+// vde_team): lanes 0-2 of the team each sum one output dim's mean over
+// its cluster's points (team_means); the trigger is uniform within a
+// team, not across the teams of a warp, so every lane reaches the
+// shuffles and a trigger row takes mu0 after them. The RK4 map (T =
+// float) computes the 3 sums itself. With Drag (QuadMPC's rdrv_d beside
+// ensemble=), the RDRv drag is added before the GP (gp_quad_rows). The
+// drag is a template argument and not a run-time flag, since a branch on
+// the flag stops the drag-free rows' products from contracting into one
+// FMA and so changes their bits.
 template <bool Drag>
 struct GPQuadDualDynT {
   static constexpr int NX = 13, NU = 4, NP = 3;  // NP: the least p (D = 1)
-  static constexpr int TANGENTS_PER_PASS = GP_QUAD_DUAL_TANGENTS_PER_PASS;
+  static constexpr int ROW_TEAM = GP_QUAD_DUAL_ROW_TEAM;
   static constexpr int ROW_WARPS = GP_QUAD_DUAL_ROW_WARPS;
+  static constexpr int MIN_BLOCKS = GP_QUAD_DUAL_MIN_BLOCKS;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = GP_QUAD_CACHE_EVALS * GP_QUAD_EVAL;
-  struct Ctx : GPQuadCache {
+  static constexpr int CACHE_FLOATS = 0;
+  struct Ctx {
     const float* tab = nullptr;  // the staged table
     bool trigger = false;
     float mu0[3] = {0.0f, 0.0f, 0.0f};  // by body velocity
@@ -95,21 +104,43 @@ struct GPQuadDualDynT {
 
   DI void use_table(Ctx& c, const float* tab) const { c.tab = tab; }
 
-  DI void use_cache(Ctx& c, float* slot, int evals) const { c.use(slot, evals); }
-
-  DI void means(const Ctx& c, const float* z, float* mu,
-                float (*g)[GP_QUAD_FEATS]) const {
-    const GPDualTable t{c.tab, P.clusters, P.n};
-#pragma unroll
-    for (int d = 0; d < 3; ++d)
-      mu[d] = gp_table_mean<GP_QUAD_FEATS>(t.X(d, c.cl[d]), t.a(d, c.cl[d]), P.n,
-                                           t.inv_l(d, c.cl[d]), t.y_mean(d, c.cl[d]),
-                                           z, g[d]);
+  // Output dim d's mean and gradient at the body velocity z, from its
+  // cluster.
+  DI float mean(const Ctx& c, int d, const float* z, float* g) const {
+    const GPDualTable t(c.tab, P.clusters, P.n);
+    const int cl = pick3(c.cl, d);
+    return gp_table_mean<GP_QUAD_FEATS>(t.X(d, cl), t.a(d, cl), P.n, t.inv_l(d, cl),
+                                        t.y_mean(d, cl), z, g);
   }
 
   template <class T>
+  DI void means(const Ctx& c, const float* z, float* mu, float (*g)[GP_QUAD_FEATS]) const {
+    if constexpr (std::is_same<T, float>::value) {
+      if (!c.trigger) {
+#pragma unroll
+        for (int d = 0; d < GP_QUAD_DIMS; ++d) mu[d] = mean(c, d, z, g[d]);
+        return;
+      }
+    } else {
+      team_means<ROW_TEAM>(!c.trigger, [&](int d, float* gd) { return mean(c, d, z, gd); },
+                           mu, g);
+      if (!c.trigger) return;
+    }
+#pragma unroll
+    for (int d = 0; d < GP_QUAD_DIMS; ++d) {
+      mu[d] = c.mu0[d];
+#pragma unroll
+      for (int k = 0; k < GP_QUAD_FEATS; ++k) g[d][k] = 0.0f;
+    }
+  }
+
+  // The team's duals sum the means before the quad's rows, while the
+  // evaluation's outputs hold no registers yet; the RK4 map (T = float)
+  // keeps the order of its first design, and its bits.
+  template <class T>
   DI void operator()(const T* x, const T* u, const Ctx& c, T* xd) const {
-    quad_xdot(P.quad, x, u, xd);
+    constexpr bool scalar = std::is_same<T, float>::value;
+    if constexpr (scalar) quad_xdot(P.quad, x, u, xd);
     float q[4], v[3];
 #pragma unroll
     for (int i = 0; i < 4; ++i) q[i] = value(x[3 + i]);
@@ -120,24 +151,15 @@ struct GPQuadDualDynT {
 #pragma unroll
     for (int r = 0; r < 3; ++r) vb[r] = R[0][r] * v[0] + R[1][r] * v[1] + R[2][r] * v[2];
     float mu[GP_QUAD_DIMS], g[GP_QUAD_DIMS][GP_QUAD_FEATS];
-    if (c.trigger) {
-#pragma unroll
-      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
-        mu[d] = c.mu0[d];
-#pragma unroll
-        for (int k = 0; k < GP_QUAD_FEATS; ++k) g[d][k] = 0.0f;
-      }
-    } else {
-      c.template means_of<T, ROW_WARPS * WARP>(
-          [&](float* m, float (*gm)[GP_QUAD_FEATS]) { means(c, vb, m, gm); }, mu, g);
-    }
+    means<T>(c, vb, mu, g);
+    if constexpr (!scalar) quad_xdot(P.quad, x, u, xd);
     if constexpr (Drag) {
       gp_quad_rows(x, q, v, R, vb, mu, g, P.drag, xd);
     } else {
       float res[3];
 #pragma unroll
       for (int r = 0; r < 3; ++r) res[r] = R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2];
-      if constexpr (std::is_same<T, float>::value) {
+      if constexpr (scalar) {
 #pragma unroll
         for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + res[r];
       } else {

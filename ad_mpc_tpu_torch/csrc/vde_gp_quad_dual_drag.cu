@@ -6,11 +6,11 @@
 
 extern "C" {
 
-VDE_ENTRIES(gp_quad_dual_drag, GPQuadDualDragDyn, GPQuadDualParamsC)
+VDE_TEAM_ENTRIES(gp_quad_dual_drag, GPQuadDualDragDyn, GPQuadDualParamsC)
 
-// At the library's first load: the kernels may take the largest table
-// (prepare_table).
-int vde_prepare() { return (int)prepare_table<GPQuadDualDragDyn>(GP_DUAL_TABLE_MAX); }
+// At the library's first load: the sweep may take its tile and the largest
+// table, the RK4 map the largest table (prepare_team).
+int vde_prepare() { return (int)prepare_team<GPQuadDualDragDyn>(GP_DUAL_TABLE_MAX); }
 
 VDE_ERROR_STRING
 

@@ -3,10 +3,20 @@
 // cluster pinned per output) from a table of every cluster, staged from a
 // device buffer into dynamic shared memory.
 
+#ifndef GP_QUAD_SELECT_ROW_TEAM
+#define GP_QUAD_SELECT_ROW_TEAM 4
+#endif
+#ifndef GP_QUAD_SELECT_ROW_WARPS
+#define GP_QUAD_SELECT_ROW_WARPS 4
+#endif
+#ifndef GP_QUAD_SELECT_MIN_BLOCKS
+#define GP_QUAD_SELECT_MIN_BLOCKS 2
+#endif
+
 #include "vde_models.cuh"
 
 // Floats of the largest table: GPQuadDualDyn's, then the centroids.
-constexpr int GP_SELECT_TABLE_MAX = GP_DUAL_TABLE_MAX + 9 * GP_DUAL_CLUSTERS;
+constexpr int GP_SELECT_TABLE_MAX = GP_DUAL_TABLE_MAX + 9 * GP_DUAL_CLUSTERS + 3;
 
 struct GPQuadSelectParamsC {  // by value from the wrapper (models/gp_quad.py)
   QuadParamsC quad;
@@ -19,7 +29,7 @@ struct GPQuadSelectParamsC {  // by value from the wrapper (models/gp_quad.py)
 };
 
 __host__ __device__ constexpr int gp_select_table_floats(int clusters, int n) {
-  return gp_dual_table_floats(clusters, n) + 9 * clusters;
+  return gp_dual_table_floats(clusters, n) + 9 * clusters + 3;
 }
 
 // The layout a launch of GPQuadSelectDyn may take: a table within
@@ -73,17 +83,22 @@ DI int nearest_cluster(const float* cen, int clusters, int d, const float* z) {
 // cluster or the nearest of its centroids to z (nearest_cluster), and its
 // mean and gradient from that cluster, lifted as GPQuadDyn lifts them.
 // The choice is a float function of the primal with zero derivative, as
-// JAX's jacfwd through an integer index gives it, so the first pass's
-// cached means hold for the later passes. With the drag on, the RDRv drag
-// is added before the residual (gp_quad_rows). The table of every
-// cluster lies in dynamic shared memory (staged once per block): C
-// centroid distances per output and evaluation, then one cluster's points.
+// JAX's jacfwd through an integer index gives it. With the drag on, the
+// RDRv drag is added before the residual (gp_quad_rows). The table of
+// every cluster lies in dynamic shared memory (staged once per block): C
+// centroid distances per output and evaluation, then one cluster's
+// points. The sweep runs a team of ROW_TEAM lanes per row, as GPQuadDyn's
+// (vde.cuh: vde_team): lane d < 3 of the team picks output d's cluster and
+// sums its mean (team_means), so that the 3 outputs' centroid scans and
+// sums run at once. The RK4 map (T = float) picks and sums all 3 itself.
 struct GPQuadSelectDyn {
   static constexpr int NX = 13, NU = 4, NP = 0;
-  static constexpr int TANGENTS_PER_PASS = 3, ROW_WARPS = 2;
+  static constexpr int ROW_TEAM = GP_QUAD_SELECT_ROW_TEAM;
+  static constexpr int ROW_WARPS = GP_QUAD_SELECT_ROW_WARPS;
+  static constexpr int MIN_BLOCKS = GP_QUAD_SELECT_MIN_BLOCKS;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = GP_QUAD_CACHE_EVALS * GP_QUAD_EVAL;
-  struct Ctx : GPQuadCache {
+  static constexpr int CACHE_FLOATS = 0;
+  struct Ctx {
     const float* tab = nullptr;  // the staged table
   };
   GPQuadSelectParamsC P;
@@ -101,28 +116,27 @@ struct GPQuadSelectDyn {
 
   DI void use_table(Ctx& c, const float* tab) const { c.tab = tab; }
 
-  DI void use_cache(Ctx& c, float* slot, int evals) const { c.use(slot, evals); }
-
-  DI void means(const Ctx& c, const float* vb, float* mu,
-                float (*g)[GP_QUAD_FEATS]) const {
-    const GPDualTable t{c.tab, P.clusters, P.n};
+  // Output dim d's mean and gradient at the body velocities vb, from its
+  // pinned cluster or the nearest centroid to the features.
+  DI float mean(const Ctx& c, int d, const float* vb, float* g) const {
+    const GPDualTable t(c.tab, P.clusters, P.n);
     float z[3];  // the features in the ensemble's order (no indexed registers)
 #pragma unroll
     for (int j = 0; j < 3; ++j)
       z[j] = P.feat[j] == 0 ? vb[0] : (P.feat[j] == 1 ? vb[1] : vb[2]);
-#pragma unroll
-    for (int d = 0; d < 3; ++d) {
-      const int cl = P.pin[d] >= 0 ? P.pin[d]
-                                   : nearest_cluster(t.centroids(d), P.clusters,
-                                                     P.d_feat, z);
-      mu[d] = gp_table_mean<GP_QUAD_FEATS>(t.X(d, cl), t.a(d, cl), P.n, t.inv_l(d, cl),
-                                           t.y_mean(d, cl), vb, g[d]);
-    }
+    const int pin = pick3(P.pin, d);
+    const int cl = pin >= 0 ? pin : nearest_cluster(t.centroids(d), P.clusters, P.d_feat, z);
+    return gp_table_mean<GP_QUAD_FEATS>(t.X(d, cl), t.a(d, cl), P.n, t.inv_l(d, cl),
+                                        t.y_mean(d, cl), vb, g);
   }
 
+  // The team's duals sum the means before the quad's rows, while the
+  // evaluation's outputs hold no registers yet; the RK4 map (T = float)
+  // keeps the order of its first design, and its bits.
   template <class T>
   DI void operator()(const T* x, const T* u, const Ctx& c, T* xd) const {
-    quad_xdot(P.quad, x, u, xd);
+    constexpr bool scalar = std::is_same<T, float>::value;
+    if constexpr (scalar) quad_xdot(P.quad, x, u, xd);
     float q[4], v[3];
 #pragma unroll
     for (int i = 0; i < 4; ++i) q[i] = value(x[3 + i]);
@@ -133,19 +147,25 @@ struct GPQuadSelectDyn {
 #pragma unroll
     for (int r = 0; r < 3; ++r) vb[r] = R[0][r] * v[0] + R[1][r] * v[1] + R[2][r] * v[2];
     float mu[GP_QUAD_DIMS], g[GP_QUAD_DIMS][GP_QUAD_FEATS];
-    c.means_of<T, ROW_WARPS * WARP>(
-        [&](float* m, float (*gm)[GP_QUAD_FEATS]) { means(c, vb, m, gm); }, mu, g);
+    if constexpr (scalar) {
+#pragma unroll
+      for (int d = 0; d < GP_QUAD_DIMS; ++d) mu[d] = mean(c, d, vb, g[d]);
+    } else {
+      team_means<ROW_TEAM>(true, [&](int d, float* gd) { return mean(c, d, vb, gd); },
+                           mu, g);
+      quad_xdot(P.quad, x, u, xd);
+    }
     gp_quad_rows(x, q, v, R, vb, mu, g, P.drag, xd);
   }
 };
 
 extern "C" {
 
-VDE_ENTRIES(gp_quad_select, GPQuadSelectDyn, GPQuadSelectParamsC)
+VDE_TEAM_ENTRIES(gp_quad_select, GPQuadSelectDyn, GPQuadSelectParamsC)
 
-// At the library's first load: the kernels may take the largest table
-// (prepare_table).
-int vde_prepare() { return (int)prepare_table<GPQuadSelectDyn>(GP_SELECT_TABLE_MAX); }
+// At the library's first load: the sweep may take its tile and the largest
+// table, the RK4 map the largest table (prepare_team).
+int vde_prepare() { return (int)prepare_team<GPQuadSelectDyn>(GP_SELECT_TABLE_MAX); }
 
 VDE_ERROR_STRING
 

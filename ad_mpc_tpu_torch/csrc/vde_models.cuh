@@ -173,9 +173,9 @@ DI void rot_matrix(const T* q, T (*R)[3]) {
   R[2][2] = 1.0f - 2.0f * (qx * qx + qy * qy);
 }
 
-// The means cache of a GP quad's thread-per-row sweep (GPQuadDualDyn,
-// GPQuadRoutedDyn, GPQuadSelectDyn; GPQuadDyn's team computes its means
-// once per evaluation instead): the thread's slot of shared memory, a
+// The means cache of a GP quad's thread-per-row sweep (GPQuadRoutedDyn;
+// the team functors compute their means once per evaluation instead,
+// team_means): the thread's slot of shared memory, a
 // column of GP_QUAD_EVAL floats per evaluation (STRIDE apart), which the
 // first pass fills and the later passes read, since the means depend on
 // the primal alone.
@@ -223,6 +223,36 @@ struct GPQuadCache {
   }
 };
 
+// The 3 means and their gradients of a GP quad's team (vde.cuh: vde_team)
+// at one evaluation: lane d < 3 of each team of TEAM lanes computes output
+// d's, mean(d, g), where `busy` (the whole sum in gp_table_mean's order:
+// one sum is never split across lanes, since the fitted models' terms reach
+// 3,657 and cancel to under 6), and every lane reads all 3 from lanes 0-2
+// by __shfl_sync. Every lane of the warp reaches the shuffles, whatever
+// its team's `busy` (a full-warp __shfl_sync inside a branch that another
+// team of the warp skips is undefined).
+template <int TEAM, class Mean>
+DI void team_means(bool busy, const Mean& mean, float* mu, float (*g)[GP_QUAD_FEATS]) {
+  static_assert(TEAM >= GP_QUAD_DIMS, "a lane of the team per output dim");
+  const int d = threadIdx.x % TEAM;
+  float m = 0.0f, gd[GP_QUAD_FEATS] = {};
+  if (busy && d < GP_QUAD_DIMS) m = mean(d, gd);
+#pragma unroll
+  for (int e = 0; e < GP_QUAD_DIMS; ++e) {
+    mu[e] = __shfl_sync(0xffffffffu, m, e, TEAM);
+#pragma unroll
+    for (int k = 0; k < GP_QUAD_FEATS; ++k)
+      g[e][k] = __shfl_sync(0xffffffffu, gd[k], e, TEAM);
+  }
+}
+
+// Entry d of a 3-array in registers, without indexing it (an indexed array
+// would live in local memory).
+template <class V>
+DI V pick3(const V* v, int d) {
+  return d == 0 ? v[0] : (d == 1 ? v[1] : v[2]);
+}
+
 // The residual r = R(q) mu(v_b), v_b = R(q)^T v, of the GP quad at the
 // primal, and its Jacobian J (3 x 7) with respect to (q_w, q_x, q_y, q_z,
 // v_x, v_y, v_z), in float, from R, the means mu and their gradients G
@@ -267,36 +297,48 @@ DI void gp_quad_jacobian(const float* q, const float* v, float (*R)[3],
 // GPQuadSelectDyn stage into dynamic shared memory: clusters, and clusters
 // x points of each output dim.
 constexpr int GP_DUAL_CLUSTERS = 16, GP_DUAL_POINTS = 512;
-// Floats of the largest such table (gp_dual_table_floats at the capacity).
-constexpr int GP_DUAL_TABLE_MAX = 3 * (4 * GP_DUAL_POINTS + 4 * GP_DUAL_CLUSTERS);
+
+// m floats padded to the least count that is 1 modulo the 32 banks of
+// shared memory.
+__host__ __device__ constexpr int bank_pad(int m) { return m + (33 - m % 32) % 32; }
 
 // The table of GPQuadDualDyn, as the wrapper lays it out in device memory
-// and each block copies it to shared memory, padded to the 3 body
-// velocities as outputs and features (an unused output has a = 0 and
-// y_mean = 0, an unused feature 1/l = 0: exact zeros that leave the used
-// dims' arithmetic as it is): X (3, C, n, 3), a = k_inv_y sigma_f
-// (3, C, n), 1/l (3, C, 3), y_mean (3, C). GPQuadSelectDyn's table appends
-// the centroids (3, C, 3).
+// (models/gp_quad.py:gp_quad_table) and each block copies it to shared
+// memory, padded to the 3 body velocities as outputs and features (an
+// unused output has a = 0 and y_mean = 0, an unused feature 1/l = 0: exact
+// zeros that leave the used dims' arithmetic as it is): X (3, C, n, 3), a =
+// k_inv_y sigma_f (3, C, n), 1/l (3, C, 3), y_mean (3, C), each (output,
+// cluster) block of X and of a padded to bank_pad floats. The lanes of a
+// warp read one point of the clusters their rows took for output dims 0-2
+// at once; blocks of 3n and n floats would lie in one bank for n = 32, and
+// so would the 3 dims of one cluster. Padded, the 3C blocks start in 3C
+// distinct banks (C <= 10). GPQuadSelectDyn's table appends the centroids
+// (3, C, 3), each output dim's 3C floats padded by one.
 struct GPDualTable {
   const float* base;
-  int clusters, n;
-  DI const float* X(int d, int c) const { return base + (d * clusters + c) * n * 3; }
+  int clusters, n, x_block, a_block;
+  DI GPDualTable(const float* b, int c, int points)
+      : base(b), clusters(c), n(points), x_block(bank_pad(3 * points)),
+        a_block(bank_pad(points)) {}
+  DI const float* X(int d, int c) const { return base + (d * clusters + c) * x_block; }
   DI const float* a(int d, int c) const {
-    return base + 9 * clusters * n + (d * clusters + c) * n;
+    return base + 3 * clusters * x_block + (d * clusters + c) * a_block;
   }
   DI const float* inv_l(int d, int c) const {
-    return base + 12 * clusters * n + (d * clusters + c) * 3;
+    return base + 3 * clusters * (x_block + a_block) + (d * clusters + c) * 3;
   }
   DI float y_mean(int d, int c) const {
-    return base[12 * clusters * n + 9 * clusters + d * clusters + c];
+    return base[3 * clusters * (x_block + a_block + 3) + d * clusters + c];
   }
   DI const float* centroids(int d) const {
-    return base + 12 * clusters * n + 12 * clusters + d * clusters * 3;
+    return base + 3 * clusters * (x_block + a_block + 4) + d * (3 * clusters + 1);
   }
 };
 __host__ __device__ constexpr int gp_dual_table_floats(int clusters, int n) {
-  return 3 * clusters * (4 * n + 4);
+  return 3 * clusters * (bank_pad(3 * n) + bank_pad(n) + 4);
 }
+// Floats of the largest such table: at most 31 floats of padding per block.
+constexpr int GP_DUAL_TABLE_MAX = 3 * (4 * GP_DUAL_POINTS + 66 * GP_DUAL_CLUSTERS);
 
 // The RDRv drag beside a GP quad's residual (QuadMPC with rdrv_d and a GP
 // mode), by value in the functor's struct: on, and the 3x3 matrix D.

@@ -4,8 +4,9 @@ map and the 13x4 LQ kernel), of the c3 and c4 functors (the GP-bicycle's
 and the Pacejka's VDE sweep and RK4 map) of the c6 functor (the GP
 quad's), of QuadMPC's drag and dual-state GP functors and of the other
 functors that keep the thread-per-row sweep (:func:`other_functor_bits`),
-device times of the 13x4 LQ kernel, and the quad's and GP quad's sweeps'
-device times, resources and RTI solves (:func:`quad_vde_ms`), of whichever
+device times of the 13x4 LQ kernel, and the quad's and GP quads' sweeps'
+device times, resources and RTI solves (:func:`quad_vde_ms`: the c5 and
+c6 functors and QuadMPC's dual-state and select GPs), of whichever
 ``ad_mpc_tpu_torch`` is imported, so that two trees can be compared on one
 card in one call:
 
@@ -230,43 +231,69 @@ def quad_solve_inputs(dev, kw):
 
 
 def quad_vde_ms(dev):
-    """The quad's and the GP quad's sweeps (``QuadDyn``, ``GPQuadDyn``):
-    device ms by graph replay, warm and cold, at B=16384, N=10 (c5's and
-    c6's shapes, ``quad_traj`` seed 13; the GP quad on the synthetic 32-point
-    and the fitted 60-point models) and at B=1, N=10 on the inputs of
-    QuadMPC's RTI solve (nominal; the one-cluster fitted
-    ``quad_residual_fn``), with that solve's device ms; each functor's
-    registers and spills, and its blocks per SM where the tree reports them
-    (the team sweep's ``occupancy``)."""
+    """The quad's and the GP quads' sweeps (``QuadDyn``, ``GPQuadDyn``,
+    ``GPQuadDualDyn``, ``GPQuadDualDragDyn``, ``GPQuadSelectDyn``): device
+    ms by graph replay, warm and cold, at B=16384, N=10 (c5's and c6's
+    shapes, ``quad_traj`` seed 13; the GP quad on the synthetic 32-point and
+    the fitted 60-point models; the dual-state GP on the fitted model, with
+    and without the fitted drag, p drawn by ``testing.dual_gp_ps`` seed 31
+    with the trigger on every tenth scenario; the select GP on the fitted
+    two-cluster ``gp_flagship_c2``, the velocities scaled by 5 across its
+    clusters) and at B=1 on the inputs of QuadMPC's RTI solve in each mode
+    (nominal; the one-cluster fitted ``quad_residual_fn``; ``ensemble=``
+    and ``ensemble=`` with ``rdrv_d``, as 10 one-stage scenarios; the
+    two-cluster ``quad_residual_fn``, pinned to cluster 1, and the
+    one-cluster one with ``rdrv_d``), with that solve's device ms; each
+    functor's registers and spills, and a team functor's geometry and
+    blocks per SM (``occupancy``)."""
     from ad_mpc_tpu_torch.experiments import quad_fleet
     from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
-    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDynamics
+    from ad_mpc_tpu_torch.models.gp_quad import (
+        GPQuadDualDynamics, GPQuadDynamics, GPQuadSelectDynamics)
     from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
     from ad_mpc_tpu_torch.ops import _build
-    from ad_mpc_tpu_torch.testing import quad_traj
+    from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj
 
     B = 16384
     xs, us = (torch.as_tensor(a, device=dev)
               for a in quad_traj(np.random.default_rng(13), B, 10))
     ps = torch.zeros((B, 0), device=dev)
-    fitted = quad_fleet.fitted_ensemble()
+    fitted, c2 = quad_fleet.fitted_ensemble(), quad_fleet.fitted_ensemble_c2()
+    D = quad_fleet.fitted_rdrv_d()
+    p_dual = torch.as_tensor(dual_gp_ps(np.random.default_rng(31), B, fitted), device=dev)
     out = {}
-    for name, dyn in (("quad", QuadDynamics()),
-                      ("gp_quad_n32", GPQuadDynamics(quad_fleet.make_quad_gp_ensemble())),
-                      ("gp_quad_fitted", GPQuadDynamics(fitted))):
-        vde = make_vde(dyn, 0.1, 10, 13, 4, 0, device=dev)
-        run = lambda: vde(xs, us, ps)
+    for name, dyn, p, v in (
+            ("quad", QuadDynamics(), ps, 1.0),
+            ("gp_quad_n32", GPQuadDynamics(quad_fleet.make_quad_gp_ensemble()), ps, 1.0),
+            ("gp_quad_fitted", GPQuadDynamics(fitted), ps, 1.0),
+            ("gp_quad_dual_fitted", GPQuadDualDynamics(fitted), p_dual, 1.0),
+            ("gp_quad_dual_drag_fitted", GPQuadDualDynamics(fitted, rdrv_d=D), p_dual, 1.0),
+            ("gp_quad_select_c2", GPQuadSelectDynamics(c2), ps, 5.0)):
+        x = xs.clone()
+        x[..., 7:10] *= v
+        vde = make_vde(dyn, 0.1, 10, 13, 4, p.shape[1], device=dev)
+        run = lambda: vde(x, us, p)
         row = out[name] = {"ms": replay_ms(run), "cold_ms": replay_ms(run, cold=True)}
         row |= _build.functor_resources(dyn.cuda_source, "vde_kernel", dyn.cuda_functor)
-        if hasattr(vde, "occupancy"):
+        if getattr(dyn, "cuda_team", False):
             row["blocks_per_sm"] = vde.occupancy(B)
             row["geometry"] = vde.geometry(B)._asdict()
     for name, kw in (("quad_b1_nominal", {}),
-                     ("gp_quad_b1_residual_fn", {"residual_fn": quad_residual_fn(fitted)})):
+                     ("gp_quad_b1_residual_fn", {"residual_fn": quad_residual_fn(fitted)}),
+                     ("dual_b1_ensemble", {"ensemble": fitted}),
+                     ("dual_drag_b1_rdrv_gp", {"ensemble": fitted, "rdrv_d": D}),
+                     ("select_b1_residual_fn_c2", {"residual_fn": quad_residual_fn(c2)}),
+                     ("select_b1_residual_fn_c2_pinned",
+                      {"residual_fn": quad_residual_fn(c2, 1)}),
+                     ("select_b1_rdrv_residual_fn",
+                      {"residual_fn": quad_residual_fn(fitted), "rdrv_d": D})):
         mpc, args, solve = quad_solve_inputs(dev, kw)
         run = lambda: mpc.solver.vde(*args)
         out[name] = {"ms": replay_ms(run), "cold_ms": replay_ms(run, cold=True),
                      "solve_ms": replay_ms(solve, 5), "functor": mpc.solver.f.cuda_functor}
+        if getattr(mpc.solver.f, "cuda_team", False):
+            out[name]["blocks_per_sm"] = mpc.solver.vde.occupancy(args[0].shape[0],
+                                                                  args[1].shape[1])
     return out
 
 

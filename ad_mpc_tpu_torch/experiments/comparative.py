@@ -43,13 +43,15 @@ def prepare_quad_mpc(model: str = "nominal", ensemble: Optional[GPEnsemble] = No
 def comparative_sweep(models: dict, traj_types=("loop", "lemniscate"), speeds=(5.0, 8.0),
                       disturbances: DisturbanceConfig = DisturbanceConfig(drag=True),
                       seed: int = 0, save_name: Optional[str] = None,
-                      verbose: bool = False, device="cuda", root: Optional[str] = None):
+                      verbose: bool = False, device="cuda", root: Optional[str] = None,
+                      launches: Optional[dict] = None):
     """``models``: name -> keyword arguments of ``run_tracking``
     (``ensemble=``, ``rdrv_d=``, ``max_steps=``, ...); the model ``ideal``
     flies without disturbances. Returns (rmse, t_opt, v_max), each
     (n_models, n_traj, n_speeds); with ``save_name`` also written under
     ``<root>/experiments/<save_name>/`` and recorded in
-    ``<root>/experiments/metadata.json``."""
+    ``<root>/experiments/metadata.json``. A ``launches`` dict takes each
+    run's (VDE launches, solver resets) by (model, trajectory, speed)."""
     names = list(models)
     shape = (len(names), len(traj_types), len(speeds))
     rmse, t_opt, v_max = np.zeros(shape), np.zeros(shape), np.zeros(shape)
@@ -61,6 +63,8 @@ def comparative_sweep(models: dict, traj_types=("loop", "lemniscate"), speeds=(5
                                    device=device, **models[name])
                 rmse[i, j, k], t_opt[i, j, k], v_max[i, j, k] = (
                     res.rmse, res.mean_opt_ms, res.v_max)
+                if launches is not None:
+                    launches[name, traj, v] = (res.launches["vde"], res.n_resets)
                 if verbose:
                     print(f"{name:8s} {traj:11s} v={v:4.1f}: rmse={res.rmse:.5f} "
                           f"t={res.mean_opt_ms:.2f}ms", flush=True)

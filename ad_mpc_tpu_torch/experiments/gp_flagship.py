@@ -116,9 +116,11 @@ def stage_fit(tag="", n_clusters=2, n_points=60, n_restarts=3, seed=0, dataset=N
         e = fit_gp_ensemble(train, out_idx=(7, 8, 9), feat_idx=(7, 8, 9), n_clusters=nc,
                             n_points=n_points, n_restarts=n_restarts, seed=seed)
         m = evaluate_ensemble(e, test)
-        m["val_rmse"] = [run_tracking(ensemble=e, disturbances=_drag(), seed=seed,
-                                      device=device, **validation_cell(c, max_steps)).rmse
-                         for c in VALIDATION_CELLS]
+        runs = [run_tracking(ensemble=e, disturbances=_drag(), seed=seed, device=device,
+                             **validation_cell(c, max_steps)) for c in VALIDATION_CELLS]
+        m["val_rmse"] = [r.rmse for r in runs]
+        m["val_launches"] = [r.launches["vde"] for r in runs]
+        m["val_resets"] = [r.n_resets for r in runs]
         m["val_rmse_mean"] = float(np.mean([v if np.isfinite(v) else 1e3
                                             for v in m["val_rmse"]]))
         io.save_model(e, f"gp_flagship{tag}_c{nc}", metadata={"n_clusters": nc, **m},
@@ -131,7 +133,9 @@ def stage_fit(tag="", n_clusters=2, n_points=60, n_restarts=3, seed=0, dataset=N
     offline = {**offline, "n_clusters_selected": nc_best,
                "candidates": {str(nc): {"offline_reduction": m["reduction"],
                                         "val_rmse": m["val_rmse"],
-                                        "val_rmse_mean": m["val_rmse_mean"]}
+                                        "val_rmse_mean": m["val_rmse_mean"],
+                                        "val_launches": m["val_launches"],
+                                        "val_resets": m["val_resets"]}
                               for nc, _, m in fits}}
     io.save_model(ens, f"gp_flagship{tag}", metadata={"n_clusters": nc_best,
                                                       "n_points": n_points, **offline},
@@ -141,6 +145,28 @@ def stage_fit(tag="", n_clusters=2, n_points=60, n_restarts=3, seed=0, dataset=N
         json.dump({"offline_heldout": offline, "rdrv_diag": np.diag(rdrv_d).tolist(),
                    "dataset": dataset or "own recording"}, f, indent=1)
     return ens, rdrv_d, offline
+
+
+def flagship_launches(family_speeds=None, seed=0) -> dict:
+    """The launches of QuadMPC's GP and RDRv functors (``GPQuadDualDyn``,
+    ``QuadDragDyn``: one VDE launch per RTI solve, ``run_tracking``'s
+    ticks, :func:`tracking_steps`) in the flagship, counted from its code
+    without flying it: per sweep (``stage_sweep``, one model: the own fit
+    or the carried one) each cell's ticks, the same for the GP and the
+    RDRv rows; and the validation flights of ``stage_fit`` (two
+    candidates, 1 and 2 clusters, each on :data:`VALIDATION_CELLS` through
+    ``GPQuadDualDyn``). A solver reset adds one launch to its run."""
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import reference, tracking_steps
+
+    family_speeds = family_speeds or FAMILY_SPEEDS
+    cells = {f"{fam} {v}": tracking_steps(reference(fam, v, seed)[1])
+             for fam, speeds in family_speeds.items() for v in speeds}
+    val = [tracking_steps(reference(c["traj_type"], c["v_max"], seed)[1],
+                          max_steps=c["max_steps"]) for c in VALIDATION_CELLS]
+    sweep = sum(cells.values())
+    return {"cells": cells, "validation_cells": val,
+            "GPQuadDualDyn": {"sweep": sweep, "validation": 2 * sum(val)},
+            "QuadDragDyn": {"sweep": sweep}}
 
 
 def load_fitted(tag="", model="fitted", root=None):

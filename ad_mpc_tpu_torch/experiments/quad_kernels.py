@@ -2,7 +2,7 @@
 c6's shapes (B=16384, N=10, nx=13, nu=4).
 
     python -m ad_mpc_tpu_torch.experiments.quad_kernels [--out PATH]
-        [--only quad,gp_quad,drag,dual,lq]
+        [--only quad,gp_quad,drag,dual,select,lq]
 
 1. The VDE sweep with the quad functor (``csrc/vde_quad.cu``), a team of
    lanes per row (``vde.cuh:vde_team``), built once per variant of its
@@ -22,14 +22,21 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
    ``GP_QUAD_`` traits), on the synthetic 32-point ensemble and the
    fitted 60-point one, each held to ``vde_plain`` (3e-5 on the synthetic
    ensemble; on the fitted one its distance is printed).
-3. QuadMPC's two thread-per-row functors: the RDRv drag (``QuadDragDyn``,
-   ``-DQUAD_DRAG_TANGENTS_PER_PASS`` and ``-DQUAD_DRAG_ROW_WARPS``) and
-   the dual-state GP (``GPQuadDualDyn``,
-   ``-DGP_QUAD_DUAL_TANGENTS_PER_PASS``, ``-DGP_QUAD_DUAL_ROW_WARPS``) on
-   the fitted models, p drawn by ``testing.dual_gp_ps`` with the trigger on
-   every tenth scenario; each held to ``vde_plain`` (3e-5; the fitted GP's
-   distance printed).
-4. The 13x4 LQ kernel (``csrc/lq_ipm_wide.cuh``) on the QPs of the third
+3. QuadMPC's thread-per-row functor, the RDRv drag (``QuadDragDyn``,
+   ``-DQUAD_DRAG_TANGENTS_PER_PASS`` and ``-DQUAD_DRAG_ROW_WARPS``), with
+   the fitted D, held to ``vde_plain`` at 3e-5.
+4. QuadMPC's cluster-table GP functors as team functors, as 1. and 2.
+   (``-DGP_QUAD_DUAL_ROW_TEAM`` and the rest): the dual-state GP
+   (``GPQuadDualDyn``) on the fitted model, p drawn by
+   ``testing.dual_gp_ps`` with the trigger on every tenth scenario, and the
+   select functor (``GPQuadSelectDyn``) on the fitted two-cluster
+   ``gp_flagship_c2``, the velocities scaled by 5 across its clusters (as
+   ``testing.margin_quad_traj`` draws them); the fitted GPs' distances
+   from ``vde_plain`` printed. Their B=1 row is the sweep of QuadMPC's RTI
+   solve in the mode that runs the functor (``ensemble=`` as 10 one-stage
+   scenarios; ``quad_residual_fn`` of ``gp_flagship_c2``), as
+   ``c2_kernels.py:quad_solve_inputs`` captures it.
+5. The 13x4 LQ kernel (``csrc/lq_ipm_wide.cuh``) on the QPs of the third
    c5 tick at B=16384, for every number of scenarios per block that fits:
    resident blocks and scenarios per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared bytes per
@@ -63,9 +70,13 @@ QUAD_TEAMS = ((8, 4, 4, 1), (8, 4, 4, 0), (8, 4, 3, 1), (8, 4, 5, 1),
               (4, 4, 2, 1), (4, 4, 2, 0), (16, 4, 4, 1), (32, 4, 5, 1))
 GP_QUAD_TEAMS = ((4, 4, 2, 1), (4, 4, 2, 0), (4, 4, 3, 1), (4, 2, 5, 1),
                  (8, 4, 2, 1), (8, 4, 3, 1))
+# The cluster-table functors (dual-state and select GPs): every variant's
+# block holds its tile and the largest table, MIN_BLOCKS of them an SM
+# (tests/test_torch_vde_team.py).
+TABLE_TEAMS = ((4, 4, 2, 1), (4, 4, 2, 0), (4, 4, 3, 1), (4, 2, 4, 1),
+               (8, 4, 2, 1), (8, 4, 3, 1), (16, 4, 2, 1))
 # Thread-per-row functors: (tangents per pass, row warps).
 DRAG_VARIANTS = ((3, 1), (4, 1), (6, 1), (3, 2))
-DUAL_VARIANTS = ((3, 2), (3, 1), (2, 2), (4, 1), (6, 1))
 
 
 def _defines(tpp, rw, model="QUAD"):
@@ -80,8 +91,8 @@ def _team_defines(team, rw, min_blocks, bulk, model="QUAD"):
 def _cases(kind, B):
     """{case: (dynamics, ps)} and the variants' names of one section."""
     from ad_mpc_tpu_torch.experiments.quad_fleet import (
-        fitted_ensemble, fitted_rdrv_d, make_quad_gp_ensemble)
-    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
+        fitted_ensemble, fitted_ensemble_c2, fitted_rdrv_d, make_quad_gp_ensemble)
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics, GPQuadSelectDynamics
     from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics
     from ad_mpc_tpu_torch.testing import dual_gp_ps
 
@@ -94,23 +105,41 @@ def _cases(kind, B):
                 "n=60": (GPQuadDynamics(fitted_ensemble()), none)}, team
     if kind == "drag":
         return {"drag": (QuadDragDynamics(fitted_rdrv_d()), none)}, ("tpp", "rw")
+    if kind == "select":
+        return {"select c2": (GPQuadSelectDynamics(fitted_ensemble_c2()), none)}, team
     ens = fitted_ensemble()
     ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(31), B, ens), device="cuda")
-    return {"dual n=60": (GPQuadDualDynamics(ens), ps)}, ("tpp", "rw")
+    return {"dual n=60": (GPQuadDualDynamics(ens), ps)}, team
+
+
+def _solve_kw(kind):
+    """QuadMPC's keywords of the mode whose RTI solve runs the cluster-table
+    functor ``kind`` (its B=1 row; ``chip_smoke.py:quad_modes``' ``ensemble``
+    and ``residual_fn_c2``)."""
+    from ad_mpc_tpu_torch.experiments.quad_fleet import fitted_ensemble, fitted_ensemble_c2
+    from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
+
+    return ({"ensemble": fitted_ensemble()} if kind == "dual"
+            else {"residual_fn": quad_residual_fn(fitted_ensemble_c2())})
 
 
 VARIANTS = {
     "quad": (QUAD_TEAMS, lambda v: _team_defines(*v)),
     "gp_quad": (GP_QUAD_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD")),
     "drag": (DRAG_VARIANTS, lambda v: _defines(*v, model="QUAD_DRAG")),
-    "dual": (DUAL_VARIANTS, lambda v: _defines(*v, model="GP_QUAD_DUAL")),
+    "dual": (TABLE_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD_DUAL")),
+    "select": (TABLE_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD_SELECT")),
 }
 
 
 def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
     """One row per variant of a functor's traits (``kind``: the quad, the
-    GP quad, the drag or the dual-state GP); a team functor's rows add its
-    geometry, its blocks per SM, its cold time and its time at B=1."""
+    GP quad, the drag, the dual-state GP or the select GP); a team
+    functor's rows add its geometry, its blocks per SM, its cold time and
+    its time at B=1 (on QuadMPC's solve inputs for the cluster-table
+    functors, ``solve_b1_ms``)."""
+    from ad_mpc_tpu_torch.experiments.c2_kernels import quad_solve_inputs
+
     variants, defines = VARIANTS[kind]
     cases, keys = _cases(kind, B)
     source = next(iter(cases.values()))[0].cuda_source
@@ -118,6 +147,12 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
         list(pool.map(lambda v: _build.build_all((source,), defines(v)), variants))
     xs, us = (torch.as_tensor(a, device="cuda")
               for a in quad_traj(np.random.default_rng(13), B, N))
+    if kind == "select":
+        xs[..., 7:10] *= 5.0  # across the clusters
+    solve = None
+    if kind in ("dual", "select"):
+        mpc, b1_args, _ = quad_solve_inputs("cuda", _solve_kw(kind))
+        solve = mpc.solver.vde, b1_args
     rows = {}
     for case, (dyn, ps) in cases.items():
         want = vde_plain(dyn, dt, 1, xs, us, ps)
@@ -146,6 +181,12 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
                         "cold_ms": graph_ms(lambda: vde(xs, us, ps), cold=True),
                         "b1_ms": graph_ms(lambda: vde(x1, u1, p1))}
                 row["warps_per_sm"] = row["blocks_per_sm"] * geo.threads // 32
+            if solve is not None:
+                sweep, b1_args = solve
+                sweep.defines = vde.defines
+                row["solve_b1_ms"] = graph_ms(lambda: sweep(*b1_args))
+                row["solve_b1_cold_ms"] = graph_ms(lambda: sweep(*b1_args), cold=True)
+                sweep.defines = ()
     return rows
 
 
@@ -176,14 +217,14 @@ def lq_teams(B=16384):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the result to this JSON file")
-    ap.add_argument("--only", default="quad,gp_quad,drag,dual,lq",
+    ap.add_argument("--only", default="quad,gp_quad,drag,dual,select,lq",
                     help="the sections to measure, comma-separated")
     args = ap.parse_args(argv)
     require_cuda("cuda")
     only = args.only.split(",")
     res = {"device": card()}
     with tf32(False):
-        for kind in ("quad", "gp_quad", "drag", "dual"):
+        for kind in ("quad", "gp_quad", "drag", "dual", "select"):
             if kind in only:
                 res[f"vde_{kind}"] = vde_variants(kind)
         if "lq" in only:

@@ -68,6 +68,14 @@ def reference(traj_type: str, v_max: float, seed: int = 0):
     raise ValueError(traj_type)
 
 
+def tracking_steps(t_ref, control_period: float = 0.02, max_steps: int | None = None) -> int:
+    """The ticks of :func:`run_tracking` on a reference of times ``t_ref``:
+    one RTI solve each, so one launch of each kernel (a solver reset adds
+    one more)."""
+    n_steps = int(t_ref[-1] / control_period)
+    return n_steps if max_steps is None else min(n_steps, max_steps)
+
+
 def run_tracking(
     traj_type: str = "loop",
     v_max: float = 8.0,
@@ -103,9 +111,7 @@ def run_tracking(
     solver = mpc.solver
 
     x = torch.as_tensor(traj[0], dtype=torch.float64)
-    n_steps = int(t_ref[-1] / control_period)
-    if max_steps is not None:
-        n_steps = min(n_steps, max_steps)
+    n_steps = tracking_steps(t_ref, control_period, max_steps)
     states, times, t_solve, u0s = [], [], [], []
 
     for step in range(n_steps):

@@ -22,14 +22,19 @@ import torch
 from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble
 
 
-def lane_gp_mean(x_train, k_inv_y, len_scale, sigma_f, y_mean, z):
+def lane_gp_mean(x_train, k_inv_y, len_scale, sigma_f, y_mean, z,
+                 sequential=False):
     """``mu = y_mean + sum_j a_j exp(-0.5 ||(z - X_j) / l||^2)`` with
     ``a = k_inv_y sigma_f``.
 
     x_train (n, d), k_inv_y (n,), len_scale (d,): host constants (numpy,
     rounded once to z's type, as the JAX package's Python floats are);
     z: d tensors of one shape S. Rows with a_j = 0 (padding) are left out,
-    so they add exactly nothing. Returns the mean, of shape S.
+    so they add exactly nothing. The terms are summed by ``torch.sum``, or,
+    with ``sequential``, one after another in the order of the points, as
+    the kernels' ``gp_table_mean`` sums them (the float32 rounding of
+    another algorithm, for the checks of ``testing.anchored_hold``).
+    Returns the mean, of shape S.
     """
     X = np.asarray(x_train, np.float64)
     a = np.asarray(k_inv_y, np.float64) * float(sigma_f)
@@ -42,7 +47,12 @@ def lane_gp_mean(x_train, k_inv_y, len_scale, sigma_f, y_mean, z):
     t = (zs[None] - Xt) * as_t(inv_l).reshape(-1, *extra)
     terms = as_t(a[keep]).reshape(-1, *extra) * torch.exp(
         -0.5 * torch.sum(t * t, dim=1))
-    return torch.sum(terms, dim=0) + float(y_mean)
+    if not sequential:
+        return torch.sum(terms, dim=0) + float(y_mean)
+    total = terms[0]
+    for term in terms[1:]:
+        total = total + term
+    return total + float(y_mean)
 
 
 def _ens_cluster(ens: GPEnsemble, dim: int, cluster) -> tuple:
@@ -80,9 +90,11 @@ def _rot_rows(x):
     ]
 
 
-def quad_lane_residual_terms(ens: GPEnsemble, x, cluster=0) -> dict:
+def quad_lane_residual_terms(ens: GPEnsemble, x, cluster=0,
+                             mean=lane_gp_mean) -> dict:
     """The quadrotor's body-frame GP residual, entrywise: the means at the
-    body-frame velocities ``v_b = R(q)^T v``, rotated back to the world,
+    body-frame velocities ``v_b = R(q)^T v`` (each by ``mean``, of
+    :func:`lane_gp_mean`'s signature), rotated back to the world,
     ``{7 + r: (R(q) mu_b)_r}``. Serves ``feat_idx = out_idx = (7, 8, 9)``
     only."""
     if tuple(ens.feat_idx) != (7, 8, 9) or tuple(ens.out_idx) != (7, 8, 9):
@@ -91,7 +103,7 @@ def quad_lane_residual_terms(ens: GPEnsemble, x, cluster=0) -> dict:
     R = _rot_rows(x)
     v = [x[7], x[8], x[9]]
     v_b = [R[0][r] * v[0] + R[1][r] * v[1] + R[2][r] * v[2] for r in range(3)]
-    mu_b = [lane_gp_mean(*_ens_cluster(ens, k, cluster), v_b) for k in range(3)]
+    mu_b = [mean(*_ens_cluster(ens, k, cluster), v_b) for k in range(3)]
     return {7 + r: R[r][0] * mu_b[0] + R[r][1] * mu_b[1] + R[r][2] * mu_b[2]
             for r in range(3)}
 
@@ -128,14 +140,15 @@ def nearest_mean(centroids, means, z):
 
 
 def quad_select_residual_terms(ens: GPEnsemble, x, pin=None,
-                               choose=nearest_mean) -> dict:
+                               choose=nearest_mean, mean=lane_gp_mean) -> dict:
     """The quadrotor's clustered body-frame GP residual of
     ``quad_residual_fn(ens, fixed_cluster)``
     (``ad_mpc_tpu/learned/ensemble.py:216-244``), entrywise: the features
     are ``x[feat_idx]`` with the velocities rotated into the body frame,
     ``R(q)^T v``; each output k takes the cluster ``pin[k]``, or, with no
     pin, the nearest centroid at every evaluation (``choose(centroids,
-    means, z)``, :func:`nearest_mean`); its mean on the body velocity
+    means, z)``, :func:`nearest_mean`); its mean (by ``mean``, of
+    :func:`lane_gp_mean`'s signature) on the body velocity
     ``out_idx[k] - 7`` (zeros on the others) is rotated back,
     ``{7 + r: (R(q) mu)_r}``. The plain version of the ``GPQuadSelectDyn``
     functor."""
@@ -148,9 +161,9 @@ def quad_select_residual_terms(ens: GPEnsemble, x, pin=None,
     mu = [torch.zeros_like(x[7])] * 3
     for k, dim in enumerate(ens.out_idx):
         if pin is not None:
-            mu[dim - 7] = lane_gp_mean(*_ens_cluster(ens, k, pin[k]), z)
+            mu[dim - 7] = mean(*_ens_cluster(ens, k, pin[k]), z)
         else:
-            means = [lane_gp_mean(*_ens_cluster(ens, k, c), z)
+            means = [mean(*_ens_cluster(ens, k, c), z)
                      for c in range(ens.n_clusters)]
             mu[dim - 7] = choose(ens.centroids[k], means, z)
     return {7 + r: R[r][0] * mu[0] + R[r][1] * mu[1] + R[r][2] * mu[2]

@@ -130,16 +130,50 @@ class GPQuadDynamics(nn.Module):
 # clusters x points per output dim.
 GP_DUAL_CLUSTERS, GP_DUAL_POINTS = 16, 512
 BODY_VELOCITIES = (7, 8, 9)
+SMEM_BANKS = 32
+# Floats of the largest tables (GP_DUAL_TABLE_MAX, GP_SELECT_TABLE_MAX of
+# csrc/): at most 31 floats of padding per (output, cluster) block of X
+# and of a (gp_dual_layout), and the select functor's centroids.
+GP_DUAL_TABLE_MAX = 3 * (4 * GP_DUAL_POINTS + 66 * GP_DUAL_CLUSTERS)
+GP_SELECT_TABLE_MAX = GP_DUAL_TABLE_MAX + 9 * GP_DUAL_CLUSTERS + 3
+
+
+def bank_pad(m: int) -> int:
+    """``m`` floats padded to the least count that is 1 modulo the 32 banks
+    of shared memory (``csrc/vde_models.cuh:bank_pad``)."""
+    return m + (SMEM_BANKS + 1 - m % SMEM_BANKS) % SMEM_BANKS
+
+
+def gp_dual_layout(C: int, n: int) -> dict:
+    """Offsets in floats of the table of ``C`` clusters of ``n`` points
+    (``csrc/vde_models.cuh:GPDualTable``): {"X": (d, c) -> block of X, "a":
+    (d, c) -> block of a, "inv_l", "y_mean", "centroids": d -> start,
+    "floats": the dual functor's floats, "select_floats": the select
+    functor's, with the centroids}. Each (output d, cluster c) block of X
+    (3n floats) and of a (n) is padded to :func:`bank_pad`, so that the 3C
+    blocks start in distinct banks (C <= 10)."""
+    xb, ab = bank_pad(3 * n), bank_pad(n)
+    a0 = 3 * C * xb
+    inv_l0 = a0 + 3 * C * ab
+    y0 = inv_l0 + 9 * C
+    cen0 = y0 + 3 * C
+    return {"X": lambda d, c: (d * C + c) * xb,
+            "a": lambda d, c: a0 + (d * C + c) * ab,
+            "inv_l": lambda d, c: inv_l0 + (d * C + c) * 3,
+            "y_mean": lambda d, c: y0 + d * C + c,
+            "centroids": lambda d: cen0 + d * (3 * C + 1),
+            "floats": cen0, "select_floats": cen0 + 3 * (3 * C + 1)}
 
 
 def gp_quad_table(ens: GPEnsemble, functor: str, centroids: bool = False) -> np.ndarray:
     """The padded table of every cluster that the ``functor`` (the
     ``GPQuadDualDyn`` or ``GPQuadSelectDyn`` of ``csrc/``) stages, as
-    float32 numpy: X (3, C, n, 3), a = k_inv_y sigma_f (3, C, n), 1/l
-    (3, C, 3), y_mean (3, C), flat, by body velocity; zeros on the outputs
-    and features that the ensemble does not have. With ``centroids``, then
-    the centroids (3, C, 3), each output's in the ensemble's feature order.
-    Refuses a layout the functor cannot hold."""
+    float32 numpy, laid out by :func:`gp_dual_layout`: X (3, C, n, 3), a =
+    k_inv_y sigma_f (3, C, n), 1/l (3, C, 3), y_mean (3, C), by body
+    velocity; zeros on the outputs and features that the ensemble does not
+    have, and in the padding. With ``centroids``, then the centroids
+    (3, C, 3), each output's in the ensemble's feature order. Refuses a
+    layout the functor cannot hold."""
     D, C, n, d = ens.x_train.shape
     out, feat = tuple(ens.out_idx), tuple(ens.feat_idx)
     body = set(BODY_VELOCITIES)
@@ -167,8 +201,17 @@ def gp_quad_table(ens: GPEnsemble, functor: str, centroids: bool = False) -> np.
         inv_l[r][..., cols] = 1.0 / ens.len_scale[k]
         y_mean[r] = ens.y_mean[k]
         cen[r][..., :d] = ens.centroids[k]
-    parts = (X, a, inv_l, y_mean) + ((cen,) if centroids else ())
-    return np.concatenate([t.ravel() for t in parts]).astype(np.float32)
+    lay = gp_dual_layout(C, n)
+    out = np.zeros(lay["select_floats" if centroids else "floats"], np.float32)
+    for r in range(3):
+        for c in range(C):
+            out[lay["X"](r, c):][:3 * n] = X[r, c].ravel()
+            out[lay["a"](r, c):][:n] = a[r, c]
+            out[lay["inv_l"](r, c):][:3] = inv_l[r, c]
+            out[lay["y_mean"](r, c)] = y_mean[r, c]
+        if centroids:
+            out[lay["centroids"](r):][:3 * C] = cen[r].ravel()
+    return out
 
 
 class QuadDragOptC(ctypes.Structure):
@@ -216,17 +259,17 @@ class GPQuadSelectParamsC(ctypes.Structure):
     ]
 
 
-def dual_gp_rows(ens: GPEnsemble, x, p) -> dict:
+def dual_gp_rows(ens: GPEnsemble, x, p, mean=lane_gp_mean) -> dict:
     """The dual-state GP residual of QuadMPC's ensemble mode
     (``ad_mpc_tpu/control/mpc.py:264-283``), entrywise, by velocity row.
 
     ``p = [trigger, mu0 (D), cluster (D)]`` (entries leading): where
     ``p[0] > 0.5`` the body-frame means are the constants mu0, else each
     output k's mean is its cluster's (``p[1+D+k]`` truncated, clamped to
-    the ensemble) lane mean (:func:`lane.lane_gp_mean`) at the body-frame
-    features (``x`` with its velocities rotated, ``R(q)^T v``). The means,
-    with zeros on the body velocities that are no output, are rotated back,
-    ``{7 + r: (R(q) mu)_r}``."""
+    the ensemble) lane mean (``mean``, :func:`lane.lane_gp_mean`) at the
+    body-frame features (``x`` with its velocities rotated, ``R(q)^T v``).
+    The means, with zeros on the body velocities that are no output, are
+    rotated back, ``{7 + r: (R(q) mu)_r}``."""
     D, C = len(ens.out_idx), ens.n_clusters
     R = _rot_rows(x)
     v_b = [R[0][k] * x[7] + R[1][k] * x[8] + R[2][k] * x[9] for k in range(3)]
@@ -234,7 +277,7 @@ def dual_gp_rows(ens: GPEnsemble, x, p) -> dict:
     trigger = p[0] > 0.5
     mu = [torch.zeros_like(x[7])] * 3
     for k, dim in enumerate(ens.out_idx):
-        means = [lane_gp_mean(*_ens_cluster(ens, k, c), z) for c in range(C)]
+        means = [mean(*_ens_cluster(ens, k, c), z) for c in range(C)]
         m = means[0]
         if C > 1:
             cl = torch.clamp(p[1 + D + k].to(torch.int64), 0, C - 1)
@@ -263,9 +306,12 @@ class _ClusterTableDynamics(nn.Module):
     ``rdrv_d`` where given, and a residual; the struct
     (:meth:`cuda_params`) holds the quad, the table's address (the module
     keeps the copy on the card) and the drag, and a subclass's layout
-    (:meth:`_layout`)."""
+    (:meth:`_layout`). ``cuda_team``: the sweep runs a team of lanes per
+    row (``ops/cuda_vde.py:vde_geometry``), the table after the block's
+    tile."""
 
     nx, nu = NX, NU
+    cuda_team = True
 
     def __init__(self, ensemble: GPEnsemble, params: QuadrotorParams, rdrv_d):
         super().__init__()

@@ -147,7 +147,10 @@ def table_perturbed(dyn, seed):
     alone leaves every run of one algorithm with the same rounded terms,
     so its spread can sit far under another float32 algorithm's error.
     A parameter-routed GP (``table_in_p``) reads its table from p, which
-    :func:`perturbed` moves: it is returned as it is."""
+    :func:`perturbed` moves: it is returned as it is. A dynamics with
+    ``with_ensemble`` (the dual-state and select GP quads) keeps through
+    it what it holds beside the ensemble: the RDRv drag, the pinned
+    clusters."""
     if getattr(dyn, "table_in_p", False):
         return dyn
     rng = np.random.default_rng(seed)
@@ -157,8 +160,76 @@ def table_perturbed(dyn, seed):
         v = np.asarray(v, np.float64)
         return v * (1 + 2.0**-23 * rng.normal(size=v.shape))
 
-    return type(dyn)(ens._replace(x_train=move(ens.x_train),
-                                  k_inv_y=move(ens.k_inv_y)), dyn.params)
+    moved = ens._replace(x_train=move(ens.x_train), k_inv_y=move(ens.k_inv_y))
+    if hasattr(dyn, "with_ensemble"):
+        return dyn.with_ensemble(moved)
+    return type(dyn)(moved, dyn.params)
+
+
+class _Sequential:
+    """A GP quad's plain version (:func:`sequential_sums`) with each GP
+    mean's terms summed in the order of the training points."""
+
+    def __init__(self, dyn):
+        self.dyn = dyn
+
+    def __call__(self, x, u, p):
+        from functools import partial
+
+        from ad_mpc_tpu_torch.learned.lane import (
+            add_rows, lane_gp_mean, quad_lane_residual_terms,
+            quad_select_residual_terms)
+        from ad_mpc_tpu_torch.models.gp_quad import (
+            GPQuadDualDynamics, GPQuadSelectDynamics, dual_gp_rows)
+        from ad_mpc_tpu_torch.models.quadrotor import quad_dynamics_lane
+
+        d, mean = self.dyn, partial(lane_gp_mean, sequential=True)
+        if isinstance(d, GPQuadSelectDynamics):
+            return add_rows(d._nominal(x, u), quad_select_residual_terms(
+                d.ensemble, x, d.pin, mean=mean))
+        if isinstance(d, GPQuadDualDynamics):
+            return add_rows(d._nominal(x, u), dual_gp_rows(d.ensemble, x, p, mean=mean))
+        return add_rows(quad_dynamics_lane(x, u, None, d.params),
+                        quad_lane_residual_terms(d.ensemble, x, mean=mean))
+
+
+def sequential_sums(dyn):
+    """The plain version of the GP quad ``dyn`` (``GPQuadDynamics``,
+    ``GPQuadDualDynamics`` or ``GPQuadSelectDynamics``) with each GP mean's
+    terms summed one after another in the order of the training points
+    (``lane_gp_mean(sequential=True)``), as the kernels' ``gp_table_mean``
+    sums them, where the plain version sums by ``torch.sum``: another
+    float32 algorithm for the same function, whose rounding of a sum of
+    large, cancelling terms (the fitted models' 60 terms of up to 3,657
+    that sum to under 6) reaches where that of ``torch.sum``'s order on
+    perturbed inputs does not. None for any other dynamics."""
+    from ad_mpc_tpu_torch.models.gp_quad import (
+        GPQuadDualDynamics, GPQuadDynamics, GPQuadSelectDynamics)
+
+    kinds = (GPQuadDynamics, GPQuadDualDynamics, GPQuadSelectDynamics)
+    return _Sequential(dyn) if isinstance(dyn, kinds) else None
+
+
+def _anchored_terms(got, runs32, plain64, atol, rows):
+    """(|got - plain64|, the float32 spread s, |got - plain64| - atol
+    clamped at 0), by rows (the last axis) where ``rows`` says so."""
+    import torch
+
+    def by_row(t):
+        return t.amax(-1) if rows else t
+
+    err = by_row((got.double() - plain64).abs())
+    spread = by_row(torch.stack([(m.double() - plain64).abs()
+                                 for m in runs32]).amax(0))
+    return err, spread, (err - atol).clamp(min=0)
+
+
+def _anchored_verdict(got, err, spread, over):
+    import torch
+
+    ratio = torch.where(over > 0, over / spread, torch.zeros_like(over))
+    ok = bool(got.isfinite().all()) and bool((over <= SPREAD_FACTOR * spread).all())
+    return float(err.max()), float(spread.max()), float(ratio.max()), ok
 
 
 def f64_anchored(got, runs32, plain64, atol, rows=False):
@@ -177,18 +248,51 @@ def f64_anchored(got, runs32, plain64, atol, rows=False):
     mean under 6). Returns (max |got - plain64|, max s, the largest ratio
     (|got - plain64| - atol) / s over the entries or rows, 0 where within
     atol, whether the rule holds)."""
+    return _anchored_verdict(got, *_anchored_terms(got, runs32, plain64, atol, rows))
+
+
+def anchored_hold(got, plain, dyn, args, atol, rows):
+    """Each output of ``got`` held by :func:`f64_anchored` (by rows where
+    ``rows`` says so) against the float64 answer of ``plain(dyn, *args)``
+    (outputs and ``args`` with the scenarios leading), with the spread of
+    its float32 answers on ``args`` and on ``SPREAD_RUNS`` copies of the
+    inputs and of the GP table each moved by about an ulp
+    (:func:`perturbed`, :func:`table_perturbed`). Where a scenario breaks
+    the rule under those runs, which all sum each GP mean in
+    ``torch.sum``'s order, and the dynamics has a plain version that sums
+    in the kernels' order (:func:`sequential_sums`), that scenario's spread
+    also takes the runs of that order on the same inputs and copies:
+    float32's reach on a sum of large, cancelling terms depends on the
+    order of the sum, and a spread of one order undercounts another's (on
+    ``gp_flagship_c2``'s select sweep a row lay 7 spreads out). Returns
+    ([(max |got - plain64|, max s, the largest ratio, whether the rule
+    holds) per output], the float32 plain answer on ``args``, the
+    scenarios that took the sequential runs)."""
     import torch
 
-    def by_row(t):
-        return t.amax(-1) if rows else t
-
-    err = by_row((got.double() - plain64).abs())
-    spread = by_row(torch.stack([(m.double() - plain64).abs()
-                                 for m in runs32]).amax(0))
-    over = (err - atol).clamp(min=0)
-    ratio = torch.where(over > 0, over / spread, torch.zeros_like(over))
-    ok = bool(got.isfinite().all()) and bool((over <= SPREAD_FACTOR * spread).all())
-    return float(err.max()), float(spread.max()), float(ratio.max()), ok
+    want64 = plain(dyn, *(a.double() for a in args))
+    runs = [plain(dyn, *args)] + [
+        plain(table_perturbed(dyn, s), *perturbed(args, s)) for s in range(SPREAD_RUNS)]
+    terms = [_anchored_terms(g, [r[i] for r in runs], w64, atol, by_rows)
+             for i, (g, w64, by_rows) in enumerate(zip(got, want64, rows))]
+    bad = torch.zeros(args[0].shape[0], dtype=torch.bool, device=args[0].device)
+    for g, (err, spread, over) in zip(got, terms):
+        off = (over > SPREAD_FACTOR * spread) | ~(err == err)
+        bad |= off.reshape(off.shape[0], -1).any(1)
+    idx = bad.nonzero().flatten()
+    if len(idx) and sequential_sums(dyn) is not None:
+        sub = lambda t: tuple(a[idx] for a in t)
+        seq = [plain(sequential_sums(dyn), *sub(args))] + [
+            plain(sequential_sums(table_perturbed(dyn, s)), *sub(perturbed(args, s)))
+            for s in range(SPREAD_RUNS)]
+        for i, (err, spread, over) in enumerate(terms):
+            s_seq = _anchored_terms(got[i][idx], [r[i] for r in seq], want64[i][idx],
+                                    atol, rows[i])[1]
+            spread[idx] = torch.maximum(spread[idx], s_seq)
+    else:
+        idx = idx[:0]
+    return ([_anchored_verdict(g, *t) for g, t in zip(got, terms)], runs[0],
+            idx.tolist())
 
 
 # |a - b| of two functors' RK4 maps that compute one function (rk4_pair):
@@ -495,6 +599,35 @@ def margin_quad_traj(rng, B, N, dyns, dt, margin=1e-4, v_scale=5.0, device="cpu"
         keep_u.append(us[ok])
         n += int(ok.sum())
     return np.concatenate(keep_x)[:B], np.concatenate(keep_u)[:B]
+
+
+# The select sweep's draw on which one row of gp_flagship_c2's sweep once
+# lay 7.02 float32 spreads of torch.sum's order from the float64 plain
+# version (the kernel sums each mean in the points' order): the drag-free
+# draws of chip_smoke.py's select phase when the drag case's tie margins
+# also filtered them (seed 13, B=16384, N=10), and its scenarios that broke
+# the check.
+SELECT_DRAW_SEED = 13
+SELECT_DRAW_SCENARIOS = (3146,)
+
+
+def select_draw(device, B=16384, N=10):
+    """(the select dynamics of ``gp_flagship_c2``, xs, us) of the draw
+    above: :func:`margin_quad_traj` filtered by the tie margins of that
+    model, of the synthetic two-cluster ensemble and of ``gp_flagship_c2``
+    with the fitted RDRv drag, on ``device``."""
+    import torch
+
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadSelectDynamics
+
+    c2 = quad_fleet.fitted_ensemble_c2()
+    dyn = GPQuadSelectDynamics(c2)
+    filt = [dyn, GPQuadSelectDynamics(quad_fleet.make_quad_gp_ensemble(clusters=2)),
+            GPQuadSelectDynamics(c2, rdrv_d=quad_fleet.fitted_rdrv_d())]
+    xs, us = margin_quad_traj(np.random.default_rng(SELECT_DRAW_SEED), B, N, filt, 0.1,
+                              device=device)
+    return dyn, torch.as_tensor(xs, device=device), torch.as_tensor(us, device=device)
 
 
 def boundary_quad_states(rng, B, ens, offset=1e-6):

@@ -61,7 +61,9 @@ Phases, each of which must pass:
    and Bm and each entry of c held to the float64 plain version within
    3e-5 plus 4 times the float32 plain version's spread there (its largest
    distance over the inputs and 8 copies of the inputs and of the GP table
-   each moved by an ulp; ``testing.f64_anchored``); warm and cold,
+   each moved by an ulp, and, for a scenario that breaks the rule under
+   those, the runs that sum each mean in the kernel's order;
+   ``testing.anchored_hold``); warm and cold,
    registers and spills; the
    bound counted as the kernel's design needs it
    (:func:`gp_quad_vde_flops_per_stage`); kernel phase RK4 gp_quad (both
@@ -122,11 +124,13 @@ Phases, each of which must pass:
     evaluation, on the fitted two-cluster ``gp_flagship_c2`` by
     ``anchored`` and on the synthetic two-cluster ensemble) on draws whose
     every cluster choice lies 1e-4 or more from a tie; each kernel against
-    its plain version (3e-5), warm and cold, bound, registers and spills;
-    then the select functor at a cluster boundary (B=16384, N=1): each
-    scenario agrees with the plain version, or with its other cluster
-    where a choice lies within 1e-4 of a tie, and the share that differs
-    is printed;
+    its plain version (3e-5), warm and cold, bound, registers and spills,
+    the team functors' geometry and resident warps; then the select
+    functor at a cluster boundary (B=16384, N=1): each scenario agrees
+    with the plain version, or with its other cluster where a choice lies
+    within 1e-4 of a tie, and the share that differs is printed; and on
+    the draw that once broke ``anchored`` (``testing.select_draw``), its
+    failing scenario held by ``anchored``;
 13. one quadrotor at B=1 (N=10, 15 IPM iterations) in each of QuadMPC's
     seven modes (nominal, rdrv_d, quad_residual_fn of the fitted
     one-cluster GP, ensemble=, quad_residual_fn of the fitted two-cluster
@@ -161,6 +165,8 @@ Phases, each of which must pass:
     and 2-cluster candidates, their closed-loop validation through the
     card, the RDRv diagonal within 1e-6 of the JAX package's; the selected
     count, offline reduction and validation RMSEs beside the JAX fit's;
+    the validation flights' launches as counted from the code
+    (``gp_flagship.flagship_launches``);
 18. the parameter-routed GP functors against their plain versions:
     ``GPQuadRoutedDyn`` at B=16384, N=10 on the port's own two-cluster fit
     (both clusters in the launch; ``anchored``), ``GPRoutedDyn`` at the JAX
@@ -173,7 +179,8 @@ Phases, each of which must pass:
     1e-5; the two functors' RK4 maps on the same states each held to the
     float64 plain version and within 1e-4 of each other), the routed GP bicycle in c2's fleet against plain; then one
     flagship sweep cell, the lemniscate at 6 m/s with the port's own fit
-    (nominal, GP, RDRv; GP under nominal);
+    (nominal, GP, RDRv; GP under nominal; each row's launches as counted
+    from the code, and a whole sweep's count printed);
 20. the quadrotor mission (``nodes/quad_node.py:QuadMissionNode`` on the
     card against the host plant, without disturbance): the JAX test's
     straight 2 m at 1 m/s (its gates) and the loop at 8 m/s through hover,
@@ -424,36 +431,32 @@ def chunked(fn, *args, chunk=4096):
 
 
 def anchored(key, name, got, plain, dyn, args, atol, rows):
-    """Each output of ``got`` held by ``testing.f64_anchored`` (by rows
+    """Each output of ``got`` held by ``testing.anchored_hold`` (by rows
     where ``rows`` says so) against the float64 answer of the plain version
     ``plain(dyn, *args)``, with the spread of its float32 answers on
     ``args`` and on ``SPREAD_RUNS`` copies of the inputs and of the GP
-    table each moved by about an ulp (``testing.perturbed``,
-    ``testing.table_perturbed``); returns (max |got - float32 plain|,
-    numbers for the record)."""
-    from ad_mpc_tpu_torch.testing import (
-        SPREAD_FACTOR, SPREAD_RUNS, f64_anchored, perturbed, table_perturbed)
+    table each moved by about an ulp, and, for a scenario that breaks the
+    rule under those, of the runs that sum each GP mean in the kernels'
+    order; returns (max |got - float32 plain|, numbers for the record)."""
+    from ad_mpc_tpu_torch.testing import SPREAD_FACTOR, anchored_hold
 
-    want64 = plain(dyn, *(a.double() for a in args))
-    runs = [plain(dyn, *args)] + [
-        plain(table_perturbed(dyn, s), *perturbed(args, s))
-        for s in range(SPREAD_RUNS)]
+    held, run32, reseq = anchored_hold(got, plain, dyn, args, atol, rows)
     rec = {"f64_err": 0.0, "f32_spread": 0.0, "spread_ratio": 0.0}
-    for i, (g, w64, by_rows) in enumerate(zip(got, want64, rows)):
-        err, spread, ratio, ok = f64_anchored(g, [r[i] for r in runs], w64,
-                                              atol, by_rows)
+    for i, ((err, spread, ratio, ok), by_rows) in enumerate(zip(held, rows)):
         check(ok, f"{key} kernel at {name}, output {i}: a "
               f"{'row' if by_rows else 'entry'} lies further from the float64 "
               f"plain version than {atol} + {SPREAD_FACTOR} x the float32 plain "
               f"version's spread there (ratio {ratio:.2f})")
         rec = {k: max(rec[k], v) for k, v in
                zip(rec, (err, spread, ratio))}
-    err32 = max(float((g - w).abs().max()) for g, w in zip(got, runs[0]))
+    rec["resequenced"] = reseq
+    err32 = max(float((g - w).abs().max()) for g, w in zip(got, run32))
     print(f"{key} {name}: from the float64 plain version kernel "
           f"{rec['f64_err']:.3e}, float32 plain runs up to "
           f"{rec['f32_spread']:.3e}; largest (err - {atol}) / spread "
-          f"{rec['spread_ratio']:.3f} (<= {SPREAD_FACTOR}); kernel vs "
-          f"float32 plain {err32:.3e}")
+          f"{rec['spread_ratio']:.3f} (<= {SPREAD_FACTOR}; {len(reseq)} scenarios "
+          f"also held by the sequential-sum runs); kernel vs float32 plain "
+          f"{err32:.3e}")
     return err32, rec
 
 
@@ -1595,6 +1598,37 @@ def select_boundary_case(torch, np, out, B=16384):
                               "max_err_same_pick": float(near[ok].max())}
 
 
+def select_draw_case(torch, out):
+    """12c. The select functor on the draw on which one row of
+    ``gp_flagship_c2``'s sweep once lay 7.02 float32 spreads from the
+    float64 plain version (``testing.select_draw``: B=16384, N=10): the
+    sweep and the RK4 defect of the whole batch, held by ``anchored`` at
+    the scenarios that broke the check (``testing.SELECT_DRAW_SCENARIOS``),
+    where the spread takes the plain runs that sum each mean in the
+    kernel's order."""
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde, vde_plain
+    from ad_mpc_tpu_torch.ops.integrators import discrete_step
+    from ad_mpc_tpu_torch.testing import SELECT_DRAW_SCENARIOS, select_draw
+
+    dyn, xs, us = select_draw("cuda")
+    B = xs.shape[0]
+    ps = torch.zeros((B, 0), device="cuda")
+    got = (*make_vde(dyn, 0.1, 10, 13, 4, 0, device="cuda")(xs, us, ps),
+           make_rk4(dyn, 0.1, 13, 4, 0, device="cuda").defect(xs, us, ps))
+    idx = torch.tensor(SELECT_DRAW_SCENARIOS, device="cuda")
+    sub = lambda ts: tuple(t[idx] for t in ts)
+
+    def plain(d, x, u, p):
+        return (*vde_plain(d, 0.1, 1, x, u, p),
+                discrete_step(d, 0.1, 1, x[:, :-1], u, p[:, None]) - x[:, 1:])
+
+    err, rec = anchored("vde_gp_quad_select draw", f"scenarios {SELECT_DRAW_SCENARIOS}",
+                        sub(got), plain, dyn, sub((xs, us, ps)), 3e-5,
+                        (True, True, False, False))
+    out["select_draw"] = rec | {"B": B, "scenarios": list(SELECT_DRAW_SCENARIOS),
+                                "kernel_vs_f32_plain": err}
+
+
 def phase_quad_functors(torch, np, out):
     """12. The drag, dual-state GP and select functors at B=16384, N=10:
     the drag and dual-state on the quad VDE and RK4 phases' draws, the
@@ -1602,8 +1636,10 @@ def phase_quad_functors(torch, np, out):
     cluster choice lies 1e-4 or more from a tie
     (``testing.margin_quad_traj``); each against its plain
     version (3e-5; the fitted GPs by ``anchored``), warm and cold, bound,
-    registers and spills; then the select functor at a cluster boundary
-    (:func:`select_boundary_case`). Returns {row name: numbers}."""
+    registers and spills (and the team functors' geometry); then the select
+    functor at a cluster boundary (:func:`select_boundary_case`) and on the
+    draw that once broke its check (:func:`select_draw_case`). Returns
+    {row name: numbers}."""
     from ad_mpc_tpu_torch.testing import margin_quad_traj, quad_traj
 
     B, N = 16384, 10
@@ -1647,6 +1683,7 @@ def phase_quad_functors(torch, np, out):
                      3e-5, gp_quad_select_flops(60, 2, drag=True, vde=False),
                      anchor=anchor)
     select_boundary_case(torch, np, out)
+    select_draw_case(torch, out)
     return rows
 
 
@@ -1972,10 +2009,13 @@ def phase_fit(np, out):
     two validation cells through the card, the RDRv drag. The RDRv
     diagonal against the JAX package's (``RDRV_TOL``); the selected
     cluster count, offline reduction and validation RMSEs printed beside
-    its. Returns (selected ensemble, rdrv_d, two-cluster candidate)."""
+    its; each validation flight's GPQuadDualDyn launches as
+    ``gp_flagship.flagship_launches`` counts them from the code (one per
+    tick, plus one per reset). Returns (selected ensemble, rdrv_d,
+    two-cluster candidate)."""
     import json as js
 
-    from ad_mpc_tpu_torch.experiments.gp_flagship import stage_fit
+    from ad_mpc_tpu_torch.experiments.gp_flagship import flagship_launches, stage_fit
     from ad_mpc_tpu_torch.utils import io
 
     root = smoke_results_root()
@@ -1989,6 +2029,14 @@ def phase_fit(np, out):
     check(d_err <= RDRV_TOL, f"fit: RDRv diagonal {diag} is {d_err:.3e} from the "
           f"JAX package's {jax_meta['rdrv_diag']} (> {RDRV_TOL})")
     cands = meta["candidates"]
+    counted = flagship_launches()["validation_cells"]
+    for k, c in cands.items():
+        want = [n + r for n, r in zip(counted, c["val_resets"])]
+        check(c["val_launches"] == want, f"fit: the {k}-cluster candidate's validation "
+              f"flights launched GPQuadDualDyn {c['val_launches']} times, counted {want}")
+    print(f"fit: the validation flights' GPQuadDualDyn launches per candidate "
+          f"{[c['val_launches'] for c in cands.values()]} as counted from the code "
+          f"({counted} plus resets)")
     print(f"fit (committed recording): selected {meta['n_clusters_selected']} "
           f"cluster(s) (JAX {JAX_FIT['n_clusters_selected']}); offline reduction "
           f"{meta['reduction']:.4f} (JAX {JAX_FIT['offline_reduction']:.4f}); "
@@ -2197,22 +2245,39 @@ def phase_flagship_cell(out, ens, rdrv_d):
     """19b. One sweep cell beyond phase 14's: the lemniscate at 6 m/s under
     drag, nominal, GP (QuadMPC's dual-state mode, the port's own fit) and
     RDRv (its own fit), through the card; the GP row under the nominal row,
-    each beside the JAX package's cell."""
+    each beside the JAX package's cell; each row's VDE launches (the GP
+    row's GPQuadDualDyn, the RDRv row's QuadDragDyn) as
+    ``gp_flagship.flagship_launches`` counts them from the code, and its
+    count for a whole sweep printed."""
     import numpy as np
 
     from ad_mpc_tpu_torch.experiments.comparative import comparative_sweep
+    from ad_mpc_tpu_torch.experiments.gp_flagship import flagship_launches
 
+    launches = {}
     rmse, t_opt, _ = comparative_sweep(
         {"nominal": {}, "gp": {"ensemble": ens}, "rdrv": {"rdrv_d": rdrv_d}},
-        traj_types=("lemniscate",), speeds=(6.0,), device="cuda")
+        traj_types=("lemniscate",), speeds=(6.0,), device="cuda", launches=launches)
     r = dict(zip(("nominal", "gp", "rdrv"), rmse[:, 0, 0].tolist()))
+    counted = flagship_launches()
+    ticks = counted["cells"]["lemniscate 6.0"]
+    for (name, _, _), (n, resets) in launches.items():
+        check(n == ticks + resets, f"flagship cell: {name} launched its VDE kernel {n} "
+              f"times, counted {ticks} plus {resets} resets")
+    print(f"flagship cell: VDE launches {dict((k[0], v[0]) for k, v in launches.items())} "
+          f"as counted from the code ({ticks} ticks plus resets); a whole sweep "
+          f"launches GPQuadDualDyn and QuadDragDyn {counted['GPQuadDualDyn']['sweep']} "
+          f"times each, the fit's validation flights GPQuadDualDyn "
+          f"{counted['GPQuadDualDyn']['validation']} times")
     check(all(np.isfinite(v) for v in r.values()), f"flagship cell: {r}")
     check(r["gp"] < r["nominal"], f"flagship cell: GP {r['gp']:.5f} m not under "
           f"nominal {r['nominal']:.5f} m")
     print("flagship cell lemniscate @ 6 m/s (own fit): " + ", ".join(
         f"{k} {v:.5f} m (JAX {JAX_LEMNISCATE_6[k]:.5f})" for k, v in r.items())
         + f"; opt time means {t_opt[:, 0, 0].round(3).tolist()} ms")
-    out["flagship_cell"] = {"rmse": r, "t_opt_ms": t_opt[:, 0, 0].tolist()}
+    out["flagship_cell"] = {"rmse": r, "t_opt_ms": t_opt[:, 0, 0].tolist(),
+                            "launches": {k[0]: v for k, v in launches.items()},
+                            "counted": counted}
 
 
 

@@ -33,9 +33,8 @@ from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.ops.cuda_vde import _entry, make_rk4, make_vde, vde_plain
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
 from ad_mpc_tpu_torch.testing import (
-    BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, SPREAD_RUNS, f64_anchored,
-    gp_bicycle_inputs, lq_case, pacejka_inputs, perturbed, quad_traj,
-    random_lq, random_traj, table_perturbed)
+    BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, anchored_hold, gp_bicycle_inputs, lq_case,
+    pacejka_inputs, quad_traj, random_lq, random_traj)
 
 pytestmark = pytest.mark.gpu
 
@@ -472,17 +471,26 @@ def test_quad_kernels_repeat_their_bits(cuda, B):
     assert vde.launches == gp.launches == 2 and rk4.launches == 4 and qp.launches == 2
 
 
-@pytest.mark.parametrize("gp", [False, True], ids=["quad", "gp_quad"])
-def test_team_sweep_takes_only_its_geometry(cuda, gp):
+@pytest.mark.parametrize("kind", ["quad", "gp_quad", "dual", "dual_drag", "select"])
+def test_team_sweep_takes_only_its_geometry(cuda, kind):
     """The team functors' C entry launches the geometry ``vde_geometry``
-    computes from the traits it was built with and refuses any other (a
-    grid, a block or a tile other than the kernel's); the kernel's
+    computes from the traits it was built with (and, for the cluster-table
+    functors, the table after the tile) and refuses any other (a grid, a
+    block, a tile or a table other than the kernel's); the kernel's
     registers stay under the launch bounds' cap and MIN_BLOCKS blocks fit
     an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
-    dyn = _gp_quad(False) if gp else QUAD
+    from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
+    from ad_mpc_tpu_torch.testing import dual_gp_ps
+
     B, N = RAGGED_B, 10
     xs, us, ps = _quad_traj(B, N, cuda)
-    vde = make_vde(dyn, 0.1, N, 13, 4, 0, device=cuda)
+    two = quad_fleet.make_quad_gp_ensemble(n=16, clusters=2)
+    dyn = {"quad": QUAD, "gp_quad": _gp_quad(False), "dual": _dual("two_clusters"),
+           "dual_drag": GPQuadDualDynamics(two, rdrv_d=quad_fleet.fitted_rdrv_d()),
+           "select": _select("two_clusters")}[kind]
+    if kind.startswith("dual"):
+        ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(1), B, two, 3), device=cuda)
+    vde = make_vde(dyn, 0.1, N, 13, 4, ps.shape[1], device=cuda)
     geo, traits = vde.geometry(B), vde.team_traits()
     assert traits["registers"] <= geo.max_registers
     assert vde.occupancy(B) >= traits["min_blocks"]
@@ -492,16 +500,18 @@ def test_team_sweep_takes_only_its_geometry(cuda, gp):
 
     def launch(grid, threads, nbytes):
         return fn(xs.data_ptr(), us.data_ptr(), ps.data_ptr(),
-                  *(o.data_ptr() for o in out), B, N, 13, 4, 0, grid, threads,
+                  *(o.data_ptr() for o in out), B, N, 13, 4, ps.shape[1], grid, threads,
                   nbytes, 0.1, 1, dyn.cuda_params(), stream)
 
+    assert (geo.table_bytes > 0) == kind.startswith(("dual", "select"))
     assert launch(geo.grid, geo.threads, geo.shared_bytes) == 0
     torch.cuda.synchronize()
     for o, w in zip(out, vde(xs, us, ps)):
         assert torch.equal(o, w)
     for bad in ((geo.grid + 1, geo.threads, geo.shared_bytes),
                 (geo.grid, geo.threads // 2, geo.shared_bytes),
-                (geo.grid, geo.threads, geo.shared_bytes - 16)):
+                (geo.grid, geo.threads, geo.shared_bytes - 16),
+                (geo.grid, geo.threads, geo.shared_bytes + 16)):
         assert launch(*bad) != 0
 
 
@@ -684,31 +694,35 @@ def test_c6_kernels_keep_their_bits(cuda):
 # sha256 of QuadMPC's drag and dual-state functors' outputs on the fixed
 # draws of ``experiments/c2_kernels.py:quad_mpc_bits``, as the kernels gave
 # them before the dual-state functor's struct took the drag option (that
-# function run on that tree and on this one, on one card).
+# function run on that tree and on this one, on one card); the dual-state
+# sweep's as its team gives them (an FMA contraction moved with the code
+# around it; ``test_gp_quad_dual_kernels_match_plain`` holds it).
 QUAD_MPC_BITS = {"vde_quad_drag": "e7e3c488625cec84", "rk4_quad_drag": "58aa604af2680988",
-                 "vde_quad_dual": "e439e04edc2b4ebd", "rk4_quad_dual": "d4bc98882790ee5b"}
+                 "vde_quad_dual": "2bfa8f956292127b", "rk4_quad_dual": "d4bc98882790ee5b"}
 
 
 def test_quad_mpc_kernels_keep_their_bits(cuda):
     assert quad_mpc_bits(cuda) == QUAD_MPC_BITS
 
 
-# sha256 of the outputs of the functors that keep the thread-per-row sweep
-# and are in none of the sets above, on the fixed draws of
-# ``experiments/c2_kernels.py:other_functor_bits``, as the kernels gave them
-# before the quads' team sweep (that function run on that tree and on this
-# one, on one card).
+# sha256 of the outputs of the functors in none of the sets above, on the
+# fixed draws of ``experiments/c2_kernels.py:other_functor_bits``, as the
+# kernels gave them before the quads' team sweep (that function run on that
+# tree and on this one, on one card); the sweeps of the dual-state GP with
+# the drag and of the select GP with the drag as their teams give them (FMA
+# contractions moved; the drag-free select sweeps kept their bits), held
+# to their plain versions by the tests of each functor.
 OTHER_BITS = {"vde_gp_routed": "5d6e693f2d06a3f9",
               "rk4_gp_routed": "50e387a3f50f692e",
               "vde_gp_quad_routed": "3f0511d38a03bca7",
               "rk4_gp_quad_routed": "7be0891a60486384",
-              "vde_gp_quad_dual_drag": "6cb4c60dd64bf32c",
+              "vde_gp_quad_dual_drag": "2bace7c3ff9023ba",
               "rk4_gp_quad_dual_drag": "0e768636f14e1c41",
               "vde_gp_quad_select_c2": "98b0e5a2e0556a14",
               "rk4_gp_quad_select_c2": "38f2585b9bbbf5b2",
               "vde_gp_quad_select_c2_pinned": "8c9394281d2fe44e",
               "rk4_gp_quad_select_c2_pinned": "97bb2d0d87c1bd40",
-              "vde_gp_quad_select_c2_drag": "945d6af993ec2e89",
+              "vde_gp_quad_select_c2_drag": "f1090216bae0220b",
               "rk4_gp_quad_select_c2_drag": "0ea3d41bf21a8b87"}
 
 
@@ -732,7 +746,7 @@ def test_gp_quad_kernels_match_plain(cuda, B, fitted):
     versions, each row of A and Bm and each entry of c and of the RK4 map
     within 3e-5 plus 4 times the float32 plain versions' spread there, on
     the inputs and on copies of the inputs and of the GP table moved by an
-    ulp (``testing.f64_anchored``)."""
+    ulp (``testing.anchored_hold``)."""
     N, dyn = 10, _gp_quad(fitted)
     xs, us, ps = _quad_traj(B, N, cuda)
     vde = make_vde(dyn, 0.1, N, 13, 4, 0, device=cuda)
@@ -746,17 +760,11 @@ def test_gp_quad_kernels_match_plain(cuda, B, fitted):
                 discrete_step(dyn, 0.1, 1, xs[:, 0], us[:, 0], ps))
 
     args = (xs, us, ps)
-    want = plain(dyn, *args)
     if fitted:
-        want64 = plain(dyn, *(a.double() for a in args))
-        runs = [want] + [plain(table_perturbed(dyn, s), *perturbed(args, s))
-                         for s in range(SPREAD_RUNS)]
-        for i, (g, w64) in enumerate(zip(got, want64)):
-            err, spread, ratio, ok = f64_anchored(
-                g, [r[i] for r in runs], w64, 3e-5, rows=i < 2)
-            assert ok, (i, err, spread, ratio)
+        held, _, _ = anchored_hold(got, plain, dyn, args, 3e-5, (True, True, False, False))
+        assert all(h[3] for h in held), held
     else:
-        for g, w in zip(got, want):
+        for g, w in zip(got, plain(dyn, *args)):
             torch.testing.assert_close(g, w, atol=3e-5, rtol=0)
     if not fitted:  # the RK4 map's defect is the sweep's c
         torch.testing.assert_close(got[3], got[2], atol=3e-5, rtol=0)
@@ -968,29 +976,31 @@ def _new_functor_outputs(dyn, xs, us, ps, device):
     return got
 
 
-def _plain_outputs(dyn, xs, us, ps):
-    return (*vde_plain(dyn, 0.1, 1, xs, us, ps),
-            discrete_step(dyn, 0.1, 1, xs[:, :-1], us, ps[:, None]) - xs[:, 1:],
-            discrete_step(dyn, 0.1, 1, xs[:, 0], us[:, 0], ps))
+def _plain_outputs(dyn, xs, us, ps, chunk=4096):
+    """The plain versions of :func:`_new_functor_outputs`, in chunks of
+    ``chunk`` scenarios (the float64 sweep at B=16384 would take tens of GB
+    at once)."""
+    parts = [(*vde_plain(dyn, 0.1, 1, x, u, p),
+              discrete_step(dyn, 0.1, 1, x[:, :-1], u, p[:, None]) - x[:, 1:],
+              discrete_step(dyn, 0.1, 1, x[:, 0], u[:, 0], p))
+             for x, u, p in zip(*(t.split(chunk) for t in (xs, us, ps)))]
+    return tuple(torch.cat(o) for o in zip(*parts))
 
 
 def _hold_to_plain(dyn, got, args, anchored):
     """The outputs of :func:`_new_functor_outputs` against
     :func:`_plain_outputs` at 3e-5; ``anchored`` (a fitted GP) each held to
     the float64 plain version with its float32 spread instead
-    (``testing.f64_anchored``; the sweep's outputs by rows)."""
+    (``testing.anchored_hold``; the sweep's outputs by rows). Returns the
+    scenarios that the sequential-sum runs held."""
     if not anchored:
         for g, w in zip(got, _plain_outputs(dyn, *args)):
             torch.testing.assert_close(g, w, atol=3e-5, rtol=0)
-        return
-    want64 = _plain_outputs(dyn, *(a.double() for a in args))
-    runs = [_plain_outputs(dyn, *args)] + [
-        _plain_outputs(table_perturbed(dyn, s), *perturbed(args, s))
-        for s in range(SPREAD_RUNS)]
-    for i, (g, w64) in enumerate(zip(got, want64)):
-        err, spread, ratio, ok = f64_anchored(
-            g, [r[i] for r in runs], w64, 3e-5, rows=i < 2)
-        assert ok, (i, err, spread, ratio)
+        return []
+    held, _, reseq = anchored_hold(got, _plain_outputs, dyn, args, 3e-5,
+                                   (True, True, False, False, False))
+    assert all(h[3] for h in held), held
+    return reseq
 
 
 @pytest.mark.parametrize("B", [1, RAGGED_B])
@@ -1009,13 +1019,15 @@ def test_quad_drag_kernels_match_plain(cuda, B):
 
 
 @pytest.mark.parametrize("name", ["two_clusters", "fitted"])
-@pytest.mark.parametrize("B", [1, RAGGED_B, 1000])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 1000, 16384])
 def test_gp_quad_dual_kernels_match_plain(cuda, B, name):
-    """The dual-state functor on p rows with the trigger on every third
-    scenario and the cluster drawn per output: on the synthetic two-cluster
-    three-output ensemble (each scenario's cluster read from its p) at
-    3e-5, on the fitted one-cluster model held to the float64 plain
-    version with its float32 spread (``testing.f64_anchored``)."""
+    """The dual-state functor (a team of lanes per row) on p rows with the
+    trigger on every third scenario, so that every warp's teams mix
+    trigger rows (no GP mean) with GP rows, and the cluster drawn per
+    output: on the synthetic two-cluster three-output ensemble (each
+    scenario's cluster read from its p) at 3e-5, on the fitted one-cluster
+    model held to the float64 plain version with its float32 spread
+    (``testing.anchored_hold``)."""
     from ad_mpc_tpu_torch.testing import dual_gp_ps
 
     dyn = _dual(name)
@@ -1040,10 +1052,12 @@ def test_gp_quad_dual_refuses_a_p_of_another_width(cuda):
     Bm = torch.empty((B, N, 13, 4), device=cuda)
     c = torch.empty((B, N, 13), device=cuda)
     ps = torch.zeros((B, 5), device=cuda)
+    geo = make_vde(dyn, 0.1, N, 13, 4, 7, device=cuda).geometry(B)
     fn, _ = _entry(dyn)
     err = fn(xs.data_ptr(), us.data_ptr(), ps.data_ptr(), A.data_ptr(),
-             Bm.data_ptr(), c.data_ptr(), B, N, 13, 4, 5, 0.1, 1,
-             dyn.cuda_params(), torch.cuda.current_stream(cuda).cuda_stream)
+             Bm.data_ptr(), c.data_ptr(), B, N, 13, 4, 5, geo.grid, geo.threads,
+             geo.shared_bytes, 0.1, 1, dyn.cuda_params(),
+             torch.cuda.current_stream(cuda).cuda_stream)
     assert err != 0
 
 
@@ -1063,23 +1077,45 @@ def _select(name):
 
 
 @pytest.mark.parametrize("name", ["two_clusters", "c2", "c2_pinned", "c2_drag"])
-@pytest.mark.parametrize("B", [1, RAGGED_B, 1000])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 1000, 16384])
 def test_gp_quad_select_kernels_match_plain(cuda, B, name):
-    """The select functor's sweep and both modes of its RK4 map on states
-    whose every cluster choice lies 1e-4 or more from a tie
-    (``testing.margin_quad_traj``, velocities across the clusters): the
-    synthetic ensemble at 3e-5, the fitted one held to the float64 plain
-    version with its float32 spread; a relaunch repeats its bits."""
+    """The select functor's sweep (a team of lanes per row) and both modes
+    of its RK4 map on states whose every cluster choice lies 1e-4 or more
+    from a tie (``testing.margin_quad_traj``, velocities across the
+    clusters): the synthetic ensemble at 3e-5, the fitted one held to the
+    float64 plain version with its float32 spread; a relaunch repeats its
+    bits."""
     from ad_mpc_tpu_torch.testing import margin_quad_traj
 
     dyn = _select(name)
     xs, us = (torch.as_tensor(a, device=cuda) for a in margin_quad_traj(
-        np.random.default_rng(B), B, 10, dyn, 0.1))
+        np.random.default_rng(B), B, 10, dyn, 0.1, device=cuda))
     ps = torch.zeros((B, 0), device=cuda)
     got = _new_functor_outputs(dyn, xs, us, ps, cuda)
     _hold_to_plain(dyn, got, (xs, us, ps), anchored=name != "two_clusters")
     again = _new_functor_outputs(dyn, xs, us, ps, cuda)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_gp_quad_select_holds_the_draw_that_broke_its_check(cuda):
+    """The select sweep on the draw on which one row of ``gp_flagship_c2``'s
+    sweep once lay 7.02 float32 spreads from the float64 plain version
+    (``testing.select_draw``, B=16384, N=10): the sweep and the RK4 defect
+    of the whole batch, held at the scenarios that broke the check
+    (``testing.SELECT_DRAW_SCENARIOS``) by ``testing.anchored_hold``, whose
+    spread there takes the plain runs that sum each mean in the kernel's
+    order."""
+    from ad_mpc_tpu_torch.testing import SELECT_DRAW_SCENARIOS, select_draw
+
+    dyn, xs, us = select_draw(cuda)
+    ps = torch.zeros((xs.shape[0], 0), device=cuda)
+    vde = make_vde(dyn, 0.1, 10, 13, 4, 0, device=cuda)
+    got = (*vde(xs, us, ps), make_rk4(dyn, 0.1, 13, 4, 0, device=cuda).defect(xs, us, ps))
+    idx = torch.tensor(SELECT_DRAW_SCENARIOS, device=cuda)
+    sub = lambda ts: tuple(t[idx] for t in ts)
+    held, _, _ = anchored_hold(sub(got), lambda d, *a: _plain_outputs(d, *a)[:4], dyn,
+                               sub((xs, us, ps)), 3e-5, (True, True, False, False))
+    assert all(h[3] for h in held), held
 
 
 def test_gp_quad_select_at_a_cluster_boundary(cuda):

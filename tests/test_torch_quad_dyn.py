@@ -222,20 +222,38 @@ def test_drag_struct_holds_d_and_the_quad():
         tq.QuadDragDynamics(np.eye(2))
 
 
+def _unpack_table(flat, C, n):
+    """(X (3, C, n, 3), a (3, C, n), 1/l (3, C, 3), y_mean (3, C)) of a
+    functor's table by ``gp_dual_layout``, and whether its padding is 0."""
+    lay = tgq.gp_dual_layout(C, n)
+    X = np.stack([np.stack([flat[lay["X"](r, c):][:3 * n].reshape(n, 3) for c in range(C)])
+                  for r in range(3)])
+    a = np.stack([np.stack([flat[lay["a"](r, c):][:n] for c in range(C)]) for r in range(3)])
+    inv_l = np.stack([np.stack([flat[lay["inv_l"](r, c):][:3] for c in range(C)])
+                      for r in range(3)])
+    y_mean = np.array([[flat[lay["y_mean"](r, c)] for c in range(C)] for r in range(3)])
+    used = np.zeros(lay["floats"], bool)
+    for r in range(3):
+        for c in range(C):
+            used[lay["X"](r, c):][:3 * n] = used[lay["a"](r, c):][:n] = True
+    used[lay["inv_l"](0, 0):] = True
+    return X, a, inv_l, y_mean, not flat[:lay["floats"]][~used].any()
+
+
 def test_dual_gp_table_pads_to_the_body_velocities(ensembles):
     """The functor's table: every cluster of every output, on the body
     velocity it corrects and the features it reads; zeros (a, y_mean, 1/l)
-    elsewhere; the struct's slots name each output's place in p."""
+    elsewhere and in the padding of each (output, cluster) block of X and
+    a (``gp_dual_layout``); the struct's slots name each output's place
+    in p."""
     ens, _, _ = ensembles["one_output"]
     dyn = tgq.GPQuadDualDynamics(ens)
     C, n, D, slot = dyn.cuda_layout()
     assert (C, n, D, slot) == (2, 16, 1, (-1, 0, -1))
     flat = dyn.cuda_table()
-    X = flat[:9 * C * n].reshape(3, C, n, 3)
-    a = flat[9 * C * n:12 * C * n].reshape(3, C, n)
-    inv_l = flat[12 * C * n:12 * C * n + 9 * C].reshape(3, C, 3)
-    y_mean = flat[12 * C * n + 9 * C:].reshape(3, C)
-    assert flat.dtype == np.float32 and flat.size == 3 * C * (4 * n + 4)
+    X, a, inv_l, y_mean, zero_pad = _unpack_table(flat, C, n)
+    assert zero_pad and flat.dtype == np.float32
+    assert flat.size == tgq.gp_dual_layout(C, n)["floats"] == 3 * C * (65 + 33 + 4)
     np.testing.assert_array_equal(X[1, :, :, 1], ens.x_train[0, :, :, 0].astype(np.float32))
     np.testing.assert_array_equal(
         a[1], (ens.k_inv_y[0] * ens.sigma_f[0][:, None]).astype(np.float32))
@@ -446,7 +464,10 @@ def test_select_struct_and_table(ensembles):
     flat = dyn.cuda_table()
     dual = tgq.GPQuadDualDynamics(ens).cuda_table()
     np.testing.assert_array_equal(flat[:dual.size], dual)
-    cen = flat[dual.size:].reshape(3, C, 3)
+    assert flat.size == tgq.gp_dual_layout(C, n)["select_floats"] == dual.size + 9 * C + 3
+    lay = tgq.gp_dual_layout(C, n)
+    cen = np.stack([flat[lay["centroids"](r):][:3 * C] for r in range(3)]).reshape(3, C, 3)
+    assert not flat[lay["centroids"](1) - 1] and not flat[lay["centroids"](2) - 1]
     np.testing.assert_array_equal(cen[1, :, 0], ens.centroids[0, :, 0].astype(np.float32))
     assert not cen[[0, 2]].any() and not cen[:, :, 1:].any()
     c2 = tgq.GPQuadSelectDynamics(ensembles["c2"][0])

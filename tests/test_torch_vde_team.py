@@ -1,7 +1,9 @@
-"""The team path of the quad sweeps (``csrc/vde.cuh:vde_team``; ``QuadDyn``
-and ``GPQuadDyn``): its launch geometry, which the wrapper computes in
-``ops/cuda_vde.py:vde_geometry`` and the C entry takes or refuses, and the
-split of a row's tangent columns across a team's lanes.
+"""The team path of the quad sweeps (``csrc/vde.cuh:vde_team``; ``QuadDyn``,
+``GPQuadDyn`` and QuadMPC's cluster-table GPs ``GPQuadDualDyn``,
+``GPQuadDualDragDyn`` and ``GPQuadSelectDyn``): its launch geometry, which
+the wrapper computes in ``ops/cuda_vde.py:vde_geometry`` and the C entry
+takes or refuses, the cluster table that a block stages after its tile,
+and the split of a row's tangent columns across a team's lanes.
 
 On the CPU the geometry is checked as the kernel uses it
 (``cuda_vde.lane_work``: each thread's row and columns): every row and every
@@ -11,8 +13,12 @@ block fits an H100's shared memory and its launch bounds fit an SM. The
 split itself is held to the JAX package: each lane's columns computed by
 forward-mode JVPs of the port's plain RK4 map at its row, assembled by
 ``lane_work``, against the JAX package's Pallas sweep (interpret mode) on
-the quad and its XLA linearization on the 8-point GP quad, at the 3e-5 of
-``tests/test_pallas_vde.py``. The kernels themselves run on the card
+the quad and its XLA linearization on the 8-point GP quad, and, on a
+two-cluster 8-point ensemble, the JAX package's QuadMPC ensemble dynamics
+(its solver's discrete map, linearized) and ``quad_residual_fn`` plus the
+quad, at the 3e-5 of ``tests/test_pallas_vde.py``. The cluster table's
+padding is checked against the banks of shared memory that a warp's lanes
+read at once. The kernels themselves run on the card
 (``tests/test_torch_gpu.py``).
 """
 
@@ -24,15 +30,21 @@ import numpy as np
 import pytest
 import torch
 
+from ad_mpc_tpu.control.mpc import QuadMPC as JaxQuadMPC
+from ad_mpc_tpu.control.mpc import quad_spec as jax_quad_spec
 from ad_mpc_tpu.experiments import quad_fleet as jqf
+from ad_mpc_tpu.learned import ensemble as je
 from ad_mpc_tpu.learned import lane as jl
 from ad_mpc_tpu.models import quadrotor as jq
-from ad_mpc_tpu.ops.integrators import discretize, linearize
+from ad_mpc_tpu.ops.integrators import discretize, linearize, linearize_p
 from ad_mpc_tpu.ops.pallas_vde import make_vde as jax_make_vde
 from ad_mpc_tpu_torch import convert
-from ad_mpc_tpu_torch.experiments.quad_kernels import GP_QUAD_TEAMS, QUAD_TEAMS
+from ad_mpc_tpu_torch.experiments import quad_fleet
+from ad_mpc_tpu_torch.experiments.quad_kernels import GP_QUAD_TEAMS, QUAD_TEAMS, TABLE_TEAMS
 from ad_mpc_tpu_torch.models.gp_quad import (
-    GP_QUAD_DIMS, GP_QUAD_FEATS, GP_QUAD_POINTS, GPQuadDynamics)
+    GP_DUAL_CLUSTERS, GP_DUAL_POINTS, GP_DUAL_TABLE_MAX, GP_QUAD_DIMS, GP_QUAD_FEATS,
+    GP_QUAD_POINTS, GP_SELECT_TABLE_MAX, SMEM_BANKS, GPQuadDualDynamics, GPQuadDynamics,
+    GPQuadSelectDynamics, gp_dual_layout)
 from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
 from ad_mpc_tpu_torch.ops._build import CSRC
 from ad_mpc_tpu_torch.ops.cuda_lq import (
@@ -40,7 +52,7 @@ from ad_mpc_tpu_torch.ops.cuda_lq import (
 from ad_mpc_tpu_torch.ops.cuda_vde import (
     REGS_SM, THREADS_SM, WARP, lane_work, make_vde, vde_geometry)
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
-from ad_mpc_tpu_torch.testing import quad_traj
+from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj
 from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
 
 NX, NU, DT = 13, 4, 0.1
@@ -49,18 +61,28 @@ NV = NX + NU
 # and y_mean (csrc/vde_gp_quad.cu).
 GP_QUAD_STATIC = 4 * GP_QUAD_DIMS * (GP_QUAD_POINTS * (GP_QUAD_FEATS + 1) + 2
                                      + GP_QUAD_FEATS + 1)
-SOURCES = {"vde_quad": ("QUAD", QUAD_TEAMS, 0),
-           "vde_gp_quad": ("GP_QUAD", GP_QUAD_TEAMS, GP_QUAD_STATIC)}
-TEAMS = sorted({v[0] for vs in (QUAD_TEAMS, GP_QUAD_TEAMS) for v in vs})
+# Each team source: (its traits' macro prefix, the sweep's variants, its
+# static shared bytes, the bytes of its largest table in dynamic shared
+# memory). The dual-state GP's traits lie in vde_gp_quad_dual.cuh, which
+# both of its sources (with and without the drag) include.
+SOURCES = {"vde_quad": ("QUAD", QUAD_TEAMS, 0, 0),
+           "vde_gp_quad": ("GP_QUAD", GP_QUAD_TEAMS, GP_QUAD_STATIC, 0),
+           "vde_gp_quad_dual": ("GP_QUAD_DUAL", TABLE_TEAMS, 0, 4 * GP_DUAL_TABLE_MAX),
+           "vde_gp_quad_select": ("GP_QUAD_SELECT", TABLE_TEAMS, 0,
+                                  4 * GP_SELECT_TABLE_MAX)}
+TEAMS = sorted({v[0] for _, vs, _, _ in SOURCES.values() for v in vs})
 
 
 def team_defaults(source):
     """{functor macro prefix: {"ROW_TEAM", "ROW_WARPS", "MIN_BLOCKS"}}: the
-    team traits that ``csrc/<source>.cu`` is built with when no ``-D``
+    team traits that ``csrc/<source>.cu`` (and its own header
+    ``<source>.cuh``, where it has one) is built with when no ``-D``
     overrides them."""
+    text = "".join(p.read_text() for p in (CSRC / f"{source}.cu", CSRC / f"{source}.cuh")
+                   if p.exists())
     out = {}
     for prefix, trait, n in re.findall(r"#define (\w+?)_(ROW_TEAM|ROW_WARPS|MIN_BLOCKS) (\d+)",
-                                       (CSRC / f"{source}.cu").read_text()):
+                                       text):
         out.setdefault(prefix, {})[trait] = int(n)
     return {p: v for p, v in out.items() if "ROW_TEAM" in v}
 
@@ -110,31 +132,32 @@ def test_team_geometry_stores_each_row_and_column_once(team, B, N):
 def test_team_defaults_are_the_sweeps_first_variant(source):
     """The source's #defines (and vde.cuh's store) are the first
     (committed) variant of the sweep, so that its bits column compares
-    every variant with them; the GP
+    every variant with them; a GP
     quad's team has a lane for each output dim."""
-    prefix, variants, _ = SOURCES[source]
+    prefix, variants, _, _ = SOURCES[source]
     d = team_defaults(source)[prefix]
     bulk = re.search(r"#define VDE_BULK_STORE (\d)", (CSRC / "vde.cuh").read_text())
     assert (d["ROW_TEAM"], d["ROW_WARPS"], d["MIN_BLOCKS"], int(bulk.group(1))) == \
         variants[0]
-    if prefix == "GP_QUAD":
+    if prefix.startswith("GP_QUAD"):
         assert all(v[0] >= GP_QUAD_DIMS for v in variants)
 
 
 @pytest.mark.parametrize("source,variant", [
-    (s, v) for s, (_, vs, _) in sorted(SOURCES.items()) for v in vs])
+    (s, v) for s, (_, vs, _, _) in sorted(SOURCES.items()) for v in vs])
 def test_team_variants_fit_the_card(source, variant):
-    """Each variant's block (its tile and the GP quad's static table) fits a
-    block's 232,448 bytes; its launch bounds agree with its block: the block
-    is ROW_WARPS warps, MIN_BLOCKS such blocks fit an SM's threads, shared
-    memory and registers at the capped count, and the cap leaves at least
-    64 registers."""
-    _, _, static = SOURCES[source]
+    """Each variant's block (its tile and the GP quad's static table, or
+    the largest cluster table after the tile) fits a block's 232,448 bytes;
+    its launch bounds agree with its block: the block is ROW_WARPS warps,
+    MIN_BLOCKS such blocks fit an SM's threads, shared memory and registers
+    at the capped count, and the cap leaves at least 64 registers."""
+    _, _, static, table = SOURCES[source]
     team, rw, min_blocks, _ = variant
-    geo = vde_geometry(16384, 10, NX, NU, team, rw, min_blocks, static)
+    geo = vde_geometry(16384, 10, NX, NU, team, rw, min_blocks, static, table)
     assert geo.block_bytes == geo.shared_bytes + static <= SMEM_BLOCK_MAX
     assert geo.threads == 32 * rw and geo.rows_per_block * team == geo.threads
-    assert geo.shared_bytes == 4 * geo.rows_per_block * NX * (NV + 1)
+    assert geo.shared_bytes == 4 * geo.rows_per_block * NX * (NV + 1) + table
+    assert geo.table_bytes == table
     assert 64 <= geo.max_registers <= 255
     assert resident_blocks(geo.max_registers, geo.threads, geo.block_bytes) >= min_blocks
 
@@ -247,3 +270,121 @@ def test_team_split_of_the_gp_quad_sweep_matches_jax(team):
     for g, w, q in zip(got, want, plain):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=3e-5, rtol=0)
         torch.testing.assert_close(g, q, atol=3e-5, rtol=0)
+
+
+# ------------------------------------------------- the cluster table
+
+# The cluster tables the functors stage: (clusters, points per cluster).
+LAYOUTS = {"synthetic n=32": (2, 32), "fitted gp_flagship_c1": (1, 60),
+           "gp_flagship_c2": (2, 60)}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_cluster_table_reads_lie_in_distinct_banks(layout):
+    """A warp's lanes 0-2 of each team read point j, feature k of the
+    clusters their rows took for output dims 0-2 at once (X, then a, then
+    each centroid's feature): for every (output, cluster) block the
+    padded layout (``gp_dual_layout``) puts that read in a bank of its own,
+    so that no two such reads conflict whichever clusters the rows took.
+    Unpadded, the synthetic layout's 3C blocks of X (96 floats each) would
+    all lie in one bank."""
+    C, n = LAYOUTS[layout]
+    lay = gp_dual_layout(C, n)
+    blocks = [(d, c) for d in range(3) for c in range(C)]
+    for j in range(n):
+        for k in range(3):
+            banks = {(lay["X"](d, c) + 3 * j + k) % SMEM_BANKS for d, c in blocks}
+            assert len(banks) == len(blocks)
+        assert len({(lay["a"](d, c) + j) % SMEM_BANKS for d, c in blocks}) == len(blocks)
+    for c in range(C):
+        for k in range(3):
+            assert len({(lay["centroids"](d) + 3 * c + k) % SMEM_BANKS
+                        for d in range(3)}) == 3
+    if n == 32:
+        assert len({(d * C + c) * 3 * n % SMEM_BANKS for d, c in blocks}) == 1
+
+
+def test_largest_table_bounds_every_layout():
+    """Every layout within the capacity (clusters, and clusters x points per
+    output) takes at most the largest table that the kernels' shared memory
+    is set for at the library's load (``GP_DUAL_TABLE_MAX``,
+    ``GP_SELECT_TABLE_MAX``), whose formulas the sources state."""
+    worst = max(gp_dual_layout(C, n)["select_floats"] - GP_SELECT_TABLE_MAX
+                for C in range(1, GP_DUAL_CLUSTERS + 1)
+                for n in range(1, GP_DUAL_POINTS // C + 1))
+    assert worst <= 0
+    assert max(gp_dual_layout(C, GP_DUAL_POINTS // C)["floats"]
+               for C in range(1, GP_DUAL_CLUSTERS + 1)) <= GP_DUAL_TABLE_MAX
+    assert "GP_DUAL_TABLE_MAX = 3 * (4 * GP_DUAL_POINTS + 66 * GP_DUAL_CLUSTERS);" in \
+        (CSRC / "vde_models.cuh").read_text()
+    assert ("GP_SELECT_TABLE_MAX = GP_DUAL_TABLE_MAX + 9 * GP_DUAL_CLUSTERS + 3;"
+            in (CSRC / "vde_gp_quad_select.cu").read_text())
+
+
+def _jax_ensemble(ens):
+    """The JAX package's GPEnsemble with the port ensemble's arrays."""
+    return je.GPEnsemble(**{k: (v if isinstance(v, tuple) else jnp.asarray(v))
+                            for k, v in ens._asdict().items()})
+
+
+@pytest.fixture(scope="module")
+def two_clusters():
+    """A ragged iterate (B=5, N=2) whose body velocities cross the clusters
+    of an 8-point two-cluster three-output ensemble: (port ensemble, JAX
+    ensemble, xs, us, {case: the JAX package's sweep of it}), each JAX
+    sweep computed once for every team width."""
+    ens = quad_fleet.make_quad_gp_ensemble(n=8, clusters=2)
+    xs, us = quad_traj(np.random.default_rng(23), 5, 2)
+    xs[..., 7:10] *= 10.0
+    return ens, _jax_ensemble(ens), xs, us, {}
+
+
+def _hold_team_split(dyn, team, xs, us, ps, want):
+    """The team's split (:func:`_team_sweep`) against ``want`` and against
+    the port's plain sweep, each at 3e-5."""
+    B, N = us.shape[:2]
+    args = [torch.as_tensor(a) for a in (xs, us, ps)]
+    got = _team_sweep(dyn, vde_geometry(B, N, NX, NU, team, row_warps=4), *args)
+    plain = make_vde(dyn, DT, N, NX, NU, ps.shape[1], device="cpu")(*args)
+    for g, w, q in zip(got, want, plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=3e-5, rtol=0)
+        torch.testing.assert_close(g, q, atol=3e-5, rtol=0)
+
+
+@pytest.mark.parametrize("team", sorted({v[0] for v in TABLE_TEAMS}))
+def test_team_split_of_the_dual_gp_sweep_matches_jax(two_clusters, team):
+    """The dual-state GP (``GPQuadDualDyn``) on p rows that mix the trigger
+    (node 0: mu0, no GP) with GP rows whose outputs take either cluster:
+    the team's split against the JAX package's QuadMPC ensemble dynamics
+    (``ad_mpc_tpu/control/mpc.py:264-283``, its solver's discrete map
+    linearized per stage) at 3e-5."""
+    ens, ens_j, xs, us, wants = two_clusters
+    B, N = us.shape[:2]
+    ps = dual_gp_ps(np.random.default_rng(4), B, ens, trigger_every=2)
+    assert set(ps[:, 0]) == {0.0, 1.0} and set(ps[1::2, 4:].ravel()) == {0.0, 1.0}
+    if "dual" not in wants:
+        F = JaxQuadMPC(spec=jax_quad_spec(n_nodes=N, t_horizon=N * DT), ensemble=ens_j,
+                       dtype=jnp.float32).solver._F
+        wants["dual"] = jax.vmap(lambda a, b, p: linearize_p(F, a, b, jnp.tile(p, (N, 1))))(
+            jnp.asarray(xs), jnp.asarray(us), jnp.asarray(ps))
+    _hold_team_split(GPQuadDualDynamics(ens), team, xs, us, ps, wants["dual"])
+
+
+@pytest.mark.parametrize("pinned", [False, True], ids=["nearest", "pinned"])
+@pytest.mark.parametrize("team", sorted({v[0] for v in TABLE_TEAMS}))
+def test_team_split_of_the_select_gp_sweep_matches_jax(two_clusters, team, pinned):
+    """The select GP (``GPQuadSelectDyn``), the nearest centroid at every
+    evaluation or every output pinned to cluster 1: the team's split
+    against the JAX package's ``quad_residual_fn``
+    (``ad_mpc_tpu/learned/ensemble.py:216-244``) plus the quad, discretized
+    and linearized, at 3e-5."""
+    ens, ens_j, xs, us, wants = two_clusters
+    fixed = 1 if pinned else None
+    if ("select", fixed) not in wants:
+        res = je.quad_residual_fn(ens_j, fixed_cluster=fixed)
+        F = discretize(lambda x, u: jq.quad_dynamics(x, u, jq.QuadrotorParams()) + res(x, u),
+                       DT, 1)
+        wants["select", fixed] = jax.vmap(lambda a, b: linearize(F, a, b))(
+            jnp.asarray(xs), jnp.asarray(us))
+    _hold_team_split(GPQuadSelectDynamics(ens, fixed_cluster=fixed), team, xs, us,
+                     np.zeros((us.shape[0], 0), np.float32), wants["select", fixed])
