@@ -41,9 +41,11 @@
 //     registers and no spill once the divisions are branch-free, 8 warps
 //     per SM; 3 passes of 3 and 2 of 5 + 4 took 8% and 4% longer, and a
 //     warp per pass 60-80% (PERF.md).
-//   - The quads (QuadDyn, GPQuadDyn, and QuadMPC's GPQuadDualDyn,
-//     GPQuadDualDragDyn and GPQuadSelectDyn, whose table of every cluster
-//     the block stages after its tile) run a team of lanes per row instead
+//   - The quads (QuadDyn, QuadMPC's QuadDragDyn, GPQuadDyn, QuadMPC's
+//     GPQuadDualDyn, GPQuadDualDragDyn and GPQuadSelectDyn, whose table of
+//     every cluster the block stages after its tile, and the routed
+//     GPQuadRoutedDyn, whose scenarios' p rows the block stages there) run
+//     a team of lanes per row instead
 //     (ROW_TEAM, vde_team). In the thread-per-row design their 17 tangents
 //     took 3 passes of 6 (the quad: 255 registers, 456 B spilled, a 29,952
 //     B tile per warp, so 7 warps per SM) or 6 of 3 (the GP quad, whose
@@ -73,10 +75,8 @@
 //   - The GP models' means and their gradients are float functions of the
 //     features; a dual gets them by one contraction of the gradient with
 //     the features' tangents (vde_models.cuh: gp_lift), not by carrying the
-//     tangents through every training point's product and exp. A functor
-//     with CACHE_FLOATS keeps what its first pass computed in a per-thread
-//     slot of shared memory after the tiles, and its later passes read it
-//     there.
+//     tangents through every training point's product and exp; so is the
+//     RDRv drag R D R^T v of (q, v) on a team's duals.
 // The dynamics is a __device__ functor templated on the scalar type, with
 // one pair of C entries per functor (vde_<model>, rk4_<model>; VDE_ENTRIES,
 // or VDE_TEAM_ENTRIES for a team functor).
@@ -95,9 +95,9 @@
 // dynamic shared memory (dyn_table: a team functor's, after the block's
 // tile; the RK4 map's, alone); one with P_ROWS (the parameter-routed
 // GPs, whose table is the scenario's own parameter row) has the p rows of
-// the block's scenarios copied there (dyn_rows) where a scenario owns
-// several rows (rows_staged), and its context points at its scenario's
-// copy.
+// the block's scenarios copied there (dyn_rows; a team functor's after the
+// block's tile) where a scenario owns several rows (rows_staged), and its
+// context points at its scenario's copy.
 //
 // The functors lie in one source per family, each built into a library of
 // its own (ops/_build.py compiles them in parallel): vde_bicycle.cu
@@ -332,13 +332,21 @@ __host__ __device__ inline long long block_scenarios(int rows_per_block, int N,
 }
 
 // The block's scenarios [b_first, b_last] and their p rows (pd floats each,
-// ps_b apart in global memory) copied to dst; the caller synchronizes.
+// ps_b apart in global memory) copied to dst in shared memory by 4-byte
+// cp.async, so that a thread's copies are in flight at once instead of
+// each store waiting on its load (a quarter of the routed GP quad's team
+// sweep at B=16384, PERF.md); the caller synchronizes.
 DI long long stage_rows(float* dst, const float* __restrict__ ps, long long ps_b,
                         int pd, long long row_first, long long row_last, int N) {
   const long long b_first = row_first / N, b_last = row_last / N;
   const int len = (int)(b_last - b_first + 1) * pd;
-  for (int i = threadIdx.x; i < len; i += blockDim.x)
-    dst[i] = ps[(b_first + i / pd) * ps_b + i % pd];
+  for (int i = threadIdx.x; i < len; i += blockDim.x) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst + i);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d),
+                 "l"(ps + (b_first + i / pd) * ps_b + i % pd)
+                 : "memory");
+  }
+  asm volatile("cp.async.wait_all;" ::: "memory");
   return b_first;
 }
 
@@ -539,7 +547,9 @@ DI void rk4_team(const float* xk, int j0, Dual<NT>* x, const Dual<NT>* u,
 // same float arithmetic in each), so no pass recomputes it; lane 0 writes
 // c. A ragged last block computes clamped duplicates of the last row and
 // copies only its own rows. A dyn_table functor's table is staged after
-// the block's tile, and every lane's context points at it.
+// the block's tile, and every lane's context points at it; so are a
+// dyn_rows functor's block's p rows where rows_staged(N), each lane's
+// context at its scenario's copy (else at its row in global memory).
 template <class Dyn>
 DI void vde_team(float* tile, const float* __restrict__ xs, const float* __restrict__ us,
                  const float* __restrict__ ps, float* __restrict__ A,
@@ -550,8 +560,8 @@ DI void vde_team(float* tile, const float* __restrict__ xs, const float* __restr
   constexpr int NU = Dyn::NU;
   static_assert(WARP % S::TEAM == 0, "a team lies within a warp");
   static_assert(S::ROWS % 4 == 0, "a block's rows start on 16 bytes in A, Bm and c");
-  static_assert(!dyn_rows<Dyn>::value && Dyn::CACHE_FLOATS == 0,
-                "the team path stages no p rows and keeps no cache");
+  static_assert(!(dyn_rows<Dyn>::value && dyn_table<Dyn>::value),
+                "a functor stages its table or its p rows after the tile, not both");
   const int slot = threadIdx.x / S::TEAM, j0 = (threadIdx.x % S::TEAM) * S::COLS;
   const long long rows = (long long)batch * N;
   const long long row0 = (long long)blockIdx.x * S::ROWS;
@@ -566,15 +576,29 @@ DI void vde_team(float* tile, const float* __restrict__ xs, const float* __restr
 #pragma unroll
     for (int t = 0; t < S::COLS; ++t) u[i].d[t] = (NX + i == j0 + t) ? 1.0f : 0.0f;
   }
-  typename Dyn::Ctx ctx = f.context(ps + b * pd);
-  if constexpr (dyn_table<Dyn>::value) {
-    float* table = tile + S::TILE;
-    f.stage_to(table);
-    __syncthreads();
-    f.use_table(ctx, table);
+  // A dyn_rows functor's two branches each call rk4_team, so that the
+  // staged branch's reads of the p row compile to shared-memory loads; one
+  // call with a pointer to either memory took 7% longer (PERF.md).
+  if constexpr (dyn_rows<Dyn>::value) {
+    if (rows_staged(N)) {
+      float* staged = tile + S::TILE;
+      const long long b_first =
+          stage_rows(staged, ps, pd, pd, row0, min(row0 + S::ROWS, rows) - 1, N);
+      __syncthreads();
+      rk4_team(xk, j0, x, u, f.context(staged + (b - b_first) * pd), f, st);
+    } else {
+      rk4_team(xk, j0, x, u, f.context(ps + b * pd), f, st);
+    }
+  } else {
+    typename Dyn::Ctx ctx = f.context(ps + b * pd);
+    if constexpr (dyn_table<Dyn>::value) {
+      float* table = tile + S::TILE;
+      f.stage_to(table);
+      __syncthreads();
+      f.use_table(ctx, table);
+    }
+    rk4_team(xk, j0, x, u, ctx, f, st);
   }
-
-  rk4_team(xk, j0, x, u, ctx, f, st);
 
   // a[i*nx + j] = dF_i/dx_j, b[i*nu + j] = dF_i/du_j.
   float* tA = tile + slot * NX * NX;
@@ -628,11 +652,10 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
   constexpr int TILE_C = TILE_B + WARP * NX * NU;
   constexpr int TILE = vde_tile<Dyn>();
   static_assert(TILE % 4 == 0, "tiles start on 16 bytes");
-  // ROW_WARPS tiles, then the functor's cache, then the block's p rows
-  // (dyn_rows); a team functor's block tile, then its table (vde_team)
+  // ROW_WARPS tiles, then the block's p rows (dyn_rows); a team functor's
+  // block tile, then its table or its p rows (vde_team)
   extern __shared__ float4 smem[];
-  float* const table =
-      reinterpret_cast<float*>(smem) + ROW_WARPS * (TILE + WARP * Dyn::CACHE_FLOATS);
+  float* const table = reinterpret_cast<float*>(smem) + ROW_WARPS * TILE;
   if constexpr (Dyn::STAGES) {
     f.stage();
     __syncthreads();
@@ -674,9 +697,6 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
       if (rows_staged(N)) prow = table + (b - b_first) * pd;
     }
     typename Dyn::Ctx ctx = f.context(prow);
-    if constexpr (Dyn::CACHE_FLOATS > 0)
-      f.use_cache(ctx, reinterpret_cast<float*>(smem) + ROW_WARPS * TILE + threadIdx.x,
-                  4 * st.n);
     vde_passes<0>(x0, u0, xn, ctx, f, st, tile + lane * NX * NX,
                   tile + TILE_B + lane * NX * NU, tile + TILE_C + lane * NX);
 
@@ -788,10 +808,9 @@ static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
   const long long rows = (long long)batch * N;
   if (rows == 0) return cudaSuccess;
   constexpr int RW = Dyn::ROW_WARPS;
-  // A tile per warp, then CACHE_FLOATS per thread for the functor, then its
-  // block's p rows (the limit of a dyn_rows functor's kernels is set once,
-  // by vde_prepare).
-  size_t bytes = sizeof(float) * RW * (vde_tile<Dyn>() + WARP * Dyn::CACHE_FLOATS);
+  // A tile per warp, then its block's p rows (the limit of a dyn_rows
+  // functor's kernels is set once, by vde_prepare).
+  size_t bytes = sizeof(float) * RW * vde_tile<Dyn>();
   if constexpr (dyn_rows<Dyn>::value) {
     if (rows_staged(N)) bytes += sizeof(float) * pd * block_scenarios(RW * WARP, N, batch);
     static const int limit = rows_limit((const void*)vde_kernel<Dyn>);
@@ -810,7 +829,9 @@ static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
 // A team functor's sweep, launched with the geometry the wrapper computed
 // (ops/cuda_vde.py:vde_geometry): refused unless it is the functor's, so
 // that the launch bounds, the block's rows and its tile (and a dyn_table
-// functor's table after it) agree with the kernel's.
+// functor's table or a dyn_rows functor's block's p rows after it) agree
+// with the kernel's, and refused where the p rows would take more shared
+// memory than vde_prepare let the kernel take.
 template <class Dyn>
 static cudaError_t launch_vde_team(const float* xs, const float* us, const float* ps,
                                    float* A, float* Bm, float* c, int batch, int N,
@@ -821,9 +842,14 @@ static cudaError_t launch_vde_team(const float* xs, const float* us, const float
   if (!shape_ok<Dyn>(nx, nu, pd, steps)) return cudaErrorInvalidValue;
   const long long rows = (long long)batch * N;
   if (rows == 0) return cudaSuccess;
-  int floats = S::TILE;
+  long long floats = S::TILE;
   if constexpr (dyn_table<Dyn>::value) floats += f.table_floats();
-  if (threads != Dyn::ROW_WARPS * WARP || bytes != (int)sizeof(float) * floats ||
+  if constexpr (dyn_rows<Dyn>::value) {
+    if (rows_staged(N)) floats += (long long)pd * block_scenarios(S::ROWS, N, batch);
+    static const int limit = rows_limit((const void*)vde_kernel<Dyn>);
+    if ((long long)sizeof(float) * floats > limit) return cudaErrorInvalidValue;
+  }
+  if (threads != Dyn::ROW_WARPS * WARP || bytes != (long long)sizeof(float) * floats ||
       grid != (rows + S::ROWS - 1) / S::ROWS)
     return cudaErrorInvalidValue;
   vde_kernel<Dyn><<<(unsigned)grid, threads, bytes, (cudaStream_t)stream>>>(

@@ -16,7 +16,6 @@ struct BicycleDyn {
   static constexpr int NX = 7, NU = 2, NP = 1;
   static constexpr int TANGENTS_PER_PASS = 9, ROW_WARPS = 4;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = 0;
   using Ctx = const float*;
   BicycleParamsC P;
 
@@ -43,7 +42,6 @@ struct PacejkaDyn {
   static constexpr int TANGENTS_PER_PASS = PACEJKA_TANGENTS_PER_PASS;
   static constexpr int ROW_WARPS = PACEJKA_ROW_WARPS;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = 0;
   struct Ctx {
     float b_f, b_r;      // B front and rear
     float k_f, k_r;      // (mu F_z) D front and rear

@@ -52,7 +52,6 @@ struct GPBicycleDyn {
   static constexpr int TANGENTS_PER_PASS = GP_BICYCLE_TANGENTS_PER_PASS;
   static constexpr int ROW_WARPS = GP_BICYCLE_ROW_WARPS;
   static constexpr bool STAGES = true;
-  static constexpr int CACHE_FLOATS = 0;
   using Ctx = const float*;
   GPBicycleParamsC P;
 
@@ -112,7 +111,6 @@ struct GPRoutedDyn {
   static constexpr int NX = 7, NU = 2, NP = 1;
   static constexpr int TANGENTS_PER_PASS = 9, ROW_WARPS = 4;
   static constexpr bool STAGES = false, P_ROWS = true;
-  static constexpr int CACHE_FLOATS = 0;
   using Ctx = const float*;  // the scenario's p row, in shared memory
   GPRoutedParamsC P;
 

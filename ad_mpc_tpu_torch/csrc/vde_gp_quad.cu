@@ -68,7 +68,6 @@ struct GPQuadDyn {
   static constexpr int ROW_WARPS = GP_QUAD_ROW_WARPS;
   static constexpr int MIN_BLOCKS = GP_QUAD_MIN_BLOCKS;
   static constexpr bool STAGES = true;
-  static constexpr int CACHE_FLOATS = 0;
   using Ctx = const float*;
   GPQuadParamsC P;
 

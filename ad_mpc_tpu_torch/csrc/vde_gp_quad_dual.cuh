@@ -70,7 +70,6 @@ struct GPQuadDualDynT {
   static constexpr int ROW_WARPS = GP_QUAD_DUAL_ROW_WARPS;
   static constexpr int MIN_BLOCKS = GP_QUAD_DUAL_MIN_BLOCKS;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = 0;
   struct Ctx {
     const float* tab = nullptr;  // the staged table
     bool trigger = false;

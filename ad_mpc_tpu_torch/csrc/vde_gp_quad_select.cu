@@ -97,7 +97,6 @@ struct GPQuadSelectDyn {
   static constexpr int ROW_WARPS = GP_QUAD_SELECT_ROW_WARPS;
   static constexpr int MIN_BLOCKS = GP_QUAD_SELECT_MIN_BLOCKS;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = 0;
   struct Ctx {
     const float* tab = nullptr;  // the staged table
   };

@@ -1,6 +1,6 @@
 // The pieces of the VDE functors that more than one source uses: the
 // bicycle's and the quadrotor's x_dot, the GP mean of a table and its lift
-// to duals, R(q), the GP quad's means cache and its residual's Jacobian.
+// to duals, R(q), a GP quad team's means and its residual's Jacobian.
 // Included by the vde_<family>.cu sources after vde.cuh.
 
 #pragma once
@@ -153,10 +153,6 @@ DI Dual<NT> gp_lift(float mu, const float* g, const Dual<NT>* z) {
 
 // The GP quads' output dims and features: the three body velocities.
 constexpr int GP_QUAD_DIMS = 3, GP_QUAD_FEATS = 3;
-// What one evaluation's GP gives the lift: 3 means and their gradients.
-constexpr int GP_QUAD_EVAL = GP_QUAD_DIMS * (1 + GP_QUAD_FEATS);
-// Evaluations a sweep's cache holds: one RK4 step.
-constexpr int GP_QUAD_CACHE_EVALS = 4;
 
 // R(q) of the quaternion q = (w, x, y, z), in float or as duals.
 template <class T>
@@ -172,56 +168,6 @@ DI void rot_matrix(const T* q, T (*R)[3]) {
   R[2][1] = 2.0f * (qy * qz + qw * qx);
   R[2][2] = 1.0f - 2.0f * (qx * qx + qy * qy);
 }
-
-// The means cache of a GP quad's thread-per-row sweep (GPQuadRoutedDyn;
-// the team functors compute their means once per evaluation instead,
-// team_means): the thread's slot of shared memory, a
-// column of GP_QUAD_EVAL floats per evaluation (STRIDE apart), which the
-// first pass fills and the later passes read, since the means depend on
-// the primal alone.
-struct GPQuadCache {
-  float* cache = nullptr;  // the thread's slot, or none
-  int evals = 0;           // evaluations per pass
-  mutable int calls = 0;   // evaluations so far
-
-  // The slot, when a pass's evaluations fit it.
-  DI void use(float* slot, int n) {
-    if (n <= GP_QUAD_CACHE_EVALS) {
-      cache = slot;
-      evals = n;
-    }
-  }
-
-  // The means and gradients that means(mu, g) computes: computed, or, in a
-  // sweep's later passes, read from the slot.
-  template <class T, int STRIDE, class Means>
-  DI void means_of(const Means& means, float* mu, float (*g)[GP_QUAD_FEATS]) const {
-    if (std::is_same<T, float>::value || cache == nullptr) {
-      means(mu, g);
-      return;
-    }
-    const int e = calls++;
-    float* slot = cache + (e % evals) * GP_QUAD_EVAL * STRIDE;
-    if (e < evals) {
-      means(mu, g);
-#pragma unroll
-      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
-        slot[d * STRIDE] = mu[d];
-#pragma unroll
-        for (int k = 0; k < GP_QUAD_FEATS; ++k)
-          slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE] = g[d][k];
-      }
-    } else {
-#pragma unroll
-      for (int d = 0; d < GP_QUAD_DIMS; ++d) {
-        mu[d] = slot[d * STRIDE];
-#pragma unroll
-        for (int k = 0; k < GP_QUAD_FEATS; ++k)
-          g[d][k] = slot[(GP_QUAD_DIMS + d * GP_QUAD_FEATS + k) * STRIDE];
-      }
-    }
-  }
-};
 
 // The 3 means and their gradients of a GP quad's team (vde.cuh: vde_team)
 // at one evaluation: lane d < 3 of each team of TEAM lanes computes output
@@ -257,9 +203,10 @@ DI V pick3(const V* v, int d) {
 // primal, and its Jacobian J (3 x 7) with respect to (q_w, q_x, q_y, q_z,
 // v_x, v_y, v_z), in float, from R, the means mu and their gradients G
 // (G[d][k] = d mu_d / d v_b,k): with H = R G, d r / d v = H R^T and
-// d r / d q_i = (dR/dq_i) mu + H (dR/dq_i)^T v.
-DI void gp_quad_jacobian(const float* q, const float* v, float (*R)[3],
-                         const float* mu, float (*G)[GP_QUAD_FEATS],
+// d r / d q_i = (dR/dq_i) mu + H (dR/dq_i)^T v. With mu = D v_b and G = D
+// it is the Jacobian of the RDRv drag R D R^T v (QuadDragDyn).
+DI void gp_quad_jacobian(const float* q, const float* v, const float (*R)[3],
+                         const float* mu, const float (*G)[GP_QUAD_FEATS],
                          float (*J)[7]) {
   float H[3][3];
 #pragma unroll

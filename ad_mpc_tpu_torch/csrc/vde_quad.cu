@@ -1,6 +1,6 @@
 // The quadrotor family of the VDE sweep and its RK4 map (vde.cuh): the
 // quad of config c5 and QuadMPC's nominal mode (QuadDyn) and QuadMPC's
-// RDRv-drag mode (QuadDragDyn).
+// RDRv-drag mode (QuadDragDyn), both team functors.
 
 #ifndef QUAD_ROW_TEAM
 #define QUAD_ROW_TEAM 8
@@ -11,11 +11,14 @@
 #ifndef QUAD_MIN_BLOCKS
 #define QUAD_MIN_BLOCKS 4
 #endif
-#ifndef QUAD_DRAG_TANGENTS_PER_PASS
-#define QUAD_DRAG_TANGENTS_PER_PASS 3
+#ifndef QUAD_DRAG_ROW_TEAM
+#define QUAD_DRAG_ROW_TEAM 4
 #endif
 #ifndef QUAD_DRAG_ROW_WARPS
-#define QUAD_DRAG_ROW_WARPS 1
+#define QUAD_DRAG_ROW_WARPS 4
+#endif
+#ifndef QUAD_DRAG_MIN_BLOCKS
+#define QUAD_DRAG_MIN_BLOCKS 2
 #endif
 
 #include "vde_models.cuh"
@@ -30,7 +33,6 @@ struct QuadDyn {
   static constexpr int ROW_WARPS = QUAD_ROW_WARPS;
   static constexpr int MIN_BLOCKS = QUAD_MIN_BLOCKS;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = 0;
   using Ctx = const float*;
   QuadParamsC P;
 
@@ -45,11 +47,7 @@ struct QuadDyn {
 // The RDRv linear drag of ad_mpc_tpu/models/quadrotor.py:90-92 on the
 // velocity rows, t = R(q) D R(q)^T v, with D a 3x3 matrix, entrywise in the
 // order of models/quadrotor.py:quad_drag_rows: v_b = R^T v, w = D v_b,
-// t = R w, every product carried as duals of (q, v). On an H100 at
-// B=16384, N=10 (PERF.md section 6) these duals at 3 tangents per pass
-// spill nothing; a float-Jacobian lift (as gp_quad_jacobian lifts the GP
-// quad's residual) tied with them at 3 per pass (0.4216 against 0.4241 ms)
-// and spilled 2,520 B at 6, where the duals spilled 3,244 B.
+// t = R w. The RK4 map (T = float) computes it so.
 template <class T>
 DI void quad_drag_terms(const float (&D)[3][3], const T* x, T* t) {
   T R[3][3], vb[3], w[3];
@@ -68,13 +66,22 @@ struct QuadDragParamsC {  // by value from the wrapper (models/quadrotor.py)
 };
 
 // The quadrotor with the RDRv drag of the QuadMPC's rdrv_d mode
-// (ad_mpc_tpu/control/mpc.py:286-290); p is not read.
+// (ad_mpc_tpu/control/mpc.py:286-290); p is not read. A team of ROW_TEAM
+// lanes per row, as QuadDyn's. On a lane's duals the drag is a float
+// function of the 7 entries (q, v): its value t at the primal, in the
+// order of quad_drag_terms, and its Jacobian, that of a GP quad's residual
+// R mu(R^T v) with mu = D v_b and G = D (gp_quad_jacobian), lifted to the
+// lane's columns by one contraction (gp_lift), so no dual rotation is
+// held in registers. The team computes the drag's floats before the
+// quad's rows, while the evaluation's outputs hold no registers yet (after
+// them it spilled more and ran slower, PERF.md); the RK4 map (T = float)
+// keeps the dual-free order of its first design, and its bits.
 struct QuadDragDyn {
   static constexpr int NX = 13, NU = 4, NP = 0;
-  static constexpr int TANGENTS_PER_PASS = QUAD_DRAG_TANGENTS_PER_PASS;
+  static constexpr int ROW_TEAM = QUAD_DRAG_ROW_TEAM;
   static constexpr int ROW_WARPS = QUAD_DRAG_ROW_WARPS;
+  static constexpr int MIN_BLOCKS = QUAD_DRAG_MIN_BLOCKS;
   static constexpr bool STAGES = false;
-  static constexpr int CACHE_FLOATS = 0;
   using Ctx = const float*;
   QuadDragParamsC P;
 
@@ -82,21 +89,46 @@ struct QuadDragDyn {
 
   template <class T>
   DI void operator()(const T* x, const T* u, const float*, T* xd) const {
-    quad_xdot(P.quad, x, u, xd);
-    T t[3];
-    quad_drag_terms(P.D, x, t);
+    if constexpr (std::is_same<T, float>::value) {
+      quad_xdot(P.quad, x, u, xd);
+      T t[3];
+      quad_drag_terms(P.D, x, t);
 #pragma unroll
-    for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + t[r];
+      for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + t[r];
+    } else {
+      float q[4], v[3];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) q[i] = value(x[3 + i]);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) v[i] = value(x[7 + i]);
+      float R[3][3], vb[3], w[3], t[3];
+      rot_matrix(q, R);
+#pragma unroll
+      for (int k = 0; k < 3; ++k) vb[k] = R[0][k] * v[0] + R[1][k] * v[1] + R[2][k] * v[2];
+#pragma unroll
+      for (int r = 0; r < 3; ++r)
+        w[r] = P.D[r][0] * vb[0] + P.D[r][1] * vb[1] + P.D[r][2] * vb[2];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) t[r] = R[r][0] * w[0] + R[r][1] * w[1] + R[r][2] * w[2];
+      float J[3][7];
+      gp_quad_jacobian(q, v, R, w, P.D, J);
+      quad_xdot(P.quad, x, u, xd);
+#pragma unroll
+      for (int r = 0; r < 3; ++r) xd[7 + r] = xd[7 + r] + gp_lift<7>(t[r], J[r], x + 3);
+    }
   }
 };
 
 extern "C" {
 
 VDE_TEAM_ENTRIES(quad, QuadDyn, QuadParamsC)
-VDE_ENTRIES(quad_drag, QuadDragDyn, QuadDragParamsC)
+VDE_TEAM_ENTRIES(quad_drag, QuadDragDyn, QuadDragParamsC)
 
-// The team sweep's block tile.
-int vde_prepare() { return (int)prepare_team<QuadDyn>(); }
+// The team sweeps' block tiles.
+int vde_prepare() {
+  const cudaError_t err = prepare_team<QuadDyn>();
+  return (int)(err != cudaSuccess ? err : prepare_team<QuadDragDyn>());
+}
 
 VDE_ERROR_STRING
 

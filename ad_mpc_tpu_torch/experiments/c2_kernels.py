@@ -3,10 +3,10 @@
 map and the 13x4 LQ kernel), of the c3 and c4 functors (the GP-bicycle's
 and the Pacejka's VDE sweep and RK4 map) of the c6 functor (the GP
 quad's), of QuadMPC's drag and dual-state GP functors and of the other
-functors that keep the thread-per-row sweep (:func:`other_functor_bits`),
-device times of the 13x4 LQ kernel, and the quad's and GP quads' sweeps'
-device times, resources and RTI solves (:func:`quad_vde_ms`: the c5 and
-c6 functors and QuadMPC's dual-state and select GPs), of whichever
+functors (:func:`other_functor_bits`), device times of the 13x4 LQ
+kernel, and the quad's and GP quads' sweeps' device times, resources and
+RTI solves (:func:`quad_vde_ms`: the c5 and c6 functors, QuadMPC's drag,
+dual-state and select GPs and the routed GP quad), of whichever
 ``ad_mpc_tpu_torch`` is imported, so that two trees can be compared on one
 card in one call:
 
@@ -23,7 +23,8 @@ the kernels' outputs on the fixed draws of
 ``tests/test_torch_gpu.py:test_c2_kernels_keep_their_bits``,
 ``test_c5_kernels_keep_their_bits``, ``test_c3_c4_kernels_keep_their_bits``
 and ``test_c6_kernels_keep_their_bits``;
-device ms by CUDA-graph replay (:func:`replay_ms`, written here with torch
+QuadMPC's ``rdrv_d`` tracking row (:func:`rdrv_tracking`); device ms by
+CUDA-graph replay (:func:`replay_ms`, written here with torch
 alone so that it times an older tree too) at c2's B=16384 (the sweep on
 ``random_traj``, N=30; the 7x2 LQ kernel on the third c2 tick's QPs) and
 of the 13x4 LQ kernel on the QPs of the third c5 tick at B=16384 and
@@ -231,26 +232,31 @@ def quad_solve_inputs(dev, kw):
 
 
 def quad_vde_ms(dev):
-    """The quad's and the GP quads' sweeps (``QuadDyn``, ``GPQuadDyn``,
-    ``GPQuadDualDyn``, ``GPQuadDualDragDyn``, ``GPQuadSelectDyn``): device
-    ms by graph replay, warm and cold, at B=16384, N=10 (c5's and c6's
-    shapes, ``quad_traj`` seed 13; the GP quad on the synthetic 32-point and
-    the fitted 60-point models; the dual-state GP on the fitted model, with
-    and without the fitted drag, p drawn by ``testing.dual_gp_ps`` seed 31
-    with the trigger on every tenth scenario; the select GP on the fitted
-    two-cluster ``gp_flagship_c2``, the velocities scaled by 5 across its
-    clusters) and at B=1 on the inputs of QuadMPC's RTI solve in each mode
-    (nominal; the one-cluster fitted ``quad_residual_fn``; ``ensemble=``
-    and ``ensemble=`` with ``rdrv_d``, as 10 one-stage scenarios; the
-    two-cluster ``quad_residual_fn``, pinned to cluster 1, and the
-    one-cluster one with ``rdrv_d``), with that solve's device ms; each
-    functor's registers and spills, and a team functor's geometry and
-    blocks per SM (``occupancy``)."""
+    """The quad's and the GP quads' sweeps (``QuadDyn``, ``QuadDragDyn``,
+    ``GPQuadDyn``, ``GPQuadDualDyn``, ``GPQuadDualDragDyn``,
+    ``GPQuadSelectDyn``, ``GPQuadRoutedDyn``): device ms by graph replay,
+    warm and cold, at B=16384, N=10 (c5's and c6's shapes, ``quad_traj``
+    seed 13; the drag with the fitted D; the GP quad on the synthetic
+    32-point and the fitted 60-point models; the dual-state GP on the
+    fitted model, with and without the fitted drag, p drawn by
+    ``testing.dual_gp_ps`` seed 31 with the trigger on every tenth
+    scenario; the select GP on the fitted two-cluster ``gp_flagship_c2``,
+    the velocities scaled by 5 across its clusters; the routed GP quad on
+    ``gp_flagship_c2``, each scenario's p packed at its body velocity moved
+    to a centroid of cluster b mod 2) and at B=1 on the inputs of QuadMPC's
+    RTI solve in each mode (nominal; ``rdrv_d``; the one-cluster fitted
+    ``quad_residual_fn``; ``ensemble=`` and ``ensemble=`` with ``rdrv_d``,
+    as 10 one-stage scenarios; the two-cluster ``quad_residual_fn``, pinned
+    to cluster 1, and the one-cluster one with ``rdrv_d``), with that
+    solve's device ms; each functor's registers and spills, and a team
+    functor's geometry and blocks per SM (``occupancy``)."""
     from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
     from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
+    from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
     from ad_mpc_tpu_torch.models.gp_quad import (
         GPQuadDualDynamics, GPQuadDynamics, GPQuadSelectDynamics)
-    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics, QuadDynamics
     from ad_mpc_tpu_torch.ops import _build
     from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj
 
@@ -261,14 +267,20 @@ def quad_vde_ms(dev):
     fitted, c2 = quad_fleet.fitted_ensemble(), quad_fleet.fitted_ensemble_c2()
     D = quad_fleet.fitted_rdrv_d()
     p_dual = torch.as_tensor(dual_gp_ps(np.random.default_rng(31), B, fitted), device=dev)
+    routed, _, pack = param_residual_dynamics(c2, QuadDynamics(), 0, quad_frame=True)
+    cen = torch.as_tensor(np.asarray(c2.centroids)[0], dtype=torch.float32, device=dev)
+    p_routed = pack(body_velocities(xs[:, 0])
+                    + cen[torch.arange(B, device=dev) % c2.n_clusters])
     out = {}
     for name, dyn, p, v in (
             ("quad", QuadDynamics(), ps, 1.0),
+            ("quad_drag", QuadDragDynamics(D), ps, 1.0),
             ("gp_quad_n32", GPQuadDynamics(quad_fleet.make_quad_gp_ensemble()), ps, 1.0),
             ("gp_quad_fitted", GPQuadDynamics(fitted), ps, 1.0),
             ("gp_quad_dual_fitted", GPQuadDualDynamics(fitted), p_dual, 1.0),
             ("gp_quad_dual_drag_fitted", GPQuadDualDynamics(fitted, rdrv_d=D), p_dual, 1.0),
-            ("gp_quad_select_c2", GPQuadSelectDynamics(c2), ps, 5.0)):
+            ("gp_quad_select_c2", GPQuadSelectDynamics(c2), ps, 5.0),
+            ("gp_quad_routed_c2", routed, p_routed, 1.0)):
         x = xs.clone()
         x[..., 7:10] *= v
         vde = make_vde(dyn, 0.1, 10, 13, 4, p.shape[1], device=dev)
@@ -279,6 +291,7 @@ def quad_vde_ms(dev):
             row["blocks_per_sm"] = vde.occupancy(B)
             row["geometry"] = vde.geometry(B)._asdict()
     for name, kw in (("quad_b1_nominal", {}),
+                     ("drag_b1_rdrv", {"rdrv_d": D}),
                      ("gp_quad_b1_residual_fn", {"residual_fn": quad_residual_fn(fitted)}),
                      ("dual_b1_ensemble", {"ensemble": fitted}),
                      ("dual_drag_b1_rdrv_gp", {"ensemble": fitted, "rdrv_d": D}),
@@ -295,6 +308,20 @@ def quad_vde_ms(dev):
             out[name]["blocks_per_sm"] = mpc.solver.vde.occupancy(args[0].shape[0],
                                                                   args[1].shape[1])
     return out
+
+
+def rdrv_tracking(dev):
+    """QuadMPC's ``rdrv_d`` tracking row on the card (the fitted D, the loop
+    at 8 m/s under the flagship's drag, 1,799 ticks, as ``chip_smoke.py``
+    runs it): its RMSE in m, resets and opt-time p50 in ms."""
+    from ad_mpc_tpu_torch.experiments import quad_fleet
+    from ad_mpc_tpu_torch.experiments.quad_trajectory_test import run_tracking
+    from ad_mpc_tpu_torch.sim.simulator import DisturbanceConfig
+
+    r = run_tracking(disturbances=DisturbanceConfig(drag=True), device=dev,
+                     rdrv_d=quad_fleet.fitted_rdrv_d())
+    return {"rmse": r.rmse, "n_resets": r.n_resets, "n_steps": r.n_steps,
+            "p50_opt_ms": r.p50_opt_ms}
 
 
 FLUSH_BYTES = 128 * 2**20  # written before each call when cold (the L2 is 50 MB)
@@ -384,6 +411,7 @@ def main(argv=None):
     res["bits_quad_mpc"] = quad_mpc_bits(dev)
     res["bits_others"] = other_functor_bits(dev)
     res["quad_vde"] = quad_vde_ms(dev)
+    res["rdrv_tracking"] = rdrv_tracking(dev)
 
     # Device times at c2's B=16384.
     B = 16384

@@ -2,7 +2,7 @@
 c6's shapes (B=16384, N=10, nx=13, nu=4).
 
     python -m ad_mpc_tpu_torch.experiments.quad_kernels [--out PATH]
-        [--only quad,gp_quad,drag,dual,select,lq]
+        [--only quad,gp_quad,drag,dual,select,routed,lq]
 
 1. The VDE sweep with the quad functor (``csrc/vde_quad.cu``), a team of
    lanes per row (``vde.cuh:vde_team``), built once per variant of its
@@ -22,9 +22,10 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
    ``GP_QUAD_`` traits), on the synthetic 32-point ensemble and the
    fitted 60-point one, each held to ``vde_plain`` (3e-5 on the synthetic
    ensemble; on the fitted one its distance is printed).
-3. QuadMPC's thread-per-row functor, the RDRv drag (``QuadDragDyn``,
-   ``-DQUAD_DRAG_TANGENTS_PER_PASS`` and ``-DQUAD_DRAG_ROW_WARPS``), with
-   the fitted D, held to ``vde_plain`` at 3e-5.
+3. QuadMPC's RDRv drag (``QuadDragDyn``, ``-DQUAD_DRAG_ROW_TEAM`` and the
+   rest), a team functor as 1., with the fitted D, held to ``vde_plain`` at
+   3e-5; its B=1 row also the sweep of QuadMPC's RTI solve in the
+   ``rdrv_d`` mode.
 4. QuadMPC's cluster-table GP functors as team functors, as 1. and 2.
    (``-DGP_QUAD_DUAL_ROW_TEAM`` and the rest): the dual-state GP
    (``GPQuadDualDyn``) on the fitted model, p drawn by
@@ -36,7 +37,13 @@ c6's shapes (B=16384, N=10, nx=13, nu=4).
    solve in the mode that runs the functor (``ensemble=`` as 10 one-stage
    scenarios; ``quad_residual_fn`` of ``gp_flagship_c2``), as
    ``c2_kernels.py:quad_solve_inputs`` captures it.
-5. The 13x4 LQ kernel (``csrc/lq_ipm_wide.cuh``) on the QPs of the third
+5. The routed body-frame GP (``GPQuadRoutedDyn``,
+   ``-DGP_QUAD_ROUTED_ROW_TEAM`` and the rest), a team functor whose block
+   stages its scenarios' p rows after its tile, on the fitted two-cluster
+   ``gp_flagship_c2``, each scenario's p packed at its body velocity moved
+   to a centroid of cluster b mod 2 (``testing.routed_quad_inputs``); its
+   distance from ``vde_plain`` printed.
+6. The 13x4 LQ kernel (``csrc/lq_ipm_wide.cuh``) on the QPs of the third
    c5 tick at B=16384, for every number of scenarios per block that fits:
    resident blocks and scenarios per SM
    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``), shared bytes per
@@ -75,12 +82,14 @@ GP_QUAD_TEAMS = ((4, 4, 2, 1), (4, 4, 2, 0), (4, 4, 3, 1), (4, 2, 5, 1),
 # (tests/test_torch_vde_team.py).
 TABLE_TEAMS = ((4, 4, 2, 1), (4, 4, 2, 0), (4, 4, 3, 1), (4, 2, 4, 1),
                (8, 4, 2, 1), (8, 4, 3, 1), (16, 4, 2, 1))
-# Thread-per-row functors: (tangents per pass, row warps).
-DRAG_VARIANTS = ((3, 1), (4, 1), (6, 1), (3, 2))
-
-
-def _defines(tpp, rw, model="QUAD"):
-    return (f"{model}_TANGENTS_PER_PASS={tpp}", f"{model}_ROW_WARPS={rw}")
+# The drag (QuadDragDyn) from the quad's traits, and the routed GP quad
+# (GPQuadRoutedDyn) from the GP quad's; every variant's block holds its
+# tile and, for the routed GP, its scenarios' largest p rows, MIN_BLOCKS of
+# them an SM (tests/test_torch_vde_team.py).
+DRAG_TEAMS = ((4, 4, 2, 1), (4, 4, 2, 0), (4, 4, 3, 1), (8, 4, 4, 1), (8, 4, 3, 1),
+              (8, 4, 2, 1), (8, 4, 5, 1), (16, 4, 4, 1), (32, 4, 5, 1))
+ROUTED_TEAMS = ((4, 4, 2, 1), (4, 4, 2, 0), (4, 4, 3, 1), (4, 2, 5, 1),
+                (8, 4, 2, 1), (8, 4, 3, 1), (16, 4, 2, 1))
 
 
 def _team_defines(team, rw, min_blocks, bulk, model="QUAD"):
@@ -94,7 +103,7 @@ def _cases(kind, B):
         fitted_ensemble, fitted_ensemble_c2, fitted_rdrv_d, make_quad_gp_ensemble)
     from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics, GPQuadSelectDynamics
     from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics
-    from ad_mpc_tpu_torch.testing import dual_gp_ps
+    from ad_mpc_tpu_torch.testing import dual_gp_ps, routed_quad_inputs
 
     none = torch.zeros((B, 0), device="cuda")
     team = ("team", "rw", "min_blocks", "bulk")
@@ -104,40 +113,46 @@ def _cases(kind, B):
         return {"n=32": (GPQuadDynamics(make_quad_gp_ensemble()), none),
                 "n=60": (GPQuadDynamics(fitted_ensemble()), none)}, team
     if kind == "drag":
-        return {"drag": (QuadDragDynamics(fitted_rdrv_d()), none)}, ("tpp", "rw")
+        return {"drag": (QuadDragDynamics(fitted_rdrv_d()), none)}, team
     if kind == "select":
         return {"select c2": (GPQuadSelectDynamics(fitted_ensemble_c2()), none)}, team
+    if kind == "routed":
+        dyn, _, _, ps, _ = routed_quad_inputs(fitted_ensemble_c2(), B, 10, 13, "cuda")
+        return {"routed c2": (dyn, ps)}, team
     ens = fitted_ensemble()
     ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(31), B, ens), device="cuda")
     return {"dual n=60": (GPQuadDualDynamics(ens), ps)}, team
 
 
 def _solve_kw(kind):
-    """QuadMPC's keywords of the mode whose RTI solve runs the cluster-table
-    functor ``kind`` (its B=1 row; ``chip_smoke.py:quad_modes``' ``ensemble``
-    and ``residual_fn_c2``)."""
-    from ad_mpc_tpu_torch.experiments.quad_fleet import fitted_ensemble, fitted_ensemble_c2
+    """QuadMPC's keywords of the mode whose RTI solve runs the functor
+    ``kind`` (its B=1 row; ``chip_smoke.py:quad_modes``' ``rdrv``,
+    ``ensemble`` and ``residual_fn_c2``)."""
+    from ad_mpc_tpu_torch.experiments.quad_fleet import (
+        fitted_ensemble, fitted_ensemble_c2, fitted_rdrv_d)
     from ad_mpc_tpu_torch.learned.ensemble import quad_residual_fn
 
-    return ({"ensemble": fitted_ensemble()} if kind == "dual"
-            else {"residual_fn": quad_residual_fn(fitted_ensemble_c2())})
+    return {"drag": {"rdrv_d": fitted_rdrv_d()},
+            "dual": {"ensemble": fitted_ensemble()},
+            "select": {"residual_fn": quad_residual_fn(fitted_ensemble_c2())}}[kind]
 
 
 VARIANTS = {
     "quad": (QUAD_TEAMS, lambda v: _team_defines(*v)),
     "gp_quad": (GP_QUAD_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD")),
-    "drag": (DRAG_VARIANTS, lambda v: _defines(*v, model="QUAD_DRAG")),
+    "drag": (DRAG_TEAMS, lambda v: _team_defines(*v, model="QUAD_DRAG")),
     "dual": (TABLE_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD_DUAL")),
     "select": (TABLE_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD_SELECT")),
+    "routed": (ROUTED_TEAMS, lambda v: _team_defines(*v, model="GP_QUAD_ROUTED")),
 }
 
 
 def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
     """One row per variant of a functor's traits (``kind``: the quad, the
-    GP quad, the drag, the dual-state GP or the select GP); a team
-    functor's rows add its geometry, its blocks per SM, its cold time and
-    its time at B=1 (on QuadMPC's solve inputs for the cluster-table
-    functors, ``solve_b1_ms``)."""
+    GP quad, the drag, the dual-state GP, the select GP or the routed GP
+    quad), each a team functor: its geometry, its blocks per SM, its cold
+    time and its time at B=1 (also on QuadMPC's solve inputs for the drag
+    and the cluster-table functors, ``solve_b1_ms``)."""
     from ad_mpc_tpu_torch.experiments.c2_kernels import quad_solve_inputs
 
     variants, defines = VARIANTS[kind]
@@ -150,7 +165,7 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
     if kind == "select":
         xs[..., 7:10] *= 5.0  # across the clusters
     solve = None
-    if kind in ("dual", "select"):
+    if kind in ("drag", "dual", "select"):
         mpc, b1_args, _ = quad_solve_inputs("cuda", _solve_kw(kind))
         solve = mpc.solver.vde, b1_args
     rows = {}
@@ -173,14 +188,13 @@ def vde_variants(kind="quad", B=16384, N=10, dt=0.1):
                                        for g, f in zip(got, first)),
                 "ms": graph_ms(lambda: vde(xs, us, ps)),
             }
-            if getattr(dyn, "cuda_team", False):
-                x1, u1, p1 = xs[:1], us[:1], ps[:1]
-                geo = vde.geometry(B)
-                row |= {"geometry": geo._asdict(),
-                        "blocks_per_sm": vde.occupancy(B),
-                        "cold_ms": graph_ms(lambda: vde(xs, us, ps), cold=True),
-                        "b1_ms": graph_ms(lambda: vde(x1, u1, p1))}
-                row["warps_per_sm"] = row["blocks_per_sm"] * geo.threads // 32
+            x1, u1, p1 = xs[:1], us[:1], ps[:1]
+            geo = vde.geometry(B)
+            row |= {"geometry": geo._asdict(),
+                    "blocks_per_sm": vde.occupancy(B),
+                    "cold_ms": graph_ms(lambda: vde(xs, us, ps), cold=True),
+                    "b1_ms": graph_ms(lambda: vde(x1, u1, p1))}
+            row["warps_per_sm"] = row["blocks_per_sm"] * geo.threads // 32
             if solve is not None:
                 sweep, b1_args = solve
                 sweep.defines = vde.defines
@@ -217,14 +231,14 @@ def lq_teams(B=16384):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the result to this JSON file")
-    ap.add_argument("--only", default="quad,gp_quad,drag,dual,select,lq",
+    ap.add_argument("--only", default="quad,gp_quad,drag,dual,select,routed,lq",
                     help="the sections to measure, comma-separated")
     args = ap.parse_args(argv)
     require_cuda("cuda")
     only = args.only.split(",")
     res = {"device": card()}
     with tf32(False):
-        for kind in ("quad", "gp_quad", "drag", "dual", "select"):
+        for kind in ("quad", "gp_quad", "drag", "dual", "select", "routed"):
             if kind in only:
                 res[f"vde_{kind}"] = vde_variants(kind)
         if "lq" in only:

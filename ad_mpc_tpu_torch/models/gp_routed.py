@@ -19,9 +19,10 @@ Two forms have a functor on the card:
 
 Each takes at most :data:`GP_ROUTED_POINTS` or :data:`GP_QUAD_ROUTED_POINTS`
 training points per output dim and refuses more by name. The kernels copy
-the p rows of a block's scenarios to shared memory before any row. Any
-other base or layout is :class:`RoutedGPDynamics`, on the plain backend
-only.
+the p rows of a block's scenarios to shared memory before any row
+(``cuda_rows``; the quad form's sweep runs a team of lanes per row,
+``cuda_team``, and stages them after the block's tile). Any other base or
+layout is :class:`RoutedGPDynamics`, on the plain backend only.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ class RoutedGPDynamics(nn.Module):
 
     cuda_entry = None
     table_in_p = True  # the GP's table is in p (testing.table_perturbed)
+    cuda_rows = True  # a functor's kernels stage the block's p rows (P_ROWS)
 
     def __init__(self, ensemble: GPEnsemble, base, base_p_dim: int,
                  quad_frame: bool = False):
@@ -121,8 +123,9 @@ class GPQuadRoutedParamsC(ctypes.Structure):
 
 class GPQuadRoutedDynamics(RoutedGPDynamics):
     """The quadrotor plus the routed body-frame GP: the ``GPQuadRoutedDyn``
-    functor."""
+    functor, a team of lanes per row (``cuda_team``)."""
 
+    cuda_team = True
     cuda_functor = "GPQuadRoutedDyn"
     cuda_source = "vde_gp_quad_routed"
     cuda_entry = "vde_gp_quad_routed"

@@ -248,10 +248,12 @@ class QuadDragDynamics(nn.Module):
     ``cuda_entry`` and ``cuda_rk4_entry`` name the C entries of
     ``csrc/vde_quad.cu`` that run the VDE kernel and its RK4 kernel with the
     ``QuadDragDyn`` functor (``cuda_functor``); ``cuda_params`` builds the
-    struct both take by value.
+    struct both take by value. ``cuda_team``: the sweep runs a team of lanes
+    per row, as :class:`QuadDynamics`'s.
     """
 
     nx, nu, p_dim = NX, NU, 0
+    cuda_team = True
     cuda_functor = "QuadDragDyn"
     cuda_source = "vde_quad"
     cuda_entry = "vde_quad_drag"

@@ -18,14 +18,16 @@ The plain versions are :func:`vde_plain` (``integrators.linearize``, i.e.
 ``integrators.discrete_step``. A wrapper runs its plain version only for
 CPU tensors; for CUDA tensors it launches the kernel or raises.
 
-A team functor (a dynamics with ``cuda_team``: ``QuadDyn``, ``GPQuadDyn``,
-``GPQuadDualDyn``, ``GPQuadDualDragDyn``, ``GPQuadSelectDyn``) runs
-``vde_kernel``'s team path, ROW_TEAM lanes per (scenario, stage) row on the
-row's tangent columns in one pass. Its launch geometry is
-:func:`vde_geometry`'s, from the traits the library was built with
-(:meth:`VDE.team_traits`) and the bytes of the table a functor stages
-after the block's tile (its dynamics' ``cuda_table``), here so that
-the CPU tests reach it; the C entry refuses any other.
+A team functor (a dynamics with ``cuda_team``: ``QuadDyn``,
+``QuadDragDyn``, ``GPQuadDyn``, ``GPQuadDualDyn``, ``GPQuadDualDragDyn``,
+``GPQuadSelectDyn``, ``GPQuadRoutedDyn``) runs ``vde_kernel``'s team path,
+ROW_TEAM lanes per (scenario, stage) row on the row's tangent columns in
+one pass. Its launch geometry is :func:`vde_geometry`'s, from the traits
+the library was built with (:meth:`VDE.team_traits`) and the bytes that
+a functor stages after the block's tile: its table (its dynamics'
+``cuda_table``) or, for a dynamics with ``cuda_rows``, the p rows of the
+block's scenarios; here so that the CPU tests reach it; the C entry
+refuses any other.
 """
 
 from __future__ import annotations
@@ -63,24 +65,40 @@ class VdeGeometry(NamedTuple):
     rows_per_block: int
     threads: int  # per block: ROW_WARPS warps, the kernel's launch bound
     grid: int  # blocks
-    shared_bytes: int  # dynamic: the block's rows of A, Bm and c, then the table
+    shared_bytes: int  # dynamic: the block's rows of A, Bm and c, then the table or p rows
     table_bytes: int  # of the functor's table in shared_bytes
     block_bytes: int  # dynamic and static shared bytes of a block
     max_registers: int  # per thread, as the launch bounds cap them
+    rows_bytes: int  # of the block's scenarios' p rows in shared_bytes
+
+
+def rows_staged(N):
+    """Whether the kernels stage a routed functor's p rows in shared memory
+    (``csrc/vde.cuh:rows_staged``): where each scenario owns N > 1 rows."""
+    return N > 1
+
+
+def block_scenarios(rows_per_block, N, batch):
+    """The most scenarios whose p rows a block of ``rows_per_block``
+    consecutive (b, k) rows reads at horizon N
+    (``csrc/vde.cuh:block_scenarios``)."""
+    return min((rows_per_block - 1) // N + 2, batch)
 
 
 def vde_geometry(batch, N, nx, nu, team, row_warps, min_blocks=1, static_bytes=0,
-                 table_bytes=0):
+                 table_bytes=0, row_floats=0):
     """The launch of a team functor's sweep: ``team`` consecutive lanes of a
     warp per (b, k) row, thread t of a block on row t // team of its
     ``rows_per_block`` and on tangent columns [cols (t % team), cols (t %
     team + 1)) of [A | Bm]; ``row_warps`` warps per block; the block's tile
     of its rows' outputs in dynamic shared memory, then ``table_bytes`` of
-    the functor's table; registers capped so that ``min_blocks`` blocks fit
-    an SM (``__launch_bounds__``). Raises for a team that does not divide a
-    warp, a block whose rows do not start on 16 bytes in every output, or a
-    block or an SM's ``min_blocks`` that does not fit the shared memory or
-    the threads."""
+    the functor's table, or, for a functor that reads ``row_floats`` p
+    entries per scenario from shared memory (a routed GP), the p rows of
+    the block's scenarios where :func:`rows_staged`; registers capped so
+    that ``min_blocks`` blocks fit an SM (``__launch_bounds__``). Raises
+    for a team that does not divide a warp, a block whose rows do not start
+    on 16 bytes in every output, or a block or an SM's ``min_blocks`` that
+    does not fit the shared memory or the threads."""
     nv = nx + nu
     if team < 2 or WARP % team:
         raise ValueError(f"VDE: a team of {team} lanes does not divide a warp")
@@ -90,7 +108,8 @@ def vde_geometry(batch, N, nx, nu, team, row_warps, min_blocks=1, static_bytes=0
     if rows_per_block % 4:
         raise ValueError(f"VDE: {rows_per_block} rows per block do not start "
                          "on 16 bytes in c")
-    shared = 4 * rows_per_block * nx * (nv + 1) + table_bytes
+    rows = 4 * row_floats * block_scenarios(rows_per_block, N, batch) if rows_staged(N) else 0
+    shared = 4 * rows_per_block * nx * (nv + 1) + table_bytes + rows
     block = shared + static_bytes
     if (block > SMEM_BLOCK_MAX or min_blocks * threads > THREADS_SM
             or min_blocks * (block + SMEM_BLOCK_RESERVED) > SMEM_SM):
@@ -99,7 +118,7 @@ def vde_geometry(batch, N, nx, nu, team, row_warps, min_blocks=1, static_bytes=0
     units = REGS_SM // (min_blocks * row_warps * 256)  # of 256 registers a warp
     return VdeGeometry(team, cols, rows_per_block, threads,
                        -(-batch * N // rows_per_block), shared, table_bytes, block,
-                       min(MAX_REGS, 8 * units))
+                       min(MAX_REGS, 8 * units), rows)
 
 
 def lane_work(geo, rows, nv, block, thread):
@@ -241,14 +260,16 @@ class VDE(nn.Module):
     def geometry(self, batch, N=None):
         """The team path's :func:`vde_geometry` at ``batch`` scenarios of
         ``N`` stages (the sweep's horizon by default), with the table of a
-        functor that stages one (its dynamics' ``cuda_table``)."""
+        functor that stages one (its dynamics' ``cuda_table``) or the p rows
+        of one that reads them from shared memory (``cuda_rows``)."""
         key = (self.defines, batch, self.N if N is None else N)
         if key not in self._team:
             t = self.team_traits()
             table = getattr(self.f, "cuda_table", None)
             self._team[key] = vde_geometry(
                 batch, key[2], self.nx, self.nu, t["team"], t["row_warps"],
-                t["min_blocks"], t["static_bytes"], 4 * table().size if table else 0)
+                t["min_blocks"], t["static_bytes"], 4 * table().size if table else 0,
+                self.p_dim if getattr(self.f, "cuda_rows", False) else 0)
         return self._team[key]
 
     def occupancy(self, batch, N=None):

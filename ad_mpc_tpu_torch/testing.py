@@ -724,6 +724,25 @@ def routed_bicycle_inputs(B, N, device, seed=5):
     return dyn, xs, us, ps
 
 
+def routed_quad_inputs(ens, B, N, seed, device):
+    """(dynamics, xs, us, ps, the clusters ps name) of the routed
+    body-frame GP of ``ens`` on ``quad_traj``'s draws: each scenario's p
+    packed at its first body velocity moved to the centroid of cluster b
+    mod C, so that a launch holds every cluster."""
+    import torch
+
+    from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
+    from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
+    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+
+    dyn, _, pack = param_residual_dynamics(ens, QuadDynamics(), 0, quad_frame=True)
+    xs, us = (torch.as_tensor(a, device=device)
+              for a in quad_traj(np.random.default_rng(seed), B, N))
+    cen = torch.as_tensor(np.asarray(ens.centroids)[0], dtype=torch.float32, device=device)
+    z = body_velocities(xs[:, 0]) + cen[torch.arange(B, device=device) % ens.n_clusters]
+    return dyn, xs, us, pack(z), sorted(set(pack.clusters(z).flatten().tolist()))
+
+
 def mission_host_syncs(node, n_msgs):
     """Step the mission ``node`` (its MPC on the card) through ``n_msgs``
     hover messages with every host synchronisation a warning. Returns

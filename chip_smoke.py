@@ -125,7 +125,9 @@ Phases, each of which must pass:
     ``anchored`` and on the synthetic two-cluster ensemble) on draws whose
     every cluster choice lies 1e-4 or more from a tie; each kernel against
     its plain version (3e-5), warm and cold, bound, registers and spills,
-    the team functors' geometry and resident warps; then the select
+    the team functors' geometry and resident warps (every one of these a
+    team functor, the drag since it left the thread-per-row path); then
+    the select
     functor at a cluster boundary (B=16384, N=1): each scenario agrees
     with the plain version, or with its other cluster where a choice lies
     within 1e-4 of a tie, and the share that differs is printed; and on
@@ -141,7 +143,8 @@ Phases, each of which must pass:
     mode's functor on the inputs of its solve (B=1, N=10; the dual-state
     GP's N one-stage scenarios, B=10, N=1, with their trigger and cluster p
     rows) against their plain versions (3e-5; the fitted GP's modes by
-    ``anchored``), warm and cold; then the 13x4 LQ kernel at B=1 on the
+    ``anchored``), warm and cold, each team's traits, resources and
+    resident warps; then the 13x4 LQ kernel at B=1 on the
     solve's QP with 15 and 18 iterations (``lq_case``, strict), warm and
     cold;
 14. the quadrotor tracking loop (``quad_trajectory_test.run_tracking``,
@@ -169,9 +172,10 @@ Phases, each of which must pass:
     (``gp_flagship.flagship_launches``);
 18. the parameter-routed GP functors against their plain versions:
     ``GPQuadRoutedDyn`` at B=16384, N=10 on the port's own two-cluster fit
-    (both clusters in the launch; ``anchored``), ``GPRoutedDyn`` at the JAX
-    test's shape (2e-5) and at B=16384, N=30 (2e-5), warm and cold,
-    registers and spills;
+    (both clusters in the launch; ``anchored``; a team functor whose block
+    stages its scenarios' p rows: its traits, geometry and resident warps),
+    ``GPRoutedDyn`` at the JAX test's shape (2e-5) and at B=16384, N=30
+    (2e-5), warm and cold, registers and spills;
 19. the routed fleets: the quad fleet on the two-cluster fit (B=4096,
     three ticks, a cluster per scenario per tick) against the plain
     backend on the card (u0 within 1e-3, the fitted KKT gates), the
@@ -2049,24 +2053,14 @@ def phase_fit(np, out):
     return ens, rdrv_d, two
 
 
-def routed_quad_case(torch, np, ens, B, N, seed):
+def routed_quad_case(ens, B, N, seed):
     """(dynamics, xs, us, ps) of the routed body-frame GP of ``ens`` on
-    the quad phases' draws; each scenario's p packed at its body velocity
-    offset to the centroids of cluster b mod C, so that every cluster is
-    present."""
-    from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
-    from ad_mpc_tpu_torch.learned.lane import param_residual_dynamics
-    from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
-    from ad_mpc_tpu_torch.testing import quad_traj
+    the quad phases' draws (``testing.routed_quad_inputs``: each scenario's
+    p packed at its body velocity offset to the centroids of cluster b mod
+    C), every cluster checked present."""
+    from ad_mpc_tpu_torch.testing import routed_quad_inputs
 
-    dyn, p_dim, pack = param_residual_dynamics(ens, QuadDynamics(), 0, quad_frame=True)
-    xs, us = (torch.as_tensor(a).cuda() for a in quad_traj(np.random.default_rng(seed),
-                                                           B, N))
-    cen = torch.as_tensor(np.asarray(ens.centroids)[0], dtype=torch.float32,
-                          device="cuda")
-    z = body_velocities(xs[:, 0]) + cen[torch.arange(B, device="cuda") % ens.n_clusters]
-    ps = pack(z)
-    present = sorted(set(pack.clusters(z).flatten().tolist()))
+    dyn, xs, us, ps, present = routed_quad_inputs(ens, B, N, seed, "cuda")
     check(len(present) == ens.n_clusters, f"routed case: clusters {present} present")
     return dyn, xs, us, ps
 
@@ -2090,7 +2084,7 @@ def phase_routed_kernels(torch, np, out, two):
     B, N, n = 16384, 10, two.x_train.shape[2]
     rows = {}
     for seed, kind in ((13, "vde"), (14, "rk4")):
-        dyn, xs, us, ps = routed_quad_case(torch, np, two, B, N, seed)
+        dyn, xs, us, ps = routed_quad_case(two, B, N, seed)
         cases = {"own fit, 2 clusters": (dyn, ps)}
         if kind == "vde":
             rows["vde_gp_routed_quad"] = vde_case(

@@ -471,14 +471,17 @@ def test_quad_kernels_repeat_their_bits(cuda, B):
     assert vde.launches == gp.launches == 2 and rk4.launches == 4 and qp.launches == 2
 
 
-@pytest.mark.parametrize("kind", ["quad", "gp_quad", "dual", "dual_drag", "select"])
+@pytest.mark.parametrize("kind", ["quad", "gp_quad", "dual", "dual_drag", "select",
+                                  "drag", "routed"])
 def test_team_sweep_takes_only_its_geometry(cuda, kind):
     """The team functors' C entry launches the geometry ``vde_geometry``
     computes from the traits it was built with (and, for the cluster-table
-    functors, the table after the tile) and refuses any other (a grid, a
-    block, a tile or a table other than the kernel's); the kernel's
+    functors, the table after the tile; for the routed GP quad, its block's
+    scenarios' p rows) and refuses any other (a grid, a block, a tile, a
+    table or p rows other than the kernel's); the kernel's
     registers stay under the launch bounds' cap and MIN_BLOCKS blocks fit
     an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
     from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
     from ad_mpc_tpu_torch.testing import dual_gp_ps
 
@@ -487,9 +490,12 @@ def test_team_sweep_takes_only_its_geometry(cuda, kind):
     two = quad_fleet.make_quad_gp_ensemble(n=16, clusters=2)
     dyn = {"quad": QUAD, "gp_quad": _gp_quad(False), "dual": _dual("two_clusters"),
            "dual_drag": GPQuadDualDynamics(two, rdrv_d=quad_fleet.fitted_rdrv_d()),
-           "select": _select("two_clusters")}[kind]
+           "select": _select("two_clusters"), "drag": _drag(),
+           "routed": _routed_quad("two_clusters")[0]}[kind]
     if kind.startswith("dual"):
         ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(1), B, two, 3), device=cuda)
+    if kind == "routed":
+        ps = _routed_quad("two_clusters")[2](body_velocities(xs[:, 0]))
     vde = make_vde(dyn, 0.1, N, 13, 4, ps.shape[1], device=cuda)
     geo, traits = vde.geometry(B), vde.team_traits()
     assert traits["registers"] <= geo.max_registers
@@ -504,6 +510,7 @@ def test_team_sweep_takes_only_its_geometry(cuda, kind):
                   nbytes, 0.1, 1, dyn.cuda_params(), stream)
 
     assert (geo.table_bytes > 0) == kind.startswith(("dual", "select"))
+    assert (geo.rows_bytes > 0) == (kind == "routed")
     assert launch(geo.grid, geo.threads, geo.shared_bytes) == 0
     torch.cuda.synchronize()
     for o, w in zip(out, vde(xs, us, ps)):
@@ -696,8 +703,11 @@ def test_c6_kernels_keep_their_bits(cuda):
 # them before the dual-state functor's struct took the drag option (that
 # function run on that tree and on this one, on one card); the dual-state
 # sweep's as its team gives them (an FMA contraction moved with the code
-# around it; ``test_gp_quad_dual_kernels_match_plain`` holds it).
-QUAD_MPC_BITS = {"vde_quad_drag": "e7e3c488625cec84", "rk4_quad_drag": "58aa604af2680988",
+# around it; ``test_gp_quad_dual_kernels_match_plain`` holds it); the drag
+# sweep's as its team gives them, the drag lifted by its float Jacobian
+# (the thread-per-row duals' digest e7e3c488625cec84;
+# ``test_quad_drag_kernels_match_plain`` holds it at 3e-5).
+QUAD_MPC_BITS = {"vde_quad_drag": "29b537d1636c96cd", "rk4_quad_drag": "58aa604af2680988",
                  "vde_quad_dual": "2bfa8f956292127b", "rk4_quad_dual": "d4bc98882790ee5b"}
 
 
@@ -711,10 +721,13 @@ def test_quad_mpc_kernels_keep_their_bits(cuda):
 # tree and on this one, on one card); the sweeps of the dual-state GP with
 # the drag and of the select GP with the drag as their teams give them (FMA
 # contractions moved; the drag-free select sweeps kept their bits), held
-# to their plain versions by the tests of each functor.
+# to their plain versions by the tests of each functor; the routed GP
+# quad's sweep as its team gives them (its means summed by lanes 0-2 of
+# the team and its residual lifted before the quad's rows; the
+# thread-per-row passes' digest 3f0511d38a03bca7).
 OTHER_BITS = {"vde_gp_routed": "5d6e693f2d06a3f9",
               "rk4_gp_routed": "50e387a3f50f692e",
-              "vde_gp_quad_routed": "3f0511d38a03bca7",
+              "vde_gp_quad_routed": "0e2ea44cf635e7b7",
               "rk4_gp_quad_routed": "7be0891a60486384",
               "vde_gp_quad_dual_drag": "2bace7c3ff9023ba",
               "rk4_gp_quad_dual_drag": "0e768636f14e1c41",
@@ -1003,10 +1016,12 @@ def _hold_to_plain(dyn, got, args, anchored):
     return reseq
 
 
-@pytest.mark.parametrize("B", [1, RAGGED_B])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 16384])
 def test_quad_drag_kernels_match_plain(cuda, B):
-    """The drag functor's sweep and both modes of its RK4 map against their
-    plain versions at the quad's 3e-5; a relaunch repeats its bits."""
+    """The drag functor (a team of lanes per row) at one partial block, a
+    ragged last block and the fleets' B=16384: its sweep and both modes of
+    its RK4 map against their plain versions at the quad's 3e-5; a relaunch
+    repeats its bits."""
     dyn = _drag()
     xs, us, ps = _quad_traj(B, 10, cuda, seed=15)
     xs[..., 7:10] *= 10.0  # velocities where the drag matters
@@ -1339,12 +1354,14 @@ def _routed_quad(name):
 
 
 @pytest.mark.parametrize("name", ["two_clusters", "fitted"])
-@pytest.mark.parametrize("B", [1, RAGGED_B, 1000])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 1000, 16384])
 def test_gp_quad_routed_kernels_match_plain(cuda, B, name):
-    """The routed body-frame GP (``GPQuadRoutedDyn``): each scenario's p
-    packed at its body velocity, on the synthetic two-cluster ensemble
-    (both clusters in one launch) at 3e-5, on the fitted one-cluster model
-    held to the float64 plain version with its float32 spread."""
+    """The routed body-frame GP (``GPQuadRoutedDyn``, a team of lanes per
+    row, its block's scenarios' p rows staged after its tile): each
+    scenario's p packed at its body velocity, on the synthetic two-cluster
+    ensemble (both clusters in one launch) at 3e-5, on the fitted
+    one-cluster model held to the float64 plain version with its float32
+    spread."""
     from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
 
     dyn, p_dim, pack = _routed_quad(name)
@@ -1360,8 +1377,27 @@ def test_gp_quad_routed_kernels_match_plain(cuda, B, name):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("N", [1, 2])
+def test_gp_quad_routed_kernels_match_plain_at_short_horizons(cuda, N):
+    """The routed GP quad's team at N = 2, whose blocks stage the most
+    scenarios' p rows (17 at 32 rows a block), and at N = 1, where each
+    lane reads its scenario's row from global memory: the synthetic
+    two-cluster ensemble at 3e-5, both clusters in the launch."""
+    from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
+
+    dyn, _, pack = _routed_quad("two_clusters")
+    xs, us, _ = _quad_traj(RAGGED_B, N, cuda, seed=18)
+    xs[..., 7:10] *= 10.0
+    z = body_velocities(xs[:, 0])
+    assert len(set(pack.clusters(z).flatten().tolist())) == 2
+    ps = pack(z)
+    got = _new_functor_outputs(dyn, xs, us, ps, cuda)
+    _hold_to_plain(dyn, got, (xs, us, ps), anchored=False)
+
+
 def test_gp_quad_routed_refuses_a_p_of_another_width(cuda):
-    """The C entry checks p against the struct's points (base + 3 GPs)."""
+    """The C entry checks p against the struct's points (base + 3 GPs),
+    given the geometry of that p."""
     dyn, p_dim, _ = _routed_quad("two_clusters")
     B, N = 4, 10
     xs, us, _ = _quad_traj(B, N, cuda)
@@ -1369,10 +1405,13 @@ def test_gp_quad_routed_refuses_a_p_of_another_width(cuda):
     Bm = torch.empty((B, N, 13, 4), device=cuda)
     c = torch.empty((B, N, 13), device=cuda)
     ps = torch.zeros((B, p_dim + 1), device=cuda)
+    vde = make_vde(dyn, 0.1, N, 13, 4, p_dim + 1, device=cuda)
+    geo = vde.geometry(B)
     fn, _ = _entry(dyn)
     err = fn(xs.data_ptr(), us.data_ptr(), ps.data_ptr(), A.data_ptr(),
-             Bm.data_ptr(), c.data_ptr(), B, N, 13, 4, p_dim + 1, 0.1, 1,
-             dyn.cuda_params(), torch.cuda.current_stream(cuda).cuda_stream)
+             Bm.data_ptr(), c.data_ptr(), B, N, 13, 4, p_dim + 1, geo.grid, geo.threads,
+             geo.shared_bytes, 0.1, 1, dyn.cuda_params(),
+             torch.cuda.current_stream(cuda).cuda_stream)
     assert err != 0
 
 

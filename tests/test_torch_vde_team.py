@@ -1,9 +1,11 @@
 """The team path of the quad sweeps (``csrc/vde.cuh:vde_team``; ``QuadDyn``,
-``GPQuadDyn`` and QuadMPC's cluster-table GPs ``GPQuadDualDyn``,
-``GPQuadDualDragDyn`` and ``GPQuadSelectDyn``): its launch geometry, which
-the wrapper computes in ``ops/cuda_vde.py:vde_geometry`` and the C entry
-takes or refuses, the cluster table that a block stages after its tile,
-and the split of a row's tangent columns across a team's lanes.
+QuadMPC's RDRv ``QuadDragDyn``, ``GPQuadDyn``, QuadMPC's cluster-table GPs
+``GPQuadDualDyn``, ``GPQuadDualDragDyn`` and ``GPQuadSelectDyn``, and the
+routed ``GPQuadRoutedDyn``): its launch geometry, which the wrapper
+computes in ``ops/cuda_vde.py:vde_geometry`` and the C entry takes or
+refuses, the cluster table or the scenarios' p rows that a block stages
+after its tile, and the split of a row's tangent columns across a team's
+lanes.
 
 On the CPU the geometry is checked as the kernel uses it
 (``cuda_vde.lane_work``: each thread's row and columns): every row and every
@@ -16,8 +18,12 @@ forward-mode JVPs of the port's plain RK4 map at its row, assembled by
 the quad and its XLA linearization on the 8-point GP quad, and, on a
 two-cluster 8-point ensemble, the JAX package's QuadMPC ensemble dynamics
 (its solver's discrete map, linearized) and ``quad_residual_fn`` plus the
-quad, at the 3e-5 of ``tests/test_pallas_vde.py``. The cluster table's
-padding is checked against the banks of shared memory that a warp's lanes
+quad, at the 3e-5 of ``tests/test_pallas_vde.py``; so are the drag's
+split, against the Pallas sweep of the JAX package's ``quad_dynamics(
+rdrv_d=D)``, and the routed GP's, on a two-cluster 8-point ensemble
+against the JAX package's ``param_residual_dynamics(..., quad_frame=True)``
+linearized by XLA. The cluster table's padding and the staged p rows'
+layout are checked against the banks of shared memory that a warp's lanes
 read at once. The kernels themselves run on the card
 (``tests/test_torch_gpu.py``).
 """
@@ -40,19 +46,22 @@ from ad_mpc_tpu.ops.integrators import discretize, linearize, linearize_p
 from ad_mpc_tpu.ops.pallas_vde import make_vde as jax_make_vde
 from ad_mpc_tpu_torch import convert
 from ad_mpc_tpu_torch.experiments import quad_fleet
-from ad_mpc_tpu_torch.experiments.quad_kernels import GP_QUAD_TEAMS, QUAD_TEAMS, TABLE_TEAMS
+from ad_mpc_tpu_torch.experiments.quad_kernels import (
+    DRAG_TEAMS, GP_QUAD_TEAMS, QUAD_TEAMS, ROUTED_TEAMS, TABLE_TEAMS)
 from ad_mpc_tpu_torch.models.gp_quad import (
     GP_DUAL_CLUSTERS, GP_DUAL_POINTS, GP_DUAL_TABLE_MAX, GP_QUAD_DIMS, GP_QUAD_FEATS,
     GP_QUAD_POINTS, GP_SELECT_TABLE_MAX, SMEM_BANKS, GPQuadDualDynamics, GPQuadDynamics,
     GPQuadSelectDynamics, gp_dual_layout)
-from ad_mpc_tpu_torch.models.quadrotor import QuadDynamics
+from ad_mpc_tpu_torch.models.gp_routed import GP_QUAD_ROUTED_POINTS
+from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics, QuadDynamics
 from ad_mpc_tpu_torch.ops._build import CSRC
 from ad_mpc_tpu_torch.ops.cuda_lq import (
     MAX_BLOCKS_SM, SMEM_BLOCK_MAX, SMEM_BLOCK_RESERVED, SMEM_SM)
 from ad_mpc_tpu_torch.ops.cuda_vde import (
-    REGS_SM, THREADS_SM, WARP, lane_work, make_vde, vde_geometry)
+    REGS_SM, THREADS_SM, WARP, block_scenarios, lane_work, make_vde, rows_staged,
+    vde_geometry)
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
-from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj
+from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj, routed_quad_inputs
 from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
 
 NX, NU, DT = 13, 4, 0.1
@@ -61,16 +70,25 @@ NV = NX + NU
 # and y_mean (csrc/vde_gp_quad.cu).
 GP_QUAD_STATIC = 4 * GP_QUAD_DIMS * (GP_QUAD_POINTS * (GP_QUAD_FEATS + 1) + 2
                                      + GP_QUAD_FEATS + 1)
-# Each team source: (its traits' macro prefix, the sweep's variants, its
-# static shared bytes, the bytes of its largest table in dynamic shared
-# memory). The dual-state GP's traits lie in vde_gp_quad_dual.cuh, which
-# both of its sources (with and without the drag) include.
-SOURCES = {"vde_quad": ("QUAD", QUAD_TEAMS, 0, 0),
-           "vde_gp_quad": ("GP_QUAD", GP_QUAD_TEAMS, GP_QUAD_STATIC, 0),
-           "vde_gp_quad_dual": ("GP_QUAD_DUAL", TABLE_TEAMS, 0, 4 * GP_DUAL_TABLE_MAX),
-           "vde_gp_quad_select": ("GP_QUAD_SELECT", TABLE_TEAMS, 0,
-                                  4 * GP_SELECT_TABLE_MAX)}
-TEAMS = sorted({v[0] for _, vs, _, _ in SOURCES.values() for v in vs})
+# Floats of a routed GP quad's p row at its capacity of points
+# (csrc/vde_gp_quad_routed.cu: gp_quad_routed_floats, base_pd 0).
+ROUTED_P_MAX = GP_QUAD_DIMS * (GP_QUAD_ROUTED_POINTS * (GP_QUAD_FEATS + 1) + GP_QUAD_FEATS + 2)
+# Each team functor's sweep: (its source, its traits' macro prefix, the
+# sweep's variants, its static shared bytes, the bytes of its largest table
+# in dynamic shared memory, the floats of its largest p row that a block
+# stages). The dual-state GP's traits lie in vde_gp_quad_dual.cuh, which
+# both of its sources (with and without the drag) include; the drag's in
+# vde_quad.cu beside the quad's.
+SOURCES = {"vde_gp_quad": ("vde_gp_quad", "GP_QUAD", GP_QUAD_TEAMS, GP_QUAD_STATIC, 0, 0),
+           "vde_gp_quad_dual": ("vde_gp_quad_dual", "GP_QUAD_DUAL", TABLE_TEAMS, 0,
+                                4 * GP_DUAL_TABLE_MAX, 0),
+           "vde_gp_quad_select": ("vde_gp_quad_select", "GP_QUAD_SELECT", TABLE_TEAMS, 0,
+                                  4 * GP_SELECT_TABLE_MAX, 0),
+           "vde_quad": ("vde_quad", "QUAD", QUAD_TEAMS, 0, 0, 0),
+           "vde_gp_quad_routed": ("vde_gp_quad_routed", "GP_QUAD_ROUTED", ROUTED_TEAMS,
+                                  0, 0, ROUTED_P_MAX),
+           "vde_quad_drag": ("vde_quad", "QUAD_DRAG", DRAG_TEAMS, 0, 0, 0)}
+TEAMS = sorted({v[0] for _, _, vs, _, _, _ in SOURCES.values() for v in vs})
 
 
 def team_defaults(source):
@@ -134,8 +152,8 @@ def test_team_defaults_are_the_sweeps_first_variant(source):
     (committed) variant of the sweep, so that its bits column compares
     every variant with them; a GP
     quad's team has a lane for each output dim."""
-    prefix, variants, _, _ = SOURCES[source]
-    d = team_defaults(source)[prefix]
+    path, prefix, variants, _, _, _ = SOURCES[source]
+    d = team_defaults(path)[prefix]
     bulk = re.search(r"#define VDE_BULK_STORE (\d)", (CSRC / "vde.cuh").read_text())
     assert (d["ROW_TEAM"], d["ROW_WARPS"], d["MIN_BLOCKS"], int(bulk.group(1))) == \
         variants[0]
@@ -144,20 +162,22 @@ def test_team_defaults_are_the_sweeps_first_variant(source):
 
 
 @pytest.mark.parametrize("source,variant", [
-    (s, v) for s, (_, vs, _, _) in sorted(SOURCES.items()) for v in vs])
+    (s, v) for s, (_, _, vs, _, _, _) in SOURCES.items() for v in vs])
 def test_team_variants_fit_the_card(source, variant):
     """Each variant's block (its tile and the GP quad's static table, or
-    the largest cluster table after the tile) fits a block's 232,448 bytes;
+    the largest cluster table after the tile, or the routed GP's largest p
+    rows of a block's scenarios) fits a block's 232,448 bytes;
     its launch bounds agree with its block: the block is ROW_WARPS warps,
     MIN_BLOCKS such blocks fit an SM's threads, shared memory and registers
     at the capped count, and the cap leaves at least 64 registers."""
-    _, _, static, table = SOURCES[source]
+    _, _, _, static, table, row_floats = SOURCES[source]
     team, rw, min_blocks, _ = variant
-    geo = vde_geometry(16384, 10, NX, NU, team, rw, min_blocks, static, table)
+    geo = vde_geometry(16384, 10, NX, NU, team, rw, min_blocks, static, table, row_floats)
+    rows = 4 * row_floats * block_scenarios(geo.rows_per_block, 10, 16384)
     assert geo.block_bytes == geo.shared_bytes + static <= SMEM_BLOCK_MAX
     assert geo.threads == 32 * rw and geo.rows_per_block * team == geo.threads
-    assert geo.shared_bytes == 4 * geo.rows_per_block * NX * (NV + 1) + table
-    assert geo.table_bytes == table
+    assert geo.shared_bytes == 4 * geo.rows_per_block * NX * (NV + 1) + table + rows
+    assert geo.table_bytes == table and geo.rows_bytes == rows
     assert 64 <= geo.max_registers <= 255
     assert resident_blocks(geo.max_registers, geo.threads, geo.block_bytes) >= min_blocks
 
@@ -388,3 +408,175 @@ def test_team_split_of_the_select_gp_sweep_matches_jax(two_clusters, team, pinne
             jnp.asarray(xs), jnp.asarray(us))
     _hold_team_split(GPQuadSelectDynamics(ens, fixed_cluster=fixed), team, xs, us,
                      np.zeros((us.shape[0], 0), np.float32), wants["select", fixed])
+
+
+# ------------------------------------------------- the drag and the routed GP
+
+RDRV = quad_fleet.fitted_rdrv_d()
+
+
+def _slab(f_one, x0, u0):
+    """(f, c): a dynamics on one state, (13,) and (4,), as the Pallas sweep
+    calls it, on (13, Nt, B) and (4, Nt, B) slabs with entries leading, and
+    the float constants of ``f_one`` (its parameters' arrays, which a
+    Pallas kernel may not capture), flattened into the p row c that ``f``
+    reads them from."""
+    closed = jax.make_jaxpr(f_one)(x0, u0)
+    shapes = [np.shape(k) for k in closed.consts]
+    c = jnp.concatenate([jnp.ravel(jnp.asarray(k)) for k in closed.consts]).astype(jnp.float32)
+
+    def f_conv(xx, uu, *ks):
+        return jax.core.eval_jaxpr(closed.jaxpr, ks, xx, uu)[0]
+
+    def f(x, u, p):
+        def one(xx, uu, pp):
+            ks, at = [], 0
+            for shape in shapes:
+                size = int(np.prod(shape))
+                ks.append(pp[at:at + size].reshape(shape))
+                at += size
+            return f_conv(xx, uu, *ks)
+
+        out = jax.vmap(one)(x.reshape(NX, -1).T, u.reshape(NU, -1).T,
+                            p.reshape(p.shape[0], -1).T)
+        return out.T.reshape(x.shape)
+
+    return f, c
+
+
+@pytest.fixture(scope="module")
+def drag_case():
+    """A ragged quad iterate (B=3, N=5) with velocities where the drag
+    matters, and the JAX package's Pallas sweep (interpret mode) of its
+    ``quad_dynamics(rdrv_d=D)`` with the fitted D."""
+    B, N = 3, 5
+    xs, us = quad_traj(np.random.default_rng(24), B, N)
+    xs[..., 7:10] *= 10.0
+    f, c = _slab(lambda x, u: jq.quad_dynamics(x, u, jq.QuadrotorParams(), RDRV),
+                 jnp.asarray(xs[0, 0]), jnp.asarray(us[0, 0]))
+    pallas = jax_make_vde(f, DT, N, NX, NU, c.size, block_b=8, interpret=True)
+    want = pallas(jnp.asarray(xs), jnp.asarray(us), jnp.tile(c, (B, 1)))
+    return xs, us, [np.asarray(w) for w in want]
+
+
+@pytest.mark.parametrize("team", sorted({v[0] for v in DRAG_TEAMS}))
+def test_team_split_of_the_drag_sweep_matches_jax(drag_case, team):
+    """Each team width of the drag's sweep (``QuadDragDyn``) recovers the
+    JAX package's Pallas sweep of ``quad_dynamics(rdrv_d=D)`` at 3e-5."""
+    xs, us, want = drag_case
+    B, N = us.shape[:2]
+    geo = vde_geometry(B, N, NX, NU, team, row_warps=4)
+    got = _team_sweep(QuadDragDynamics(RDRV), geo, torch.as_tensor(xs),
+                      torch.as_tensor(us), torch.zeros((B, 0)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w, atol=3e-5, rtol=0)
+
+
+@pytest.fixture(scope="module")
+def routed_case():
+    """A ragged iterate (B=5, N=2) of the routed GP quad on an 8-point
+    two-cluster three-output ensemble, each scenario's p packed at its body
+    velocity moved to a centroid of cluster b mod 2, both clusters in the
+    launch; and the JAX package's ``param_residual_dynamics(...,
+    quad_frame=True)`` on the quad's lane form, discretized and linearized
+    by XLA per scenario on the same p."""
+    ens = quad_fleet.make_quad_gp_ensemble(n=8, clusters=2)
+    dyn, xs, us, ps, present = routed_quad_inputs(ens, 5, 2, 25, "cpu")
+    assert present == [0, 1]
+    f3, p_dim, _ = jl.param_residual_dynamics(_jax_ensemble(ens), _jax_quad, 0,
+                                              quad_frame=True)
+    assert p_dim == dyn.p_dim == ps.shape[1]
+
+    def one(a, b, p):
+        return linearize(discretize(lambda x, u: f3(x, u, p), DT, 1), a, b)
+
+    xs, us, ps = (t.numpy() for t in (xs, us, ps))
+    want = jax.vmap(one)(jnp.asarray(xs), jnp.asarray(us), jnp.asarray(ps))
+    return dyn, xs, us, ps, want
+
+
+@pytest.mark.parametrize("team", sorted({v[0] for v in ROUTED_TEAMS}))
+def test_team_split_of_the_routed_gp_sweep_matches_jax(routed_case, team):
+    """Each team width of the routed GP quad's sweep (``GPQuadRoutedDyn``)
+    against the JAX package's routed dynamics linearized by XLA and against
+    the port's plain sweep, each at 3e-5."""
+    dyn, xs, us, ps, want = routed_case
+    _hold_team_split(dyn, team, xs, us, ps, want)
+
+
+@pytest.mark.parametrize("N", [1, 2, 10])
+@pytest.mark.parametrize("B", [1, 5, 37])
+@pytest.mark.parametrize("team", sorted({v[0] for v in ROUTED_TEAMS}))
+def test_staged_p_rows_geometry(team, B, N):
+    """The routed GP quad's launch with its p rows (the fitted 60-point
+    layout, 735 floats): every row and column stored once and every c
+    once; the dynamic shared bytes are the kernel's (``launch_vde_team``:
+    the tile, then block_scenarios p rows where N > 1, none at N = 1); and
+    each block's rows read no more scenarios than it stages."""
+    pd = GP_QUAD_DIMS * (60 * (GP_QUAD_FEATS + 1) + GP_QUAD_FEATS + 2)
+    geo = vde_geometry(B, N, NX, NU, team, 4, row_floats=pd)
+    rows = B * N
+    stored, c_rows = _coverage(geo, rows)
+    assert stored == {(r, j): 1 for r in range(rows) for j in range(NV)}
+    assert sorted(c_rows) == list(range(rows))
+    tile = geo.rows_per_block * NX * (NV + 1)
+    staged = block_scenarios(geo.rows_per_block, N, B) if N > 1 else 0
+    assert rows_staged(N) == (N > 1)
+    assert geo.shared_bytes == 4 * (tile + pd * staged) and geo.rows_bytes == 4 * pd * staged
+    for block in range(geo.grid if N > 1 else 0):
+        first = block * geo.rows_per_block
+        last = min(first + geo.rows_per_block, rows) - 1
+        assert last // N - first // N + 1 <= staged
+
+
+def test_routed_default_fits_every_horizon():
+    """The committed routed team's block, with the largest p rows its
+    functor takes (64 points), fits the SM for MIN_BLOCKS blocks at every
+    horizon of the port's solvers (N = 2 stages the most scenarios)."""
+    d = team_defaults("vde_gp_quad_routed")["GP_QUAD_ROUTED"]
+    for N in range(1, 41):
+        geo = vde_geometry(16384, N, NX, NU, d["ROW_TEAM"], d["ROW_WARPS"],
+                           d["MIN_BLOCKS"], row_floats=ROUTED_P_MAX)
+        assert resident_blocks(geo.max_registers, geo.threads, geo.block_bytes) >= \
+            d["MIN_BLOCKS"]
+
+
+def _staged_reads(geo, B, N, pd, n):
+    """{read: {word address: bank}} of one warp's GP reads, for each warp of
+    each block of ``geo`` at B scenarios of N stages and for each read of
+    ``gp_table_mean`` (point j's feature k of X, its weight a, 1/l's k,
+    y_mean): lanes 0-2 of every team read output dim d = lane of their
+    scenario's staged copy, (b - b_first) pd + d (4n + 5) + offset."""
+    per = n * (GP_QUAD_FEATS + 1) + GP_QUAD_FEATS + 2
+    offsets = ([("X", j, k, j * GP_QUAD_FEATS + k) for j in range(n)
+                for k in range(GP_QUAD_FEATS)]
+               + [("a", j, 0, n * GP_QUAD_FEATS + j) for j in range(n)]
+               + [("inv_l", 0, k, n * GP_QUAD_FEATS + n + k) for k in range(GP_QUAD_FEATS)]
+               + [("y_mean", 0, 0, n * GP_QUAD_FEATS + n + GP_QUAD_FEATS + 1)])
+    rows = B * N
+    for block in range(geo.grid):
+        b_first = block * geo.rows_per_block // N
+        for warp in range(geo.threads // WARP):
+            lanes = [(t, lane_work(geo, rows, NV, block, t)[0])
+                     for t in range(warp * WARP, (warp + 1) * WARP) if t % geo.team < 3]
+            for name, j, k, off in offsets:
+                words = {(row // N - b_first) * pd + (t % geo.team) * per + off
+                         for t, row in lanes}
+                yield (block, warp, name, j, k), words
+
+
+@pytest.mark.parametrize("N", [2, 10])
+@pytest.mark.parametrize("n", [32, 60], ids=["synthetic_n32", "fitted_n60"])
+@pytest.mark.parametrize("team", sorted({v[0] for v in ROUTED_TEAMS}))
+def test_staged_p_rows_reads_lie_in_distinct_banks(team, n, N):
+    """Lanes 0-2 of a routed GP team read one point of output dims 0-2 of
+    their scenario's staged p row at once, and a warp's teams span several
+    scenarios (up to 5 at N = 2 with 4 lanes a team): the distinct words
+    that a warp reads at once lie in distinct banks, unpadded, for the
+    synthetic 32-point (399 floats a row) and the fitted 60-point (735)
+    layouts, in every warp of ragged launches."""
+    pd = GP_QUAD_DIMS * (n * (GP_QUAD_FEATS + 1) + GP_QUAD_FEATS + 2)
+    for B in (5, 37):
+        geo = vde_geometry(B, N, NX, NU, team, 4, row_floats=pd)
+        for where, words in _staged_reads(geo, B, N, pd, n):
+            assert len({w % SMEM_BANKS for w in words}) == len(words), (where, words)
