@@ -35,12 +35,12 @@
 //     tile is 29,952 B per warp, so a block of 4 warps would hold one block
 //     per SM; one warp per block holds 7.
 //   - Forward-mode duals: Dual<NT> carries a value and NT tangents, x_j and
-//     u_j are seeded with one-hot tangents. TANGENTS_PER_PASS, a functor
-//     trait, splits the nx+nu tangents into passes (vde_passes), each of
-//     which recomputes the primal. The bicycle runs all 9 in one pass: 255
-//     registers and no spill once the divisions are branch-free, 8 warps
-//     per SM; 3 passes of 3 and 2 of 5 + 4 took 8% and 4% longer, and a
-//     warp per pass 60-80% (PERF.md).
+//     u_j are seeded with one-hot tangents. The thread-per-row path
+//     (BicycleDyn, GPRoutedDyn) carries all nx+nu tangents in one pass
+//     (vde_row): the bicycle's 9 take 255 registers and no spill once the
+//     divisions are branch-free, 8 warps per SM; passes of 3 x 3 and 5 + 4,
+//     each recomputing the primal, took 8% and 4% longer, and a warp per
+//     pass 60-80% (PERF.md).
 //   - The quads (QuadDyn, QuadMPC's QuadDragDyn, GPQuadDyn, QuadMPC's
 //     GPQuadDualDyn, GPQuadDualDragDyn and GPQuadSelectDyn, whose table of
 //     every cluster the block stages after its tile, and the routed
@@ -58,15 +58,22 @@
 //     arithmetic in every lane, so no pass recomputes it). Fewer live
 //     floats per lane let MIN_BLOCKS, a trait, cap the registers through
 //     __launch_bounds__ for more warps per SM; a GP quad's 3 output dims
-//     sum their means in 3 lanes of the team at once and broadcast them
-//     by __shfl_sync, each sum in the order of the points. A block's
+//     (the GP bicycle's 2) sum their means in 3 (2) lanes of the team at
+//     once and broadcast them by __shfl_sync, each sum in the order of the
+//     points. A block's
 //     rows lie in one tile, which one thread copies out by three
 //     cp.async.bulk copies (VDE_BULK_STORE; the block's 16-byte stores are
-//     the measured alternative). Tensor cores (wgmma, mma) do not apply: the
+//     the measured alternative). The Pacejka (PacejkaDyn) and the GP
+//     bicycle (GPBicycleDyn) state team traits with ROW_TEAM = 1, the
+//     thread-per-row path launched through the team entry: with 9 columns
+//     a team's repeated primal (the Pacejka's transcendentals, the GP
+//     bicycle's registers per row) cost more than its lanes bought.
+//     Tensor cores (wgmma, mma) do not apply: the
 //     largest product is 13 x 17 per row, each step a dependent chain of
 //     elementwise dual arithmetic, and a row's tiles cannot share
 //     operands with another's. Widths measured in
-//     experiments/quad_kernels.py (PERF.md).
+//     experiments/quad_kernels.py and experiments/bicycle_kernels.py
+//     (PERF.md).
 //   - A dual division computes its value once with the bits of IEEE '/'
 //     (fdiv_rcp of ieee_div.cuh, branch-free) and multiplies the tangents by
 //     the reciprocal it refined; one sincosf per angle; a dual atan takes
@@ -81,8 +88,8 @@
 // one pair of C entries per functor (vde_<model>, rk4_<model>; VDE_ENTRIES,
 // or VDE_TEAM_ENTRIES for a team functor).
 // A functor states NX, NU, NP (parameter entries it reads; a launch with
-// fewer is refused, and NP = 0 never reads ps), TANGENTS_PER_PASS (or
-// ROW_TEAM and MIN_BLOCKS) and ROW_WARPS, and a per-thread context Ctx
+// fewer is refused, and NP = 0 never reads ps), ROW_WARPS (and, a team
+// functor, ROW_TEAM and MIN_BLOCKS), and a per-thread context Ctx
 // built once from the scenario's
 // parameter row (context(p)), before any pass: what depends on p alone is
 // computed there in float, not as duals. The functor rides in the kernel's
@@ -109,10 +116,9 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC vde_<family>.cu (no --use_fast_math: IEEE
-//        sinf/cosf/atanf/expf and division). -D<MODEL>_TANGENTS_PER_PASS=n,
-//        -D<MODEL>_ROW_TEAM=n, -D<MODEL>_MIN_BLOCKS=n and
-//        -D<MODEL>_ROW_WARPS=n override a functor's traits (the
-//        measurements of experiments/quad_kernels.py and
+//        sinf/cosf/atanf/expf and division). -D<MODEL>_ROW_TEAM=n,
+//        -D<MODEL>_MIN_BLOCKS=n and -D<MODEL>_ROW_WARPS=n override a team
+//        functor's traits (the sweeps of experiments/quad_kernels.py and
 //        experiments/bicycle_kernels.py).
 
 #pragma once
@@ -294,8 +300,8 @@ template <class Dyn>
 struct dyn_rows<Dyn, std::void_t<decltype(Dyn::P_ROWS)>> : std::true_type {};
 
 // A functor's team: ROW_TEAM consecutive lanes of a warp share one (b, k)
-// row and split its tangent columns (vde_team); 1, the thread-per-row path
-// with TANGENTS_PER_PASS, where the functor states none. MIN_BLOCKS, the
+// row and split its tangent columns (vde_team); 1 (stated, or where the
+// functor states none), the thread-per-row path. MIN_BLOCKS, the
 // blocks per SM that vde_kernel's registers are capped for
 // (__launch_bounds__), is 1 where it states none.
 template <class Dyn, class = void>
@@ -406,26 +412,27 @@ DI void store_rows(float* __restrict__ dst, const float* tile, int w,
   for (int i = 4 * len4 + lane; i < len; i += stride) out[i] = tile[i];
 }
 
-// One pass: tangent columns J0 .. J0+NT-1 of [A | Bm] of the thread's row,
-// into its rows of the tiles (and, on the first pass, c).
-template <int J0, int NT, class Dyn>
-DI void vde_pass(const float* x0, const float* u0, const float* xn,
-                 const typename Dyn::Ctx& p, const Dyn& f, Steps st, float* tA,
-                 float* tB, float* tc) {
+// The thread-per-row path: every tangent column of [A | Bm] of the
+// thread's row, and its c, into its rows of the tiles.
+template <class Dyn>
+DI void vde_row(const float* x0, const float* u0, const float* xn,
+                const typename Dyn::Ctx& p, const Dyn& f, Steps st, float* tA,
+                float* tB, float* tc) {
   constexpr int NX = Dyn::NX;
   constexpr int NU = Dyn::NU;
+  constexpr int NT = NX + NU;
   Dual<NT> x[NX], u[NU];
 #pragma unroll
   for (int i = 0; i < NX; ++i) {
     x[i].v = x0[i];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) x[i].d[t] = (i == J0 + t) ? 1.0f : 0.0f;
+    for (int t = 0; t < NT; ++t) x[i].d[t] = (i == t) ? 1.0f : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < NU; ++i) {
     u[i].v = u0[i];
 #pragma unroll
-    for (int t = 0; t < NT; ++t) u[i].d[t] = (NX + i == J0 + t) ? 1.0f : 0.0f;
+    for (int t = 0; t < NT; ++t) u[i].d[t] = (NX + i == t) ? 1.0f : 0.0f;
   }
 
   rk4_map(x, u, p, f, st);
@@ -433,30 +440,14 @@ DI void vde_pass(const float* x0, const float* u0, const float* xn,
   // a[i*nx + j] = dF_i/dx_j, b[i*nu + j] = dF_i/du_j.
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
-    const int col = J0 + t;
 #pragma unroll
     for (int i = 0; i < NX; ++i) {
-      if (col < NX) tA[i * NX + col] = x[i].d[t];
-      else tB[i * NU + (col - NX)] = x[i].d[t];
+      if (t < NX) tA[i * NX + t] = x[i].d[t];
+      else tB[i * NU + (t - NX)] = x[i].d[t];
     }
   }
-  if constexpr (J0 == 0) {
 #pragma unroll
-    for (int i = 0; i < NX; ++i) tc[i] = x[i].v - xn[i];
-  }
-}
-
-// The passes from column J0 on.
-template <int J0, class Dyn>
-DI void vde_passes(const float* x0, const float* u0, const float* xn,
-                   const typename Dyn::Ctx& p, const Dyn& f, Steps st,
-                   float* tA, float* tB, float* tc) {
-  constexpr int NV = Dyn::NX + Dyn::NU;
-  constexpr int TP = Dyn::TANGENTS_PER_PASS;
-  constexpr int NT = TP < NV - J0 ? TP : NV - J0;
-  vde_pass<J0, NT>(x0, u0, xn, p, f, st, tA, tB, tc);
-  if constexpr (J0 + NT < NV)
-    vde_passes<J0 + NT>(x0, u0, xn, p, f, st, tA, tB, tc);
+  for (int i = 0; i < NX; ++i) tc[i] = x[i].v - xn[i];
 }
 
 // A warp's tile of vde_kernel in floats: its 32 rows of A, then of Bm, then
@@ -697,8 +688,8 @@ vde_kernel(const float* __restrict__ xs, const float* __restrict__ us,
       if (rows_staged(N)) prow = table + (b - b_first) * pd;
     }
     typename Dyn::Ctx ctx = f.context(prow);
-    vde_passes<0>(x0, u0, xn, ctx, f, st, tile + lane * NX * NX,
-                  tile + TILE_B + lane * NX * NU, tile + TILE_C + lane * NX);
+    vde_row(x0, u0, xn, ctx, f, st, tile + lane * NX * NX, tile + TILE_B + lane * NX * NU,
+            tile + TILE_C + lane * NX);
 
     __syncwarp();
     if (row0 < rows) {
@@ -827,8 +818,10 @@ static cudaError_t launch_vde(const float* xs, const float* us, const float* ps,
 }
 
 // A team functor's sweep, launched with the geometry the wrapper computed
-// (ops/cuda_vde.py:vde_geometry): refused unless it is the functor's, so
-// that the launch bounds, the block's rows and its tile (and a dyn_table
+// (ops/cuda_vde.py:vde_geometry; with ROW_TEAM = 1 the thread-per-row
+// path's, whose per-warp tiles make TeamShape's tile): refused unless it
+// is the functor's, so that the launch bounds, the block's rows and its
+// tile (and a dyn_table
 // functor's table or a dyn_rows functor's block's p rows after it) agree
 // with the kernel's, and refused where the p rows would take more shared
 // memory than vde_prepare let the kernel take.

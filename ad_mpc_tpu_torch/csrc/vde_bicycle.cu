@@ -1,12 +1,15 @@
 // The bicycle family of the VDE sweep and its RK4 map (vde.cuh): the
 // blended bicycle of configs c2 and the AD path (BicycleDyn) and the
-// Pacejka bicycle of config c4 (PacejkaDyn).
+// Pacejka bicycle of config c4 (PacejkaDyn, a functor with team traits).
 
-#ifndef PACEJKA_TANGENTS_PER_PASS
-#define PACEJKA_TANGENTS_PER_PASS 9
+#ifndef PACEJKA_ROW_TEAM
+#define PACEJKA_ROW_TEAM 1
 #endif
 #ifndef PACEJKA_ROW_WARPS
 #define PACEJKA_ROW_WARPS 4
+#endif
+#ifndef PACEJKA_MIN_BLOCKS
+#define PACEJKA_MIN_BLOCKS 1
 #endif
 
 #include "vde_models.cuh"
@@ -14,7 +17,7 @@
 // The bicycle with the blend switch taken from p[0].
 struct BicycleDyn {
   static constexpr int NX = 7, NU = 2, NP = 1;
-  static constexpr int TANGENTS_PER_PASS = 9, ROW_WARPS = 4;
+  static constexpr int ROW_WARPS = 4;
   static constexpr bool STAGES = false;
   using Ctx = const float*;
   BicycleParamsC P;
@@ -36,11 +39,21 @@ struct PacejkaParamsC {  // by value from the wrapper (models/pacejka.py)
 // p = [mu, pitch, roll, B scale, D scale]), same order of operations, atanf
 // where the reference has atan_mosaic. What depends on p alone (the normal
 // loads, the magic formula's B and mu F_z D, the gravity feed-through) is
-// computed once per thread in float.
+// computed once per thread in float. With ROW_TEAM = 1 (the committed
+// default) the sweep runs a thread per row with all 9 tangents; with
+// ROW_TEAM > 1 (the measured variants of experiments/bicycle_kernels.py) a
+// team of lanes per row (vde.cuh: vde_team), the 9 tangent columns split
+// across them in one pass: every lane builds the context from its
+// scenario's p and carries the primal in lockstep with the same float
+// arithmetic, so that max_(v_x, 0.5) takes one branch across the team.
+// Every lane then repeats the primal's 4 atanf, 3 sincosf and 5 divisions,
+// which outweigh a column's tangents: the team lost on the H100, whatever
+// warps per SM its register cap bought (PERF.md).
 struct PacejkaDyn {
   static constexpr int NX = 7, NU = 2, NP = 5;
-  static constexpr int TANGENTS_PER_PASS = PACEJKA_TANGENTS_PER_PASS;
+  static constexpr int ROW_TEAM = PACEJKA_ROW_TEAM;
   static constexpr int ROW_WARPS = PACEJKA_ROW_WARPS;
+  static constexpr int MIN_BLOCKS = PACEJKA_MIN_BLOCKS;
   static constexpr bool STAGES = false;
   struct Ctx {
     float b_f, b_r;      // B front and rear
@@ -104,10 +117,10 @@ struct PacejkaDyn {
 extern "C" {
 
 VDE_ENTRIES(bicycle, BicycleDyn, BicycleParamsC)
-VDE_ENTRIES(pacejka, PacejkaDyn, PacejkaParamsC)
+VDE_TEAM_ENTRIES(pacejka, PacejkaDyn, PacejkaParamsC)
 
-// No functor here has a table in dynamic shared memory: nothing to set.
-int vde_prepare() { return 0; }
+// At the library's first load: PacejkaDyn's team sweep its block tile.
+int vde_prepare() { return (int)prepare_team<PacejkaDyn>(); }
 
 VDE_ERROR_STRING
 

@@ -3,11 +3,14 @@
 // bicycle plus a parameter-routed GP (GPRoutedDyn), whose every scenario
 // reads its own cluster's GP from its parameter row.
 
-#ifndef GP_BICYCLE_TANGENTS_PER_PASS
-#define GP_BICYCLE_TANGENTS_PER_PASS 9
+#ifndef GP_BICYCLE_ROW_TEAM
+#define GP_BICYCLE_ROW_TEAM 1
 #endif
 #ifndef GP_BICYCLE_ROW_WARPS
 #define GP_BICYCLE_ROW_WARPS 4
+#endif
+#ifndef GP_BICYCLE_MIN_BLOCKS
+#define GP_BICYCLE_MIN_BLOCKS 1
 #endif
 
 #include "vde_models.cuh"
@@ -23,57 +26,111 @@ struct GPBicycleParamsC {  // by value from the wrapper (models/gp_bicycle.py)
   float inv_l[GP_DIMS][GP_FEATS];           // 1 / length scale
   float y_mean[GP_DIMS];
 };
-static_assert(offsetof(GPBicycleParamsC, a) ==
-                  offsetof(GPBicycleParamsC, X) + sizeof(float) * GP_DIMS * GP_POINTS * GP_FEATS,
-              "stage() copies X and a as one range");
+static_assert(offsetof(GPBicycleParamsC, y_mean) ==
+                  offsetof(GPBicycleParamsC, inv_l) + sizeof(float) * GP_DIMS * GP_FEATS,
+              "stage() copies inv_l and y_mean as one range");
 
-// The table's features and weights (X, then a, as they lie in
-// GPBicycleParamsC), copied once per block from the kernel's parameters by
-// GPBicycleDyn::stage. The j loop reads them with an index the compiler
-// cannot fold; from shared memory every lane of a warp reads the same word
-// (a broadcast), where indexed reads of the parameter space cost the RK4
-// kernel 10x its time (PERF.md section 6).
-constexpr int GP_TABLE = GP_DIMS * GP_POINTS * (GP_FEATS + 1);
-__shared__ float gp_table[GP_TABLE];
-
-// c3's mean of output dim d from gp_table.
-DI float gp_mean(const GPBicycleParamsC& P, int d, const float* z, float* g) {
-  return gp_table_mean<GP_FEATS>(
-      gp_table + d * GP_POINTS * GP_FEATS,
-      gp_table + GP_DIMS * GP_POINTS * GP_FEATS + d * GP_POINTS, P.n,
-      P.inv_l[d], P.y_mean[d], z, g);
-}
+// The table's features, weights, 1/l and y_mean, copied once per block from
+// the kernel's parameters by GPBicycleDyn::stage. The j loop reads them with
+// an index the compiler cannot fold; from shared memory every lane of a
+// warp that reads the same word gets it at once (a broadcast), where
+// indexed reads of the parameter space cost the RK4 kernel 10x its time
+// (PERF.md section 6). Each output dim's X and a lie four floats past the
+// last dim's (models/gp_bicycle.py:gp_table_layout): a team's lanes 0 and 1
+// read the same point of both dims at once, and without the pad the two
+// addresses (128 and 32 floats apart) would lie in one bank; four floats,
+// not one, keep every block on 16 bytes, so that the point loop reads X's
+// rows and a's runs by 16-byte loads (a pad of one cost the thread per row
+// 1.7%, PERF.md).
+constexpr int GP_PAD = 4;
+constexpr int GP_X_DIM = GP_POINTS * GP_FEATS + GP_PAD;
+constexpr int GP_A_DIM = GP_POINTS + GP_PAD;
+constexpr int GP_X = 0;
+constexpr int GP_A = GP_X + GP_DIMS * GP_X_DIM;
+constexpr int GP_INV_L = GP_A + GP_DIMS * GP_A_DIM;
+constexpr int GP_Y_MEAN = GP_INV_L + GP_DIMS * GP_FEATS;
+constexpr int GP_TABLE = GP_Y_MEAN + GP_DIMS;
+__shared__ __align__(16) float gp_table[GP_TABLE];
 
 // The dynamic bicycle (switch p[0]) plus the baked cluster-0 GP mean of the
 // c3 bench config (bench.py:216-257): features x[3..6], outputs added to
-// rows 4 and 5.
+// rows 4 and 5. With ROW_TEAM = 1 (the committed default) the sweep runs a
+// thread per row, which sums both means itself and carries all 9 tangents;
+// with ROW_TEAM > 1 (the measured variants of experiments/bicycle_kernels.py)
+// a team of lanes per row (vde.cuh: vde_team), every lane on the same
+// primal: at each evaluation lanes 0 and 1 of the team each sum one output
+// dim's mean and gradient over the training points in gp_table_mean's
+// order, and the team reads both means and their gradients from them
+// (team_means). A dual takes them lifted onto its tangent columns
+// (gp_lift). The team lost to the thread per row on the H100: its lanes
+// each hold the primal, so a row takes about twice the registers, and
+// fewer rows are in flight to hide the means' dependent chain (PERF.md).
+// The RK4 map (T = float) computes both sums itself, in the order of its
+// first design, and keeps its bits.
 struct GPBicycleDyn {
   static constexpr int NX = 7, NU = 2, NP = 1;
-  static constexpr int TANGENTS_PER_PASS = GP_BICYCLE_TANGENTS_PER_PASS;
+  static constexpr int ROW_TEAM = GP_BICYCLE_ROW_TEAM;
   static constexpr int ROW_WARPS = GP_BICYCLE_ROW_WARPS;
+  static constexpr int MIN_BLOCKS = GP_BICYCLE_MIN_BLOCKS;
   static constexpr bool STAGES = true;
   using Ctx = const float*;
   GPBicycleParamsC P;
 
   DI Ctx context(const float* p) const { return p; }
 
-  // Every thread of the block copies its share of X and a to gp_table; the
-  // kernel synchronizes the block after.
+  // The block's threads copy the table to gp_table, each dim's X and a to
+  // its padded place (a team's lanes also read 1/l and y_mean there, where
+  // a thread per row and the RK4 map read them from the parameters by a
+  // constant index); the kernel synchronizes the block after. The loops
+  // pick no dim at run time: one loop over the whole range, its index
+  // split by dim, cost the RK4 map 3%, these 1% (PERF.md).
   DI void stage() const {
-    const float* src = &P.X[0][0][0];
-    for (int i = threadIdx.x; i < GP_TABLE; i += blockDim.x) gp_table[i] = src[i];
+    constexpr int NXD = GP_POINTS * GP_FEATS;  // one dim's X
+    for (int i = threadIdx.x; i < NXD; i += blockDim.x) {
+#pragma unroll
+      for (int d = 0; d < GP_DIMS; ++d) gp_table[GP_X + d * GP_X_DIM + i] = (&P.X[d][0][0])[i];
+    }
+    for (int i = threadIdx.x; i < GP_POINTS; i += blockDim.x) {
+#pragma unroll
+      for (int d = 0; d < GP_DIMS; ++d) gp_table[GP_A + d * GP_A_DIM + i] = P.a[d][i];
+    }
+    if constexpr (ROW_TEAM > 1) {
+      constexpr int NL = GP_DIMS * (GP_FEATS + 1);  // 1/l, then y_mean
+      if (threadIdx.x < NL) gp_table[GP_INV_L + threadIdx.x] = (&P.inv_l[0][0])[threadIdx.x];
+    }
+  }
+
+  // Output dim d's mean and gradient at the features z, all from gp_table.
+  DI float mean(int d, const float* z, float* g) const {
+    return gp_table_mean<GP_FEATS>(gp_table + GP_X + d * GP_X_DIM,
+                                   gp_table + GP_A + d * GP_A_DIM, P.n,
+                                   gp_table + GP_INV_L + d * GP_FEATS,
+                                   gp_table[GP_Y_MEAN + d], z, g);
+  }
+
+  template <class T>
+  DI void means(const float* z, float* mu, float (*g)[GP_FEATS]) const {
+    if constexpr (std::is_same<T, float>::value || ROW_TEAM == 1) {
+#pragma unroll
+      for (int d = 0; d < GP_DIMS; ++d)
+        mu[d] = gp_table_mean<GP_FEATS>(gp_table + GP_X + d * GP_X_DIM,
+                                        gp_table + GP_A + d * GP_A_DIM, P.n, P.inv_l[d],
+                                        P.y_mean[d], z, g[d]);
+    } else {
+      team_means<ROW_TEAM, GP_DIMS, GP_FEATS>(
+          true, [&](int d, float* gd) { return mean(d, z, gd); }, mu, g);
+    }
   }
 
   template <class T>
   DI void operator()(const T* x, const T* u, const float* p, T* xd) const {
-    float z[GP_FEATS], g0[GP_FEATS], g1[GP_FEATS];
+    float z[GP_FEATS], mu[GP_DIMS], g[GP_DIMS][GP_FEATS];
 #pragma unroll
     for (int k = 0; k < GP_FEATS; ++k) z[k] = value(x[3 + k]);
-    const float mu0 = gp_mean(P, 0, z, g0);
-    const float mu1 = gp_mean(P, 1, z, g1);
+    means<T>(z, mu, g);
     bicycle_xdot(P.bike, p[0], x, u, xd);
-    xd[4] = xd[4] + gp_lift<GP_FEATS>(mu0, g0, x + 3);
-    xd[5] = xd[5] + gp_lift<GP_FEATS>(mu1, g1, x + 3);
+    xd[4] = xd[4] + gp_lift<GP_FEATS>(mu[0], g[0], x + 3);
+    xd[5] = xd[5] + gp_lift<GP_FEATS>(mu[1], g[1], x + 3);
   }
 };
 
@@ -109,7 +166,7 @@ static bool params_ok(const GPRoutedParamsC& P, int pd) {
 // the duals as GPBicycleDyn lifts them.
 struct GPRoutedDyn {
   static constexpr int NX = 7, NU = 2, NP = 1;
-  static constexpr int TANGENTS_PER_PASS = 9, ROW_WARPS = 4;
+  static constexpr int ROW_WARPS = 4;
   static constexpr bool STAGES = false, P_ROWS = true;
   using Ctx = const float*;  // the scenario's p row, in shared memory
   GPRoutedParamsC P;
@@ -142,12 +199,17 @@ struct GPRoutedDyn {
 
 extern "C" {
 
-VDE_ENTRIES(gp_bicycle, GPBicycleDyn, GPBicycleParamsC)
+VDE_TEAM_ENTRIES(gp_bicycle, GPBicycleDyn, GPBicycleParamsC)
 VDE_ENTRIES(gp_routed, GPRoutedDyn, GPRoutedParamsC)
 
-// At the library's first load: GPRoutedDyn's kernels may take the most
-// dynamic shared memory the device allows (its blocks' p rows).
-int vde_prepare() { return (int)prepare_rows<GPRoutedDyn>(); }
+// At the library's first load: GPBicycleDyn's team sweep its block tile,
+// and GPRoutedDyn's kernels the most dynamic shared memory the device
+// allows (its blocks' p rows).
+int vde_prepare() {
+  const cudaError_t err = prepare_team<GPBicycleDyn>();
+  if (err != cudaSuccess) return (int)err;
+  return (int)prepare_rows<GPRoutedDyn>();
+}
 
 VDE_ERROR_STRING
 

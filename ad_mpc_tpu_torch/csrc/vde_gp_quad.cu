@@ -106,7 +106,8 @@ struct GPQuadDyn {
             gp_quad_table + GP_QUAD_A + d * GP_QUAD_A_DIM, P.n, P.inv_l[d],
             P.y_mean[d], z, g[d]);
     } else {
-      team_means<ROW_TEAM>(true, [&](int d, float* gd) { return mean(d, z, gd); }, mu, g);
+      team_means<ROW_TEAM, GP_QUAD_DIMS, GP_QUAD_FEATS>(
+          true, [&](int d, float* gd) { return mean(d, z, gd); }, mu, g);
     }
   }
 

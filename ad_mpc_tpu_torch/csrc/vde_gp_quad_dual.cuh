@@ -121,8 +121,8 @@ struct GPQuadDualDynT {
         return;
       }
     } else {
-      team_means<ROW_TEAM>(!c.trigger, [&](int d, float* gd) { return mean(c, d, z, gd); },
-                           mu, g);
+      team_means<ROW_TEAM, GP_QUAD_DIMS, GP_QUAD_FEATS>(
+          !c.trigger, [&](int d, float* gd) { return mean(c, d, z, gd); }, mu, g);
       if (!c.trigger) return;
     }
 #pragma unroll

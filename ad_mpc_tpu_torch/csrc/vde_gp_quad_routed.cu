@@ -81,8 +81,8 @@ struct GPQuadRoutedDyn {
 #pragma unroll
       for (int d = 0; d < GP_QUAD_DIMS; ++d) mu[d] = mean(c, d, z, g[d]);
     } else {
-      team_means<ROW_TEAM>(true, [&](int d, float* gd) { return mean(c, d, z, gd); }, mu,
-                           g);
+      team_means<ROW_TEAM, GP_QUAD_DIMS, GP_QUAD_FEATS>(
+          true, [&](int d, float* gd) { return mean(c, d, z, gd); }, mu, g);
     }
   }
 

@@ -150,8 +150,8 @@ struct GPQuadSelectDyn {
 #pragma unroll
       for (int d = 0; d < GP_QUAD_DIMS; ++d) mu[d] = mean(c, d, vb, g[d]);
     } else {
-      team_means<ROW_TEAM>(true, [&](int d, float* gd) { return mean(c, d, vb, gd); },
-                           mu, g);
+      team_means<ROW_TEAM, GP_QUAD_DIMS, GP_QUAD_FEATS>(
+          true, [&](int d, float* gd) { return mean(c, d, vb, gd); }, mu, g);
       quad_xdot(P.quad, x, u, xd);
     }
     gp_quad_rows(x, q, v, R, vb, mu, g, P.drag, xd);

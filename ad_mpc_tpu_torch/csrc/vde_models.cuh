@@ -169,26 +169,26 @@ DI void rot_matrix(const T* q, T (*R)[3]) {
   R[2][2] = 1.0f - 2.0f * (qx * qx + qy * qy);
 }
 
-// The 3 means and their gradients of a GP quad's team (vde.cuh: vde_team)
-// at one evaluation: lane d < 3 of each team of TEAM lanes computes output
-// d's, mean(d, g), where `busy` (the whole sum in gp_table_mean's order:
-// one sum is never split across lanes, since the fitted models' terms reach
-// 3,657 and cancel to under 6), and every lane reads all 3 from lanes 0-2
-// by __shfl_sync. Every lane of the warp reaches the shuffles, whatever
-// its team's `busy` (a full-warp __shfl_sync inside a branch that another
-// team of the warp skips is undefined).
-template <int TEAM, class Mean>
-DI void team_means(bool busy, const Mean& mean, float* mu, float (*g)[GP_QUAD_FEATS]) {
-  static_assert(TEAM >= GP_QUAD_DIMS, "a lane of the team per output dim");
+// The DIMS means and their gradients (FEATS features) of a GP team
+// (vde.cuh: vde_team) at one evaluation: lane d < DIMS of each team of
+// TEAM lanes computes output d's, mean(d, g), where `busy` (the whole sum
+// in gp_table_mean's order: one sum is never split across lanes, since the
+// fitted models' terms reach 3,657 and cancel to under 6), and every lane
+// reads all DIMS from lanes 0 .. DIMS-1 by __shfl_sync. The GP quads take
+// (3, 3), the GP bicycle (2, 4). Every lane of the warp reaches the
+// shuffles, whatever its team's `busy` (a full-warp __shfl_sync inside a
+// branch that another team of the warp skips is undefined).
+template <int TEAM, int DIMS, int FEATS, class Mean>
+DI void team_means(bool busy, const Mean& mean, float* mu, float (*g)[FEATS]) {
+  static_assert(TEAM >= DIMS, "a lane of the team per output dim");
   const int d = threadIdx.x % TEAM;
-  float m = 0.0f, gd[GP_QUAD_FEATS] = {};
-  if (busy && d < GP_QUAD_DIMS) m = mean(d, gd);
+  float m = 0.0f, gd[FEATS] = {};
+  if (busy && d < DIMS) m = mean(d, gd);
 #pragma unroll
-  for (int e = 0; e < GP_QUAD_DIMS; ++e) {
+  for (int e = 0; e < DIMS; ++e) {
     mu[e] = __shfl_sync(0xffffffffu, m, e, TEAM);
 #pragma unroll
-    for (int k = 0; k < GP_QUAD_FEATS; ++k)
-      g[e][k] = __shfl_sync(0xffffffffu, gd[k], e, TEAM);
+    for (int k = 0; k < FEATS; ++k) g[e][k] = __shfl_sync(0xffffffffu, gd[k], e, TEAM);
   }
 }
 

@@ -6,7 +6,8 @@ quad's), of QuadMPC's drag and dual-state GP functors and of the other
 functors (:func:`other_functor_bits`), device times of the 13x4 LQ
 kernel, and the quad's and GP quads' sweeps' device times, resources and
 RTI solves (:func:`quad_vde_ms`: the c5 and c6 functors, QuadMPC's drag,
-dual-state and select GPs and the routed GP quad), of whichever
+dual-state and select GPs and the routed GP quad), the c3 and c4 sweeps'
+device times and resources (:func:`c3_c4_vde_ms`), of whichever
 ``ad_mpc_tpu_torch`` is imported, so that two trees can be compared on one
 card in one call:
 
@@ -201,6 +202,35 @@ def other_functor_bits(dev):
         out[f"vde_{name}"] = digest(*vde(xs_, us_, ps_))
         out[f"rk4_{name}"] = digest(rk4.defect(xs_, us_, ps_),
                                     rk4(xs_[:, 0], us_[:, 0], ps_))
+    return out
+
+
+def c3_c4_vde_ms(dev):
+    """The c3 GP bicycle's and the c4 Pacejka's sweeps (``GPBicycleDyn``
+    with the bench's 32-point ensemble, ``PacejkaDyn`` with p as the fleet
+    draws it, on the kernels' check inputs ``testing.gp_bicycle_inputs``
+    and ``pacejka_inputs``, N=30): device ms by graph replay, warm and cold
+    at B=16384 and warm at B=4096 (c4's fleet), with the RK4 map's defect
+    warm at B=16384; each functor's registers and spills, and a team
+    functor's geometry and blocks per SM (``occupancy``)."""
+    from ad_mpc_tpu_torch.ops import _build
+    from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4
+    from ad_mpc_tpu_torch.testing import gp_bicycle_inputs, pacejka_inputs
+
+    out = {}
+    for name, inputs in (("gp_bicycle", gp_bicycle_inputs), ("pacejka", pacejka_inputs)):
+        dyn, (xs, us, ps) = inputs(16384, 30, dev)
+        vde = make_vde(dyn, 0.05, 30, 7, 2, ps.shape[1], device=dev)
+        rk4 = make_rk4(dyn, 0.05, 7, 2, ps.shape[1], device=dev)
+        run = lambda: vde(xs, us, ps)
+        small = [t[:4096] for t in (xs, us, ps)]
+        row = out[name] = {"ms": replay_ms(run), "cold_ms": replay_ms(run, cold=True),
+                           "b4096_ms": replay_ms(lambda: vde(*small)),
+                           "rk4_defect_ms": replay_ms(lambda: rk4.defect(xs, us, ps))}
+        row |= _build.functor_resources(dyn.cuda_source, "vde_kernel", dyn.cuda_functor)
+        if getattr(dyn, "cuda_team", False):
+            row["blocks_per_sm"] = vde.occupancy(16384)
+            row["geometry"] = vde.geometry(16384)._asdict()
     return out
 
 
@@ -411,6 +441,7 @@ def main(argv=None):
     res["bits_quad_mpc"] = quad_mpc_bits(dev)
     res["bits_others"] = other_functor_bits(dev)
     res["quad_vde"] = quad_vde_ms(dev)
+    res["c3_c4_vde"] = c3_c4_vde_ms(dev)
     res["rdrv_tracking"] = rdrv_tracking(dev)
 
     # Device times at c2's B=16384.

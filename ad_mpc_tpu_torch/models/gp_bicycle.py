@@ -10,11 +10,13 @@ On the card the ``GPBicycleDyn`` functor of ``csrc/vde_gp_bicycle.cu`` computes 
 same function. It takes the cluster's training table by value
 (:meth:`GPBicycleDynamics.cuda_params`) in the kernel's parameters, and
 each block stages the table in shared memory once, where every lane of a
-warp reads the same entry at once (indexed reads of the parameters
-themselves were 10x slower on the RK4 map, ``PERF.md`` section 6). The
-capacity is :data:`GP_POINTS` points of :data:`GP_FEATS` features for
-:data:`GP_DIMS` outputs (1,352 bytes, inside the 4 KB a kernel's
-parameters may take).
+warp that reads the same entry gets it at once (indexed reads of the
+parameters themselves were 10x slower on the RK4 map, ``PERF.md`` section
+6), each output dim's X and a four floats past the last dim's
+(:func:`gp_table_layout`), since a team of the sweep sums the two dims'
+means on two lanes at once. The capacity is :data:`GP_POINTS` points of
+:data:`GP_FEATS` features for :data:`GP_DIMS` outputs (1,352 bytes,
+inside the 4 KB a kernel's parameters may take).
 """
 
 from __future__ import annotations
@@ -33,6 +35,22 @@ from ad_mpc_tpu_torch.models.bicycle import (
 # csrc/vde_gp_bicycle.cu) and the layout it serves.
 GP_POINTS, GP_DIMS, GP_FEATS = 32, 2, 4
 OUT_IDX, FEAT_IDX = (4, 5), (3, 4, 5, 6)
+
+
+def gp_table_layout() -> dict:
+    """Offsets in floats of ``GPBicycleDyn``'s table in shared memory
+    (``gp_table`` of ``csrc/vde_gp_bicycle.cu``): {"X": d -> output dim d's
+    block of X (GP_POINTS rows of GP_FEATS), "a": d -> its weights,
+    "inv_l", "y_mean": the starts of 1/l (GP_DIMS x GP_FEATS) and y_mean,
+    "floats": the table's size}. Each dim's X and a block is padded by four
+    floats: the two dims' reads of one point lie in distinct banks, and
+    every block starts on 16 bytes."""
+    x_dim, a_dim = GP_POINTS * GP_FEATS + 4, GP_POINTS + 4
+    a0 = GP_DIMS * x_dim
+    inv_l = a0 + GP_DIMS * a_dim
+    y_mean = inv_l + GP_DIMS * GP_FEATS
+    return {"X": lambda d: d * x_dim, "a": lambda d: a0 + d * a_dim,
+            "inv_l": inv_l, "y_mean": y_mean, "floats": y_mean + GP_DIMS}
 
 
 class GPBicycleParamsC(ctypes.Structure):
@@ -60,9 +78,14 @@ class GPBicycleDynamics(nn.Module):
     and ``cuda_rk4_entry`` name the C entries of ``csrc/vde_gp_bicycle.cu`` that run
     the VDE kernel and its RK4 kernel with the ``GPBicycleDyn`` functor
     (``cuda_functor``), and ``cuda_params`` builds the struct both take.
+    ``cuda_team``: the sweep takes the team entry's launch geometry
+    (``ops/cuda_vde.py:vde_geometry``), a team of 1, a thread per row, as
+    committed (its teams lost, ``PERF.md``), the table in static shared
+    memory.
     """
 
     nx, nu, p_dim = 7, 2, 1
+    cuda_team = True
     cuda_functor = "GPBicycleDyn"
     cuda_source = "vde_gp_bicycle"
     cuda_entry = "vde_gp_bicycle"

@@ -129,9 +129,13 @@ class PacejkaDynamics(nn.Module):
     and ``cuda_rk4_entry`` name the C entries of ``csrc/vde_bicycle.cu`` that run
     the VDE kernel and its RK4 kernel with the ``PacejkaDyn`` functor
     (``cuda_functor``), and ``cuda_params`` builds the struct both take.
+    ``cuda_team``: the sweep takes the team entry's launch geometry
+    (``ops/cuda_vde.py:vde_geometry``), a team of 1, a thread per row, as
+    committed (its teams lost, ``PERF.md``).
     """
 
     nx, nu, p_dim = 7, 2, 5
+    cuda_team = True
     cuda_functor = "PacejkaDyn"
     cuda_source = "vde_bicycle"
     cuda_entry = "vde_pacejka"

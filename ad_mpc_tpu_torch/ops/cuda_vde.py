@@ -20,9 +20,12 @@ CPU tensors; for CUDA tensors it launches the kernel or raises.
 
 A team functor (a dynamics with ``cuda_team``: ``QuadDyn``,
 ``QuadDragDyn``, ``GPQuadDyn``, ``GPQuadDualDyn``, ``GPQuadDualDragDyn``,
-``GPQuadSelectDyn``, ``GPQuadRoutedDyn``) runs ``vde_kernel``'s team path,
-ROW_TEAM lanes per (scenario, stage) row on the row's tangent columns in
-one pass. Its launch geometry is :func:`vde_geometry`'s, from the traits
+``GPQuadSelectDyn``, ``GPQuadRoutedDyn``, ``PacejkaDyn``,
+``GPBicycleDyn``) runs ``vde_kernel``'s team path, ROW_TEAM lanes per
+(scenario, stage) row on the row's tangent columns in one pass; a team of
+one lane (the Pacejka's and the GP bicycle's committed traits) is the
+thread-per-row path, launched through the same entry. Its launch geometry
+is :func:`vde_geometry`'s, from the traits
 the library was built with (:meth:`VDE.team_traits`) and the bytes that
 a functor stages after the block's tile: its table (its dynamics'
 ``cuda_table``) or, for a dynamics with ``cuda_rows``, the p rows of the
@@ -95,12 +98,14 @@ def vde_geometry(batch, N, nx, nu, team, row_warps, min_blocks=1, static_bytes=0
     the functor's table, or, for a functor that reads ``row_floats`` p
     entries per scenario from shared memory (a routed GP), the p rows of
     the block's scenarios where :func:`rows_staged`; registers capped so
-    that ``min_blocks`` blocks fit an SM (``__launch_bounds__``). Raises
-    for a team that does not divide a warp, a block whose rows do not start
-    on 16 bytes in every output, or a block or an SM's ``min_blocks`` that
-    does not fit the shared memory or the threads."""
+    that ``min_blocks`` blocks fit an SM (``__launch_bounds__``). A team of
+    1 is the thread-per-row path: a thread per row, every column, the
+    block's warps' tiles in one. Raises for a team that does not divide a
+    warp, a block whose rows do not start on 16 bytes in every output, or
+    a block or an SM's ``min_blocks`` that does not fit the shared memory
+    or the threads."""
     nv = nx + nu
-    if team < 2 or WARP % team:
+    if team < 1 or WARP % team:
         raise ValueError(f"VDE: a team of {team} lanes does not divide a warp")
     cols = -(-nv // team)
     threads = row_warps * WARP

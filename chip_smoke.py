@@ -35,12 +35,14 @@ Phases, each of which must pass:
 4a. c4, the Pacejka sweep (``fleet.make_pacejka``): kernel phases VDE and
    RK4 with the ``PacejkaDyn`` functor at B=16384, N=30 (held to their
    plain versions at 2e-5 on p drawn by ``p_of`` and on the same draw at
-   mu = 0.6, warm and cold, registers and spills), then the fleet at
+   mu = 0.6, warm and cold, registers and spills, the team geometry its
+   traits give: a team of 1, the thread per row), then the fleet at
    B=4096, 45 warm-up and 10 timed ticks, its launches per tick, the c4
    gates and RTI-vs-converged u0;
 4b. c3, the GP bicycle (``fleet.make_gp_bicycle``): the same kernel phases
-   with the ``GPBicycleDyn`` functor on the bench's 32-point ensemble and
-   its 8-point twin, then the fleet at B=256, 4096 and 16384, 5 warm-up
+   with the ``GPBicycleDyn`` functor (a team of 1 likewise) on the bench's
+   32-point ensemble and its 8-point twin, then the fleet at B=256, 4096
+   and 16384, 5 warm-up
    and 20 timed ticks, its launches per tick and the c3 gates;
 5. the c5 quadrotor (nx=13, nu=4, N=10, p_dim=0): kernel phase VDE quad
    (B=16384, held to ``vde_plain`` at 3e-5, with registers and spills),

@@ -208,13 +208,15 @@ def test_c3_ticks_match_bench():
 
 
 def test_gp_bicycle_functor_params():
-    """The GP bicycle names its functor and C entries, and its struct has
-    the layout of ``GPBicycleParamsC`` in ``csrc/vde_gp_bicycle.cu``: the
-    bicycle's scalars, then n, then the table at the source's capacity."""
+    """The GP bicycle names its functor and C entries (a team functor's),
+    and its struct has the layout of ``GPBicycleParamsC`` in
+    ``csrc/vde_gp_bicycle.cu``: the bicycle's scalars, then n, then the
+    table at the source's capacity."""
     csrc = Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
     src = "\n".join(p.read_text() for p in sorted(csrc.glob("vde*")))
-    assert re.search(r"\bVDE_ENTRIES\(gp_bicycle, GPBicycleDyn, "
+    assert re.search(r"\bVDE_TEAM_ENTRIES\(gp_bicycle, GPBicycleDyn, "
                      r"GPBicycleParamsC\)", src)
+    assert tgb.GPBicycleDynamics.cuda_team
     cap = re.search(r"constexpr int GP_POINTS = (\d+), GP_DIMS = (\d+), "
                     r"GP_FEATS = (\d+);", src)
     assert tuple(int(v) for v in cap.groups()) == (

@@ -472,7 +472,7 @@ def test_quad_kernels_repeat_their_bits(cuda, B):
 
 
 @pytest.mark.parametrize("kind", ["quad", "gp_quad", "dual", "dual_drag", "select",
-                                  "drag", "routed"])
+                                  "drag", "routed", "pacejka", "gp_bicycle"])
 def test_team_sweep_takes_only_its_geometry(cuda, kind):
     """The team functors' C entry launches the geometry ``vde_geometry``
     computes from the traits it was built with (and, for the cluster-table
@@ -480,34 +480,40 @@ def test_team_sweep_takes_only_its_geometry(cuda, kind):
     scenarios' p rows) and refuses any other (a grid, a block, a tile, a
     table or p rows other than the kernel's); the kernel's
     registers stay under the launch bounds' cap and MIN_BLOCKS blocks fit
-    an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``). The c4
+    Pacejka and the c3 GP bicycle at nx=7, nu=2, N=30."""
     from ad_mpc_tpu_torch.experiments.routed_fleet import body_velocities
     from ad_mpc_tpu_torch.models.gp_quad import GPQuadDualDynamics
     from ad_mpc_tpu_torch.testing import dual_gp_ps
 
-    B, N = RAGGED_B, 10
-    xs, us, ps = _quad_traj(B, N, cuda)
-    two = quad_fleet.make_quad_gp_ensemble(n=16, clusters=2)
-    dyn = {"quad": QUAD, "gp_quad": _gp_quad(False), "dual": _dual("two_clusters"),
-           "dual_drag": GPQuadDualDynamics(two, rdrv_d=quad_fleet.fitted_rdrv_d()),
-           "select": _select("two_clusters"), "drag": _drag(),
-           "routed": _routed_quad("two_clusters")[0]}[kind]
+    B, N, nx, nu, dt = RAGGED_B, 10, 13, 4, 0.1
+    if kind in ("pacejka", "gp_bicycle"):
+        N, nx, nu, dt = 30, 7, 2, 0.05
+        inputs = pacejka_inputs if kind == "pacejka" else gp_bicycle_inputs
+        dyn, (xs, us, ps) = inputs(B, N, cuda)
+    else:
+        xs, us, ps = _quad_traj(B, N, cuda)
+        two = quad_fleet.make_quad_gp_ensemble(n=16, clusters=2)
+        dyn = {"quad": QUAD, "gp_quad": _gp_quad(False), "dual": _dual("two_clusters"),
+               "dual_drag": GPQuadDualDynamics(two, rdrv_d=quad_fleet.fitted_rdrv_d()),
+               "select": _select("two_clusters"), "drag": _drag(),
+               "routed": _routed_quad("two_clusters")[0]}[kind]
     if kind.startswith("dual"):
         ps = torch.as_tensor(dual_gp_ps(np.random.default_rng(1), B, two, 3), device=cuda)
     if kind == "routed":
         ps = _routed_quad("two_clusters")[2](body_velocities(xs[:, 0]))
-    vde = make_vde(dyn, 0.1, N, 13, 4, ps.shape[1], device=cuda)
+    vde = make_vde(dyn, dt, N, nx, nu, ps.shape[1], device=cuda)
     geo, traits = vde.geometry(B), vde.team_traits()
     assert traits["registers"] <= geo.max_registers
     assert vde.occupancy(B) >= traits["min_blocks"]
-    out = [torch.empty(s, device=cuda) for s in ((B, N, 13, 13), (B, N, 13, 4), (B, N, 13))]
+    out = [torch.empty(s, device=cuda) for s in ((B, N, nx, nx), (B, N, nx, nu), (B, N, nx))]
     fn, _ = _entry(dyn)
     stream = torch.cuda.current_stream(cuda).cuda_stream
 
     def launch(grid, threads, nbytes):
         return fn(xs.data_ptr(), us.data_ptr(), ps.data_ptr(),
-                  *(o.data_ptr() for o in out), B, N, 13, 4, ps.shape[1], grid, threads,
-                  nbytes, 0.1, 1, dyn.cuda_params(), stream)
+                  *(o.data_ptr() for o in out), B, N, nx, nu, ps.shape[1], grid, threads,
+                  nbytes, dt, 1, dyn.cuda_params(), stream)
 
     assert (geo.table_bytes > 0) == kind.startswith(("dual", "select"))
     assert (geo.rows_bytes > 0) == (kind == "routed")
@@ -626,10 +632,12 @@ def _bicycle_kernels_match_plain(dyn, xs, us, ps):
 
 
 @pytest.mark.parametrize("low_mu", [False, True])
-@pytest.mark.parametrize("B", [1, RAGGED_B])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 16384])
 def test_pacejka_kernels_match_plain(cuda, B, low_mu):
-    """c4's functor on p drawn by ``p_of``, and at the sweep's lowest
-    friction; B*N = 30 and 1110 rows (a partial and a ragged last warp)."""
+    """c4's functor (through the team entry, a team of 1 as committed) on p
+    drawn by ``p_of``, and at the sweep's lowest friction; B*N = 30 and
+    1110 rows (a partial and a ragged last block) and the bench's
+    B=16384."""
     dyn, (xs, us, ps) = pacejka_inputs(B, 30, cuda)
     if low_mu:
         ps[:, 0] = 0.6
@@ -637,12 +645,38 @@ def test_pacejka_kernels_match_plain(cuda, B, low_mu):
 
 
 @pytest.mark.parametrize("n", [32, 8])
-@pytest.mark.parametrize("B", [1, RAGGED_B])
+@pytest.mark.parametrize("B", [1, RAGGED_B, 16384])
 def test_gp_bicycle_kernels_match_plain(cuda, B, n):
-    """c3's functor with the bench's 32-point ensemble and its 8-point
-    twin."""
+    """c3's functor (through the team entry, a team of 1 as committed) with
+    the bench's 32-point ensemble and its 8-point twin, at a partial, a
+    ragged and the bench's batch."""
     dyn, (xs, us, ps) = gp_bicycle_inputs(B, 30, cuda, n)
     _bicycle_kernels_match_plain(dyn, xs, us, ps)
+
+
+@pytest.mark.parametrize("team", [2, 4])
+@pytest.mark.parametrize("B", [RAGGED_B, 16384])
+@pytest.mark.parametrize("kind", ["pacejka", "gp_bicycle"])
+def test_bicycle_team_variants_match_plain(cuda, kind, B, team):
+    """The measured team variants of the c4 and c3 sweeps
+    (``experiments/bicycle_kernels.py``: 2 lanes of 5 columns, the GP
+    bicycle's two means on two lanes at once; 4 lanes of 3) against the
+    plain version at 2e-5, at a ragged last block and at B=16384; the GP
+    bicycle's team gives the thread per row's bits."""
+    from ad_mpc_tpu_torch.experiments.bicycle_kernels import team_defines
+
+    inputs, model = {"pacejka": (pacejka_inputs, "PACEJKA"),
+                     "gp_bicycle": (gp_bicycle_inputs, "GP_BICYCLE")}[kind]
+    dyn, (xs, us, ps) = inputs(B, 30, cuda)
+    vde = make_vde(dyn, 0.05, 30, 7, 2, ps.shape[1], device=cuda)
+    first = vde(xs, us, ps)
+    vde.defines = team_defines(team, 4, 3, 1, model)
+    assert vde.team_traits()["team"] == team
+    got = vde(xs, us, ps)
+    for g, w in zip(got, vde_plain(dyn, 0.05, 1, xs, us, ps)):
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=0)
+    if kind == "gp_bicycle":
+        assert all(torch.equal(g, f) for g, f in zip(got, first))
 
 
 @pytest.mark.parametrize("config", ["c3", "c4"])

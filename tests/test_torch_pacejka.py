@@ -210,12 +210,13 @@ def test_c4_ticks_match_bench():
 
 
 def test_pacejka_functor_params():
-    """The Pacejka names its functor and C entries and states its shape,
-    and the struct it passes by value has the fields of ``PacejkaParamsC``
-    in ``csrc/vde_bicycle.cu``, in that order."""
+    """The Pacejka names its functor and C entries (a team functor's) and
+    states its shape, and the struct it passes by value has the fields of
+    ``PacejkaParamsC`` in ``csrc/vde_bicycle.cu``, in that order."""
     csrc = Path(__file__).resolve().parents[1] / "ad_mpc_tpu_torch" / "csrc"
     src = "\n".join(p.read_text() for p in sorted(csrc.glob("vde*")))
-    assert re.search(r"\bVDE_ENTRIES\(pacejka, PacejkaDyn, PacejkaParamsC\)", src)
+    assert re.search(r"\bVDE_TEAM_ENTRIES\(pacejka, PacejkaDyn, PacejkaParamsC\)", src)
+    assert tp.PacejkaDynamics.cuda_team
     assert re.search(r"struct PacejkaDyn \{\s*static constexpr int NX = 7, NU = 2, "
                      r"NP = 5;", src)
     fields = re.search(r"struct PacejkaParamsC \{.*?float ([^;]+);", src, re.S)

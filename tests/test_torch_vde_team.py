@@ -1,7 +1,8 @@
 """The team path of the quad sweeps (``csrc/vde.cuh:vde_team``; ``QuadDyn``,
 QuadMPC's RDRv ``QuadDragDyn``, ``GPQuadDyn``, QuadMPC's cluster-table GPs
 ``GPQuadDualDyn``, ``GPQuadDualDragDyn`` and ``GPQuadSelectDyn``, and the
-routed ``GPQuadRoutedDyn``): its launch geometry, which the wrapper
+routed ``GPQuadRoutedDyn``) and of the c4 Pacejka's and c3 GP bicycle's
+(``PacejkaDyn``, ``GPBicycleDyn``): its launch geometry, which the wrapper
 computes in ``ops/cuda_vde.py:vde_geometry`` and the C entry takes or
 refuses, the cluster table or the scenarios' p rows that a block stages
 after its tile, and the split of a row's tangent columns across a team's
@@ -22,10 +23,14 @@ quad, at the 3e-5 of ``tests/test_pallas_vde.py``; so are the drag's
 split, against the Pallas sweep of the JAX package's ``quad_dynamics(
 rdrv_d=D)``, and the routed GP's, on a two-cluster 8-point ensemble
 against the JAX package's ``param_residual_dynamics(..., quad_frame=True)``
-linearized by XLA. The cluster table's padding and the staged p rows'
-layout are checked against the banks of shared memory that a warp's lanes
-read at once. The kernels themselves run on the card
-(``tests/test_torch_gpu.py``).
+linearized by XLA. The bicycles' 9 columns (nx=7, nu=2) are split and
+stored likewise for teams of 2, 4 and 8 lanes (``experiments/
+bicycle_kernels.py``), and each width's split of the Pacejka (its 5-entry
+p) and of the GP bicycle (a 6-point ensemble) is held to the JAX package's
+XLA linearization at the 2e-5 of ``tests/test_pallas_vde.py``. The cluster
+table's padding, the GP bicycle's table and the staged p rows' layout are
+checked against the banks of shared memory that a warp's lanes read at
+once. The kernels themselves run on the card (``tests/test_torch_gpu.py``).
 """
 
 import re
@@ -41,18 +46,23 @@ from ad_mpc_tpu.control.mpc import quad_spec as jax_quad_spec
 from ad_mpc_tpu.experiments import quad_fleet as jqf
 from ad_mpc_tpu.learned import ensemble as je
 from ad_mpc_tpu.learned import lane as jl
+from ad_mpc_tpu.models import pacejka as jp
 from ad_mpc_tpu.models import quadrotor as jq
+from ad_mpc_tpu.models.bicycle import BicycleParams, bicycle_dynamics
 from ad_mpc_tpu.ops.integrators import discretize, linearize, linearize_p
 from ad_mpc_tpu.ops.pallas_vde import make_vde as jax_make_vde
-from ad_mpc_tpu_torch import convert
+from ad_mpc_tpu_torch import convert, fleet
 from ad_mpc_tpu_torch.experiments import quad_fleet
+from ad_mpc_tpu_torch.experiments.bicycle_kernels import GP_BICYCLE_TEAMS, PACEJKA_TEAMS
 from ad_mpc_tpu_torch.experiments.quad_kernels import (
     DRAG_TEAMS, GP_QUAD_TEAMS, QUAD_TEAMS, ROUTED_TEAMS, TABLE_TEAMS)
+from ad_mpc_tpu_torch.models.gp_bicycle import GP_DIMS, GP_FEATS, GP_POINTS, gp_table_layout
 from ad_mpc_tpu_torch.models.gp_quad import (
     GP_DUAL_CLUSTERS, GP_DUAL_POINTS, GP_DUAL_TABLE_MAX, GP_QUAD_DIMS, GP_QUAD_FEATS,
     GP_QUAD_POINTS, GP_SELECT_TABLE_MAX, SMEM_BANKS, GPQuadDualDynamics, GPQuadDynamics,
     GPQuadSelectDynamics, gp_dual_layout)
 from ad_mpc_tpu_torch.models.gp_routed import GP_QUAD_ROUTED_POINTS
+from ad_mpc_tpu_torch.models.pacejka import PacejkaDynamics
 from ad_mpc_tpu_torch.models.quadrotor import QuadDragDynamics, QuadDynamics
 from ad_mpc_tpu_torch.ops._build import CSRC
 from ad_mpc_tpu_torch.ops.cuda_lq import (
@@ -61,7 +71,8 @@ from ad_mpc_tpu_torch.ops.cuda_vde import (
     REGS_SM, THREADS_SM, WARP, block_scenarios, lane_work, make_vde, rows_staged,
     vde_geometry)
 from ad_mpc_tpu_torch.ops.integrators import discrete_step
-from ad_mpc_tpu_torch.testing import dual_gp_ps, quad_traj, routed_quad_inputs
+from ad_mpc_tpu_torch.testing import (
+    dual_gp_ps, quad_traj, random_traj, routed_quad_inputs)
 from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
 
 NX, NU, DT = 13, 4, 0.1
@@ -70,25 +81,35 @@ NV = NX + NU
 # and y_mean (csrc/vde_gp_quad.cu).
 GP_QUAD_STATIC = 4 * GP_QUAD_DIMS * (GP_QUAD_POINTS * (GP_QUAD_FEATS + 1) + 2
                                      + GP_QUAD_FEATS + 1)
+# GPBicycleDyn's static shared table (csrc/vde_gp_bicycle.cu: gp_table).
+GP_BICYCLE_STATIC = 4 * gp_table_layout()["floats"]
 # Floats of a routed GP quad's p row at its capacity of points
 # (csrc/vde_gp_quad_routed.cu: gp_quad_routed_floats, base_pd 0).
 ROUTED_P_MAX = GP_QUAD_DIMS * (GP_QUAD_ROUTED_POINTS * (GP_QUAD_FEATS + 1) + GP_QUAD_FEATS + 2)
 # Each team functor's sweep: (its source, its traits' macro prefix, the
 # sweep's variants, its static shared bytes, the bytes of its largest table
 # in dynamic shared memory, the floats of its largest p row that a block
-# stages). The dual-state GP's traits lie in vde_gp_quad_dual.cuh, which
-# both of its sources (with and without the drag) include; the drag's in
-# vde_quad.cu beside the quad's.
-SOURCES = {"vde_gp_quad": ("vde_gp_quad", "GP_QUAD", GP_QUAD_TEAMS, GP_QUAD_STATIC, 0, 0),
+# stages, its (nx, nu, N)). The dual-state GP's traits lie in
+# vde_gp_quad_dual.cuh, which both of its sources (with and without the
+# drag) include; the drag's in vde_quad.cu beside the quad's; the
+# Pacejka's in vde_bicycle.cu.
+QUAD, BICYCLE = (NX, NU, 10), (7, 2, 30)
+SOURCES = {"vde_gp_quad": ("vde_gp_quad", "GP_QUAD", GP_QUAD_TEAMS, GP_QUAD_STATIC, 0, 0,
+                           QUAD),
            "vde_gp_quad_dual": ("vde_gp_quad_dual", "GP_QUAD_DUAL", TABLE_TEAMS, 0,
-                                4 * GP_DUAL_TABLE_MAX, 0),
+                                4 * GP_DUAL_TABLE_MAX, 0, QUAD),
            "vde_gp_quad_select": ("vde_gp_quad_select", "GP_QUAD_SELECT", TABLE_TEAMS, 0,
-                                  4 * GP_SELECT_TABLE_MAX, 0),
-           "vde_quad": ("vde_quad", "QUAD", QUAD_TEAMS, 0, 0, 0),
+                                  4 * GP_SELECT_TABLE_MAX, 0, QUAD),
+           "vde_quad": ("vde_quad", "QUAD", QUAD_TEAMS, 0, 0, 0, QUAD),
            "vde_gp_quad_routed": ("vde_gp_quad_routed", "GP_QUAD_ROUTED", ROUTED_TEAMS,
-                                  0, 0, ROUTED_P_MAX),
-           "vde_quad_drag": ("vde_quad", "QUAD_DRAG", DRAG_TEAMS, 0, 0, 0)}
-TEAMS = sorted({v[0] for _, _, vs, _, _, _ in SOURCES.values() for v in vs})
+                                  0, 0, ROUTED_P_MAX, QUAD),
+           "vde_quad_drag": ("vde_quad", "QUAD_DRAG", DRAG_TEAMS, 0, 0, 0, QUAD),
+           "vde_gp_bicycle": ("vde_gp_bicycle", "GP_BICYCLE", GP_BICYCLE_TEAMS,
+                              GP_BICYCLE_STATIC, 0, 0, BICYCLE),
+           "vde_pacejka": ("vde_bicycle", "PACEJKA", PACEJKA_TEAMS, 0, 0, 0, BICYCLE)}
+# The quads' team widths, and the bicycles'.
+TEAMS = sorted({v[0] for s in SOURCES.values() if s[6] == QUAD for v in s[2]})
+BICYCLE_TEAMS = sorted({v[0] for s in SOURCES.values() if s[6] == BICYCLE for v in s[2]})
 
 
 def team_defaults(source):
@@ -115,13 +136,13 @@ def resident_blocks(registers, threads, block_bytes):
                SMEM_SM // (block_bytes + SMEM_BLOCK_RESERVED))
 
 
-def _coverage(geo, rows):
+def _coverage(geo, rows, nv=NV):
     """{(row, column): times stored}, and the rows whose c is stored, over
-    every thread of every block of ``geo``."""
+    every thread of every block of ``geo`` (``nv`` columns a row)."""
     stored, c_rows = {}, []
     for block in range(geo.grid):
         for thread in range(geo.threads):
-            row, cols, writes_c, stores = lane_work(geo, rows, NV, block, thread)
+            row, cols, writes_c, stores = lane_work(geo, rows, nv, block, thread)
             if not stores:
                 continue
             for j in cols:
@@ -151,32 +172,36 @@ def test_team_defaults_are_the_sweeps_first_variant(source):
     """The source's #defines (and vde.cuh's store) are the first
     (committed) variant of the sweep, so that its bits column compares
     every variant with them; a GP
-    quad's team has a lane for each output dim."""
-    path, prefix, variants, _, _, _ = SOURCES[source]
+    quad's team (and the GP bicycle's, beyond a team of one) has a lane
+    for each output dim."""
+    path, prefix, variants, _, _, _, _ = SOURCES[source]
     d = team_defaults(path)[prefix]
     bulk = re.search(r"#define VDE_BULK_STORE (\d)", (CSRC / "vde.cuh").read_text())
     assert (d["ROW_TEAM"], d["ROW_WARPS"], d["MIN_BLOCKS"], int(bulk.group(1))) == \
         variants[0]
     if prefix.startswith("GP_QUAD"):
         assert all(v[0] >= GP_QUAD_DIMS for v in variants)
+    if prefix == "GP_BICYCLE":  # or a thread per row, which sums both itself
+        assert all(v[0] == 1 or v[0] >= GP_DIMS for v in variants)
 
 
 @pytest.mark.parametrize("source,variant", [
-    (s, v) for s, (_, _, vs, _, _, _) in SOURCES.items() for v in vs])
+    (s, v) for s, (_, _, vs, _, _, _, _) in SOURCES.items() for v in vs])
 def test_team_variants_fit_the_card(source, variant):
-    """Each variant's block (its tile and the GP quad's static table, or
-    the largest cluster table after the tile, or the routed GP's largest p
-    rows of a block's scenarios) fits a block's 232,448 bytes;
+    """Each variant's block (its tile and the GP quad's or the GP
+    bicycle's static table, or the largest cluster table after the tile,
+    or the routed GP's largest p rows of a block's scenarios) fits a
+    block's 232,448 bytes;
     its launch bounds agree with its block: the block is ROW_WARPS warps,
     MIN_BLOCKS such blocks fit an SM's threads, shared memory and registers
     at the capped count, and the cap leaves at least 64 registers."""
-    _, _, _, static, table, row_floats = SOURCES[source]
+    _, _, _, static, table, row_floats, (nx, nu, N) = SOURCES[source]
     team, rw, min_blocks, _ = variant
-    geo = vde_geometry(16384, 10, NX, NU, team, rw, min_blocks, static, table, row_floats)
-    rows = 4 * row_floats * block_scenarios(geo.rows_per_block, 10, 16384)
+    geo = vde_geometry(16384, N, nx, nu, team, rw, min_blocks, static, table, row_floats)
+    rows = 4 * row_floats * block_scenarios(geo.rows_per_block, N, 16384)
     assert geo.block_bytes == geo.shared_bytes + static <= SMEM_BLOCK_MAX
     assert geo.threads == 32 * rw and geo.rows_per_block * team == geo.threads
-    assert geo.shared_bytes == 4 * geo.rows_per_block * NX * (NV + 1) + table + rows
+    assert geo.shared_bytes == 4 * geo.rows_per_block * nx * (nx + nu + 1) + table + rows
     assert geo.table_bytes == table and geo.rows_bytes == rows
     assert 64 <= geo.max_registers <= 255
     assert resident_blocks(geo.max_registers, geo.threads, geo.block_bytes) >= min_blocks
@@ -185,8 +210,8 @@ def test_team_variants_fit_the_card(source, variant):
 def test_team_geometry_refuses_what_the_kernel_cannot_take():
     """A team that does not divide a warp, a block whose rows do not start
     on 16 bytes in c (13 floats a row), and launch bounds that no SM
-    holds."""
-    for team in (1, 3, 6):
+    holds. (A team of 1, the thread-per-row path's launch, is taken.)"""
+    for team in (0, 3, 6):
         with pytest.raises(ValueError):
             vde_geometry(37, 10, NX, NU, team, 4)
     with pytest.raises(ValueError):
@@ -206,37 +231,37 @@ def test_resident_blocks_reckons_the_thread_per_row_sweeps():
     assert resident_blocks(255, 64, 2 * (29952 + 6144) + 3072) == 3
 
 
-def _team_sweep(dyn, geo, xs, us, ps):
+def _team_sweep(dyn, geo, xs, us, ps, dt=DT):
     """The sweep as the team path computes and stores it, in plain PyTorch:
     each lane's columns by one forward-mode JVP of the RK4 map per column
     at its row, c by lane 0, placed by :func:`lane_work`; every entry
     written once."""
-    B, N = us.shape[:2]
-    rows = B * N
-    x, u = xs[:, :-1].reshape(rows, NX), us.reshape(rows, NU)
+    (B, N, nu), nx = us.shape, xs.shape[-1]
+    rows, nv = B * N, nx + nu
+    x, u = xs[:, :-1].reshape(rows, nx), us.reshape(rows, nu)
     p = ps.repeat_interleave(N, 0)
-    step = lambda a, b: discrete_step(dyn, DT, 1, a, b, p)
-    seeds = torch.eye(NV, dtype=xs.dtype)
-    cols = [torch.func.jvp(step, (x, u), (seeds[j, :NX].expand(rows, NX),
-                                          seeds[j, NX:].expand(rows, NU)))[1]
-            for j in range(NV)]
-    c_all = step(x, u) - xs[:, 1:].reshape(rows, NX)
-    A = torch.full((rows, NX, NX), float("nan"), dtype=xs.dtype)
-    Bm = torch.full((rows, NX, NU), float("nan"), dtype=xs.dtype)
-    c = torch.full((rows, NX), float("nan"), dtype=xs.dtype)
+    step = lambda a, b: discrete_step(dyn, dt, 1, a, b, p)
+    seeds = torch.eye(nv, dtype=xs.dtype)
+    cols = [torch.func.jvp(step, (x, u), (seeds[j, :nx].expand(rows, nx),
+                                          seeds[j, nx:].expand(rows, nu)))[1]
+            for j in range(nv)]
+    c_all = step(x, u) - xs[:, 1:].reshape(rows, nx)
+    A = torch.full((rows, nx, nx), float("nan"), dtype=xs.dtype)
+    Bm = torch.full((rows, nx, nu), float("nan"), dtype=xs.dtype)
+    c = torch.full((rows, nx), float("nan"), dtype=xs.dtype)
     for block in range(geo.grid):
         for thread in range(geo.threads):
-            row, lane_cols, writes_c, stores = lane_work(geo, rows, NV, block, thread)
+            row, lane_cols, writes_c, stores = lane_work(geo, rows, nv, block, thread)
             if not stores:
                 continue
             for j in lane_cols:
-                if j < NX:
+                if j < nx:
                     A[row, :, j] = cols[j][row]
                 else:
-                    Bm[row, :, j - NX] = cols[j][row]
+                    Bm[row, :, j - nx] = cols[j][row]
             if writes_c:
                 c[row] = c_all[row]
-    return A.reshape(B, N, NX, NX), Bm.reshape(B, N, NX, NU), c.reshape(B, N, NX)
+    return A.reshape(B, N, nx, nx), Bm.reshape(B, N, nx, nu), c.reshape(B, N, nx)
 
 
 def _jax_quad(x, u, p):
@@ -580,3 +605,110 @@ def test_staged_p_rows_reads_lie_in_distinct_banks(team, n, N):
         geo = vde_geometry(B, N, NX, NU, team, 4, row_floats=pd)
         for where, words in _staged_reads(geo, B, N, pd, n):
             assert len({w % SMEM_BANKS for w in words}) == len(words), (where, words)
+
+
+# ------------------------------------------------- the bicycles' teams
+
+BNX, BNU, BDT = 7, 2, 0.05
+BNV = BNX + BNU
+
+
+@pytest.mark.parametrize("team", BICYCLE_TEAMS)
+@pytest.mark.parametrize("B,N", [(1, 30), (37, 30), (5, 3)])
+def test_bicycle_team_geometry_stores_each_row_and_column_once(team, B, N):
+    """At nx=7, nu=2 (the Pacejka's and the GP bicycle's 9 columns) and
+    ragged batches: each of the B*N rows has each of its 9 columns and its
+    c stored exactly once, and the last block's spare threads store
+    nothing; a lane's columns past the 9th (2 lanes of 5, 4 of 3, 8 of 2)
+    are computed and not stored. A team of 1 is the thread-per-row path's
+    launch: a thread per row with every column, a block of 128 rows."""
+    geo = vde_geometry(B, N, BNX, BNU, team, row_warps=4)
+    rows = B * N
+    stored, c_rows = _coverage(geo, rows, BNV)
+    assert stored == {(r, j): 1 for r in range(rows) for j in range(BNV)}
+    assert sorted(c_rows) == list(range(rows))
+    assert geo.grid * geo.rows_per_block >= rows > (geo.grid - 1) * geo.rows_per_block
+    assert geo.cols == -(-BNV // team)
+    assert geo.shared_bytes == 4 * geo.rows_per_block * BNX * (BNV + 1)
+    if team == 1:
+        assert (geo.cols, geo.rows_per_block, geo.threads) == (BNV, 128, 128)
+
+
+def test_gp_bicycle_table_reads_lie_in_distinct_banks():
+    """Lanes 0 and 1 of every team of a warp read point j, feature k of
+    output dims 0 and 1 at once (X, then a, then 1/l's k and y_mean): in
+    ``gp_table_layout`` the two reads lie in distinct banks, whereas
+    unpadded (128 and 32 floats apart) they would share one; every block of
+    X and a, and 1/l, starts on 16 bytes (the point loop's vector loads);
+    the layout is the source's."""
+    lay = gp_table_layout()
+    for j in range(GP_POINTS):
+        for k in range(GP_FEATS):
+            assert len({(lay["X"](d) + GP_FEATS * j + k) % SMEM_BANKS
+                        for d in range(GP_DIMS)}) == GP_DIMS
+        assert len({(lay["a"](d) + j) % SMEM_BANKS for d in range(GP_DIMS)}) == GP_DIMS
+    for k in range(GP_FEATS):
+        assert len({(lay["inv_l"] + GP_FEATS * d + k) % SMEM_BANKS
+                    for d in range(GP_DIMS)}) == GP_DIMS
+    assert len({(lay["y_mean"] + d) % SMEM_BANKS for d in range(GP_DIMS)}) == GP_DIMS
+    assert (GP_POINTS * GP_FEATS) % SMEM_BANKS == GP_POINTS % SMEM_BANKS == 0
+    assert all(lay["X"](d) % 4 == lay["a"](d) % 4 == 0 for d in range(GP_DIMS))
+    assert lay["inv_l"] % 4 == 0
+    src = (CSRC / "vde_gp_bicycle.cu").read_text()
+    for line in ("constexpr int GP_PAD = 4;",
+                 "constexpr int GP_X_DIM = GP_POINTS * GP_FEATS + GP_PAD;",
+                 "constexpr int GP_A_DIM = GP_POINTS + GP_PAD;",
+                 "__shared__ __align__(16) float gp_table[GP_TABLE];",
+                 "constexpr int GP_A = GP_X + GP_DIMS * GP_X_DIM;",
+                 "constexpr int GP_INV_L = GP_A + GP_DIMS * GP_A_DIM;",
+                 "constexpr int GP_Y_MEAN = GP_INV_L + GP_DIMS * GP_FEATS;",
+                 "constexpr int GP_TABLE = GP_Y_MEAN + GP_DIMS;"):
+        assert line in src
+
+
+def _bicycle_split(dyn, f_j, team, xs, us, ps):
+    """Each team width's split (:func:`_team_sweep`) of ``dyn``'s sweep
+    against the JAX package's ``f_j`` discretized and linearized by XLA per
+    scenario, and against the port's plain sweep, each at 2e-5."""
+    B, N = us.shape[:2]
+    F = lambda p: discretize(lambda xx, uu: f_j(xx, uu, p), BDT, 1)
+    want = jax.vmap(lambda a, b, p: linearize(F(p), a, b))(
+        *(jnp.asarray(a) for a in (xs, us, ps)))
+    args = [torch.as_tensor(a) for a in (xs, us, ps)]
+    got = _team_sweep(dyn, vde_geometry(B, N, BNX, BNU, team, row_warps=4), *args, dt=BDT)
+    plain = make_vde(dyn, BDT, N, BNX, BNU, ps.shape[1], device="cpu")(*args)
+    for g, w, q in zip(got, want, plain):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5, rtol=0)
+        torch.testing.assert_close(g, q, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("team", BICYCLE_TEAMS)
+def test_team_split_of_the_pacejka_sweep_matches_jax(team):
+    """The c4 Pacejka with its 5-entry p as the fleet draws it
+    (``fleet.pacejka_draw``), one scenario at the sweep's lowest friction:
+    the team's split against the JAX package's ``pacejka_dynamics_p``."""
+    B, N = 3, 5
+    xs, us = random_traj(np.random.default_rng(25), B, N, BNX, BNU)
+    _, ps = fleet.pacejka_draw(B)
+    ps = np.array(ps, np.float32)
+    ps[1, 0] = 0.6
+    params = jp.PacejkaParams()
+    _bicycle_split(PacejkaDynamics(), lambda x, u, p: jp.pacejka_dynamics_p(x, u, p, params),
+                   team, xs, us, ps)
+
+
+@pytest.mark.parametrize("team", BICYCLE_TEAMS)
+def test_team_split_of_the_gp_bicycle_sweep_matches_jax(team):
+    """The GP bicycle on the 6-point twin of the bench's ensemble
+    (``fleet.make_gp_bicycle(6)``): the team's split against the JAX
+    package's bicycle plus ``lane_residual_terms`` of the same ensemble."""
+    dyn = fleet.make_gp_bicycle(6)
+    ens_j, params = _jax_ensemble(dyn.ensemble), BicycleParams()
+
+    def f_j(x, u, p):
+        return jl.add_rows(bicycle_dynamics(x, u, params, switch=p[0]),
+                           jl.lane_residual_terms(ens_j, x))
+
+    B, N = 3, 5
+    xs, us = random_traj(np.random.default_rng(26), B, N, BNX, BNU)
+    _bicycle_split(dyn, f_j, team, xs, us, np.ones((B, 1), np.float32))
