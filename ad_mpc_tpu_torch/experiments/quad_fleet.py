@@ -36,6 +36,7 @@ from ad_mpc_tpu_torch.models.quadrotor import (
     normalize_quat_state,
 )
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver, SolverState
+from ad_mpc_tpu_torch.utils.metrics import span
 
 # Gauss-Newton iterations per deployed tick (``bench.py:471``): one RTI
 # iteration leaves the attitude linearization residue at dt=0.1 near the
@@ -182,19 +183,21 @@ def fleet_loop(solver, spec, params, p_of):
                               device=dev)
 
     def tick(carry):
-        x0, theta, radius, speed, alt, states = carry
-        B = x0.shape[0]
-        omega = speed / radius
-        yref_x = circle_reference(theta, radius, omega, alt, N, dt)
-        yref_u = u_hover.expand(B, N, -1)
-        p = p_of(x0)
-        res = solver.solve(x0, yref_x, yref_u, p, states)
-        with torch.no_grad():
-            x_next = normalize_quat_state(solver.F(x0, res.us[:, 0], p))
-        states = solver.shift(res.state)
-        lat = torch.linalg.norm(x_next[:, :3] - yref_x[:, 1, :3], dim=-1)
-        return (x_next, theta + omega * dt, radius, speed, alt, states), (
-            res.kkt_residual, lat.mean(), p)
+        with span("fleet.tick"):
+            x0, theta, radius, speed, alt, states = carry
+            B = x0.shape[0]
+            with span("fleet.reference"):
+                omega = speed / radius
+                yref_x = circle_reference(theta, radius, omega, alt, N, dt)
+                yref_u = u_hover.expand(B, N, -1)
+                p = p_of(x0)
+            res = solver.solve(x0, yref_x, yref_u, p, states)
+            with span("fleet.plant"), torch.no_grad():
+                x_next = normalize_quat_state(solver.F(x0, res.us[:, 0], p))
+            states = solver.shift(res.state)
+            lat = torch.linalg.norm(x_next[:, :3] - yref_x[:, 1, :3], dim=-1)
+            return (x_next, theta + omega * dt, radius, speed, alt, states), (
+                res.kkt_residual, lat.mean(), p)
 
     def init(batch, seed=0):
         radius, speed, alt = (torch.as_tensor(a, device=dev)

@@ -27,6 +27,7 @@ from ad_mpc_tpu_torch.models.bicycle import BicycleDynamics
 from ad_mpc_tpu_torch.models.gp_bicycle import GPBicycleDynamics
 from ad_mpc_tpu_torch.models.pacejka import PacejkaDynamics
 from ad_mpc_tpu_torch.ocp.solver import BatchedSQPSolver, SolverState
+from ad_mpc_tpu_torch.utils.metrics import span
 
 # Quality gates by config (``bench.py:473-478, 493-496``): they describe
 # the solution, not the chip, and hold for the port unchanged.
@@ -210,15 +211,17 @@ def build_fleet(dynamics, p_of_scenario, n_nodes=30, qp_iters=12,
     N, dt = spec.n_nodes, spec.dt
 
     def tick(carry):
-        _, _, v, kappa, _, _ = carry
-        s0, (x0, yref_x, yref_u, p, states) = tick_inputs(carry, N, dt)
-        res = solver.solve(x0, yref_x, yref_u, p, states)
-        with torch.no_grad():
-            x_next = solver.F(x0, res.us[:, 0], p)
-        states = solver.shift(res.state)
-        lat = torch.sqrt((x_next[:, 0] - yref_x[:, 1, 0]) ** 2
-                         + (x_next[:, 1] - yref_x[:, 1, 1]) ** 2)
-        return (x_next, s0, v, kappa, p, states), (res.kkt_residual, lat.mean())
+        with span("fleet.tick"):
+            _, _, v, kappa, _, _ = carry
+            with span("fleet.reference"):
+                s0, (x0, yref_x, yref_u, p, states) = tick_inputs(carry, N, dt)
+            res = solver.solve(x0, yref_x, yref_u, p, states)
+            with span("fleet.plant"), torch.no_grad():
+                x_next = solver.F(x0, res.us[:, 0], p)
+            states = solver.shift(res.state)
+            lat = torch.sqrt((x_next[:, 0] - yref_x[:, 1, 0]) ** 2
+                             + (x_next[:, 1] - yref_x[:, 1, 1]) ** 2)
+            return (x_next, s0, v, kappa, p, states), (res.kkt_residual, lat.mean())
 
     def init(batch, seed=0):
         return init_carry(batch, N, p_of_scenario, solver.Q.device, v_cap, seed)

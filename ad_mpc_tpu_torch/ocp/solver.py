@@ -40,6 +40,7 @@ from ad_mpc_tpu_torch.ops.cuda_lq import make_lq_solver
 from ad_mpc_tpu_torch.ops.cuda_vde import make_rk4, make_vde
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
 from ad_mpc_tpu_torch.utils.math import yaw_wrap_reference
+from ad_mpc_tpu_torch.utils.metrics import span
 
 BACKENDS = ("auto", "cuda", "plain")
 
@@ -148,9 +149,10 @@ class _GaussNewton(nn.Module):
 
     def _sweep(self, xs, us, ps):
         """(A, Bm, c) of the batch xs (B,N+1,nx), us (B,N,nu), ps (B,p_dim)."""
-        if self.backend == "cuda":
-            return self.vde(xs, us, ps)
-        return self.vde.plain(xs, us, ps)
+        with span("solver.sweep"):
+            if self.backend == "cuda":
+                return self.vde(xs, us, ps)
+            return self.vde.plain(xs, us, ps)
 
     def _defect(self, xs, us, ps):
         """F(x_k, u_k) - x_{k+1} of the batch, (B, N, nx)."""
@@ -161,13 +163,14 @@ class _GaussNewton(nn.Module):
     def _qp_step(self, xs, us, A, Bm, c, yref_x, yref_u):
         """The Gauss-Newton step (dx, du, alpha) of the batch: the LQ
         subproblem's gradients at the iterate, then the QP."""
-        q_lin = torch.einsum("ij,bkj->bki", self.Q, xs[:, :-1] - yref_x[:, :-1])
-        q_term = torch.einsum("ij,bj->bi", self.QN, xs[:, -1] - yref_x[:, -1])
-        q = torch.cat([q_lin, q_term[:, None]], dim=1).contiguous()
-        r = torch.einsum("ij,bkj->bki", self.R, us - yref_u).contiguous()
-        if self.backend == "cuda":
-            return self.qp(A, Bm, c, q, r, us, xs)
-        return self.qp.plain(A, Bm, c, q, r, us, xs, lqr_fn=self.lqr_fn)
+        with span("solver.qp"):
+            q_lin = torch.einsum("ij,bkj->bki", self.Q, xs[:, :-1] - yref_x[:, :-1])
+            q_term = torch.einsum("ij,bj->bi", self.QN, xs[:, -1] - yref_x[:, -1])
+            q = torch.cat([q_lin, q_term[:, None]], dim=1).contiguous()
+            r = torch.einsum("ij,bkj->bki", self.R, us - yref_u).contiguous()
+            if self.backend == "cuda":
+                return self.qp(A, Bm, c, q, r, us, xs)
+            return self.qp.plain(A, Bm, c, q, r, us, xs, lqr_fn=self.lqr_fn)
 
 
 class BatchedSQPSolver(_GaussNewton):
@@ -192,37 +195,40 @@ class BatchedSQPSolver(_GaussNewton):
     def solve(self, x0, yref_x, yref_u, params, state: SolverState) -> SolveResult:
         """Batched solve. x0 (B,nx), yref_x (B,N+1,nx), yref_u (B,N,nu),
         params (B,p_dim), state batched likewise."""
-        spec = self.spec
-        self._check_tf32(x0)
-        f32 = torch.float32
-        x0, yref_x, yref_u = x0.to(f32), yref_x.to(f32), yref_u.to(f32)
-        params = params.to(f32).contiguous()
-        xs, us = state.xs.to(f32), state.us.to(f32)
-        if spec.yaw_wrap_idx is not None:
-            i = spec.yaw_wrap_idx
-            yref_x = yref_x.clone()
-            yref_x[:, :, i] = yaw_wrap_reference(yref_x[:, :, i], x0[:, i, None])
+        with span("solver.solve"):
+            spec = self.spec
+            self._check_tf32(x0)
+            f32 = torch.float32
+            x0, yref_x, yref_u = x0.to(f32), yref_x.to(f32), yref_u.to(f32)
+            params = params.to(f32).contiguous()
+            xs, us = state.xs.to(f32), state.us.to(f32)
+            if spec.yaw_wrap_idx is not None:
+                i = spec.yaw_wrap_idx
+                yref_x = yref_x.clone()
+                yref_x[:, :, i] = yaw_wrap_reference(yref_x[:, :, i], x0[:, i, None])
 
-        alpha = None
-        for _ in range(spec.sqp_iters):
-            xs = xs.clone()
-            xs[:, 0] = x0
-            us = us.contiguous()
-            A, Bm, c = self._sweep(xs, us, params)
-            dx, du, alpha = self._qp_step(xs, us, A, Bm, c, yref_x, yref_u)
-            xs, us = xs + dx, us + du
+            alpha = None
+            for _ in range(spec.sqp_iters):
+                xs = xs.clone()
+                xs[:, 0] = x0
+                us = us.contiguous()
+                A, Bm, c = self._sweep(xs, us, params)
+                dx, du, alpha = self._qp_step(xs, us, A, Bm, c, yref_x, yref_u)
+                xs, us = xs + dx, us + du
 
-        defect = self._defect(xs, us, params)
-        kkt = torch.sqrt(torch.mean(defect**2, dim=(1, 2)))
-        return SolveResult(us=us, xs=xs, state=SolverState(xs, us),
-                           kkt_residual=kkt, alpha=alpha)
+            with span("solver.defect"):
+                defect = self._defect(xs, us, params)
+                kkt = torch.sqrt(torch.mean(defect**2, dim=(1, 2)))
+            return SolveResult(us=us, xs=xs, state=SolverState(xs, us),
+                               kkt_residual=kkt, alpha=alpha)
 
     @staticmethod
     def shift(state: SolverState) -> SolverState:
         """RTI shift: advance the warm start one stage."""
-        xs = torch.cat([state.xs[:, 1:], state.xs[:, -1:]], dim=1)
-        us = torch.cat([state.us[:, 1:], state.us[:, -1:]], dim=1)
-        return SolverState(xs=xs, us=us)
+        with span("solver.shift"):
+            xs = torch.cat([state.xs[:, 1:], state.xs[:, -1:]], dim=1)
+            us = torch.cat([state.us[:, 1:], state.us[:, -1:]], dim=1)
+            return SolverState(xs=xs, us=us)
 
     def init_state(self, x0s) -> SolverState:
         """Cold start for a (B, nx) batch: constant-state warm start."""
@@ -325,47 +331,50 @@ class SQPSolver(_GaussNewton):
     def solve(self, x0, yref_x, yref_u, params, state: SolverState) -> SolveResult:
         """One MPC solve. x0 (nx,), yref_x (N+1,nx), yref_u (N,nu), params
         (p_dim,) or (N,p_dim), state (xs (N+1,nx), us (N,nu))."""
-        spec, dt = self.spec, self.dtype
-        N = spec.n_nodes
-        self._check_tf32(x0)
-        x0, yref_x, yref_u = x0.to(dt), yref_x.to(dt), yref_u.to(dt)
-        params = params.to(dt)
-        ps = params if params.ndim == 2 else params.expand(N, -1)
-        xs, us = state.xs.to(dt), state.us.to(dt)
-        if spec.yaw_wrap_idx is not None:
-            i = spec.yaw_wrap_idx
-            yref_x = yref_x.clone()
-            yref_x[:, i] = yaw_wrap_reference(yref_x[:, i], x0[i])
+        with span("solver.solve"):
+            spec, dt = self.spec, self.dtype
+            N = spec.n_nodes
+            self._check_tf32(x0)
+            x0, yref_x, yref_u = x0.to(dt), yref_x.to(dt), yref_u.to(dt)
+            params = params.to(dt)
+            ps = params if params.ndim == 2 else params.expand(N, -1)
+            xs, us = state.xs.to(dt), state.us.to(dt)
+            if spec.yaw_wrap_idx is not None:
+                i = spec.yaw_wrap_idx
+                yref_x = yref_x.clone()
+                yref_x[:, i] = yaw_wrap_reference(yref_x[:, i], x0[i])
 
-        alpha = None
-        for _ in range(spec.sqp_iters):
-            xs = xs.clone()
-            xs[0] = x0
-            us = us.contiguous()
-            A, Bm, c = self._linearize(xs, us, params)
-            dx, du, alpha = self._qp_step(xs[None], us[None], A[None], Bm[None],
-                                          c[None], yref_x[None], yref_u[None])
-            if spec.ls_steps > 1:
-                us_c = us + self.ls_alphas[:, None, None] * du
-                xs_c = self._rollout(x0, us_c, ps)
-                best = torch.argmin(self._merit(xs_c, us_c, yref_x, yref_u))[None]
-                xs = xs_c.index_select(0, best)[0]
-                us = us_c.index_select(0, best)[0]
-            else:
-                xs, us = xs + dx[0], us + du[0]
+            alpha = None
+            for _ in range(spec.sqp_iters):
+                xs = xs.clone()
+                xs[0] = x0
+                us = us.contiguous()
+                A, Bm, c = self._linearize(xs, us, params)
+                dx, du, alpha = self._qp_step(xs[None], us[None], A[None], Bm[None],
+                                              c[None], yref_x[None], yref_u[None])
+                if spec.ls_steps > 1:
+                    us_c = us + self.ls_alphas[:, None, None] * du
+                    xs_c = self._rollout(x0, us_c, ps)
+                    best = torch.argmin(self._merit(xs_c, us_c, yref_x, yref_u))[None]
+                    xs = xs_c.index_select(0, best)[0]
+                    us = us_c.index_select(0, best)[0]
+                else:
+                    xs, us = xs + dx[0], us + du[0]
 
-        defect = self._defect(*self._as_batch(xs, us, params))
-        kkt = torch.sqrt(torch.mean(defect**2))
-        return SolveResult(us=us, xs=xs, state=SolverState(xs, us),
-                           kkt_residual=kkt, alpha=alpha[0])
+            with span("solver.defect"):
+                defect = self._defect(*self._as_batch(xs, us, params))
+                kkt = torch.sqrt(torch.mean(defect**2))
+            return SolveResult(us=us, xs=xs, state=SolverState(xs, us),
+                               kkt_residual=kkt, alpha=alpha[0])
 
     @staticmethod
     def shift(state: SolverState) -> SolverState:
         """RTI shift: advance the warm start one stage (the reference's
         implicit RTI warm start)."""
-        xs = torch.cat([state.xs[1:], state.xs[-1:]], dim=0)
-        us = torch.cat([state.us[1:], state.us[-1:]], dim=0)
-        return SolverState(xs=xs, us=us)
+        with span("solver.shift"):
+            xs = torch.cat([state.xs[1:], state.xs[-1:]], dim=0)
+            us = torch.cat([state.us[1:], state.us[-1:]], dim=0)
+            return SolverState(xs=xs, us=us)
 
     @torch.no_grad()
     def init_state(self, x0, u0=None) -> SolverState:

@@ -30,6 +30,7 @@ from torch import nn
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.qp_ipm import BoundSpec, solve_lq_ocp
 from ad_mpc_tpu_torch.ops.riccati import lqr_solve
+from ad_mpc_tpu_torch.utils.metrics import span
 
 MAX_CONES = 32  # LQ_MAX_CONES in csrc/lq_ipm.cu
 SHAPES = ((7, 2), (13, 4))  # (nx, nu) of the kernels
@@ -278,40 +279,41 @@ class LQSolver(nn.Module):
         return self._launch(A, Bm, c, q, r, u_ref, x_ref)
 
     def _launch(self, A, Bm, c, q, r, u_ref, x_ref):
-        B, N, nx, nu = A.shape[0], self.N, self.nx, self.nu
-        if (nx, nu) not in SHAPES:
-            raise NotImplementedError(f"LQ kernel: nx={nx}, nu={nu} is not "
-                                      f"one of its shapes {SHAPES}")
-        args = (("A", A, (B, N, nx, nx)), ("Bm", Bm, (B, N, nx, nu)),
-                ("c", c, (B, N, nx)), ("q", q, (B, N + 1, nx)),
-                ("r", r, (B, N, nu)), ("u_ref", u_ref, (B, N, nu)),
-                ("x_ref", x_ref, (B, N + 1, nx)))
-        for name, t, shape in args:
-            if t.dtype != torch.float32 or not t.is_contiguous():
-                raise ValueError(f"LQSolver: {name} must be contiguous float32")
-            if t.device != A.device or tuple(t.shape) != shape:
-                raise ValueError(f"LQSolver: {name} {tuple(t.shape)} on "
-                                 f"{t.device}, expected {shape} on {A.device}")
-        if self.Q.device != A.device:
-            raise ValueError(f"LQSolver weights on {self.Q.device}, "
-                             f"inputs on {A.device}")
-        geo, dev = self.geometry_for(B), A.device  # refuses a horizon that does not fit
-        lib = _lib()
-        dx = torch.empty((B, N + 1, nx), dtype=torch.float32, device=dev)
-        du = torch.empty((B, N, nu), dtype=torch.float32, device=dev)
-        alpha = torch.empty((B,), dtype=torch.float32, device=dev)
-        err = lib.lq_ipm(
-            A.data_ptr(), Bm.data_ptr(), c.data_ptr(), q.data_ptr(),
-            r.data_ptr(), u_ref.data_ptr(), x_ref.data_ptr(),
-            self.Q.data_ptr(), self.R.data_ptr(), self.QN.data_ptr(),
-            dx.data_ptr(), du.data_ptr(), alpha.data_ptr(),
-            B, N, nx, nu, self.iters, self.reg, self.tau_min, self._bounds,
-            geo.teams, geo.pitch, torch.cuda.current_stream(dev).cuda_stream,
-        )
-        if err:
-            raise RuntimeError(f"lq_ipm: {lib.error_string(err).decode()}")
-        self.launches += 1
-        return dx, du, alpha
+        with span("launch.lq_ipm"):
+            B, N, nx, nu = A.shape[0], self.N, self.nx, self.nu
+            if (nx, nu) not in SHAPES:
+                raise NotImplementedError(f"LQ kernel: nx={nx}, nu={nu} is not "
+                                          f"one of its shapes {SHAPES}")
+            args = (("A", A, (B, N, nx, nx)), ("Bm", Bm, (B, N, nx, nu)),
+                    ("c", c, (B, N, nx)), ("q", q, (B, N + 1, nx)),
+                    ("r", r, (B, N, nu)), ("u_ref", u_ref, (B, N, nu)),
+                    ("x_ref", x_ref, (B, N + 1, nx)))
+            for name, t, shape in args:
+                if t.dtype != torch.float32 or not t.is_contiguous():
+                    raise ValueError(f"LQSolver: {name} must be contiguous float32")
+                if t.device != A.device or tuple(t.shape) != shape:
+                    raise ValueError(f"LQSolver: {name} {tuple(t.shape)} on "
+                                     f"{t.device}, expected {shape} on {A.device}")
+            if self.Q.device != A.device:
+                raise ValueError(f"LQSolver weights on {self.Q.device}, "
+                                 f"inputs on {A.device}")
+            geo, dev = self.geometry_for(B), A.device  # refuses a horizon that does not fit
+            lib = _lib()
+            dx = torch.empty((B, N + 1, nx), dtype=torch.float32, device=dev)
+            du = torch.empty((B, N, nu), dtype=torch.float32, device=dev)
+            alpha = torch.empty((B,), dtype=torch.float32, device=dev)
+            err = lib.lq_ipm(
+                A.data_ptr(), Bm.data_ptr(), c.data_ptr(), q.data_ptr(),
+                r.data_ptr(), u_ref.data_ptr(), x_ref.data_ptr(),
+                self.Q.data_ptr(), self.R.data_ptr(), self.QN.data_ptr(),
+                dx.data_ptr(), du.data_ptr(), alpha.data_ptr(),
+                B, N, nx, nu, self.iters, self.reg, self.tau_min, self._bounds,
+                geo.teams, geo.pitch, torch.cuda.current_stream(dev).cuda_stream,
+            )
+            if err:
+                raise RuntimeError(f"lq_ipm: {lib.error_string(err).decode()}")
+            self.launches += 1
+            return dx, du, alpha
 
 
 def make_lq_solver(N, nx, nu, Q, R, QN, u_bounds, x_bounds, iters=12,

@@ -45,6 +45,7 @@ from torch.func import vmap
 from ad_mpc_tpu_torch.ops import _build
 from ad_mpc_tpu_torch.ops.cuda_lq import SMEM_BLOCK_MAX, SMEM_BLOCK_RESERVED, SMEM_SM
 from ad_mpc_tpu_torch.ops.integrators import discrete_step, discretize, linearize
+from ad_mpc_tpu_torch.utils.metrics import span
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C signature of each kind of entry, before (dt, rk4_steps, params, stream).
@@ -301,25 +302,26 @@ class VDE(nn.Module):
         return self._launch(xs, us, ps)
 
     def _launch(self, xs, us, ps):
-        (B, N), nx, nu = us.shape[:2], self.nx, self.nu
-        _check_shape("VDE", self.f, nx, nu)
-        fn, error_string = _entry(self.f, defines=self.defines)
-        for name, t, shape in (("xs", xs, (B, N + 1, nx)),
-                               ("us", us, (B, N, nu)),
-                               ("ps", ps, (B, self.p_dim))):
-            _check(f"VDE: {name}", t, shape, xs.device)
-        A = torch.empty((B, N, nx, nx), dtype=torch.float32, device=xs.device)
-        Bm = torch.empty((B, N, nx, nu), dtype=torch.float32, device=xs.device)
-        c = torch.empty((B, N, nx), dtype=torch.float32, device=xs.device)
-        geometry = ()
-        if _is_team(self.f):
-            geo = self.geometry(B, N)
-            geometry = (geo.grid, geo.threads, geo.shared_bytes)
-        _run(fn, error_string, self.f, xs.device, xs.data_ptr(), us.data_ptr(),
-             ps.data_ptr(), A.data_ptr(), Bm.data_ptr(), c.data_ptr(), B, N,
-             nx, nu, ps.shape[-1], *geometry, self.dt, self.rk4_steps)
-        self.launches += 1
-        return A, Bm, c
+        with span("launch.vde"):
+            (B, N), nx, nu = us.shape[:2], self.nx, self.nu
+            _check_shape("VDE", self.f, nx, nu)
+            fn, error_string = _entry(self.f, defines=self.defines)
+            for name, t, shape in (("xs", xs, (B, N + 1, nx)),
+                                   ("us", us, (B, N, nu)),
+                                   ("ps", ps, (B, self.p_dim))):
+                _check(f"VDE: {name}", t, shape, xs.device)
+            A = torch.empty((B, N, nx, nx), dtype=torch.float32, device=xs.device)
+            Bm = torch.empty((B, N, nx, nu), dtype=torch.float32, device=xs.device)
+            c = torch.empty((B, N, nx), dtype=torch.float32, device=xs.device)
+            geometry = ()
+            if _is_team(self.f):
+                geo = self.geometry(B, N)
+                geometry = (geo.grid, geo.threads, geo.shared_bytes)
+            _run(fn, error_string, self.f, xs.device, xs.data_ptr(), us.data_ptr(),
+                 ps.data_ptr(), A.data_ptr(), Bm.data_ptr(), c.data_ptr(), B, N,
+                 nx, nu, ps.shape[-1], *geometry, self.dt, self.rk4_steps)
+            self.launches += 1
+            return A, Bm, c
 
 
 class RK4(nn.Module):
@@ -371,20 +373,21 @@ class RK4(nn.Module):
                             ps, B, N, 1)
 
     def _launch(self, x, x_b, u, u_b, u_k, p, batch, N, defect):
-        if x.device.type != "cuda":
-            raise ValueError(f"RK4: unsupported device {x.device}")
-        _check_shape("RK4", self.f, self.nx, self.nu)
-        fn, error_string = _entry(self.f, "cuda_rk4_entry", self.defines)
-        out = torch.empty((batch, N, self.nx) if defect else (batch, self.nx),
-                          dtype=torch.float32, device=x.device)
-        # p_dim = 0: the kernel reads no parameter, and the empty tensor's
-        # null pointer is passed with stride 0.
-        p_b = p.stride(0) if self.p_dim else 0
-        _run(fn, error_string, self.f, x.device, x.data_ptr(), x_b, u.data_ptr(), u_b,
-             u_k, p.data_ptr(), p_b, out.data_ptr(), batch, N, self.nx, self.nu,
-             self.p_dim, defect, self.dt, self.rk4_steps)
-        self.launches += 1
-        return out
+        with span("launch.rk4"):
+            if x.device.type != "cuda":
+                raise ValueError(f"RK4: unsupported device {x.device}")
+            _check_shape("RK4", self.f, self.nx, self.nu)
+            fn, error_string = _entry(self.f, "cuda_rk4_entry", self.defines)
+            out = torch.empty((batch, N, self.nx) if defect else (batch, self.nx),
+                              dtype=torch.float32, device=x.device)
+            # p_dim = 0: the kernel reads no parameter, and the empty tensor's
+            # null pointer is passed with stride 0.
+            p_b = p.stride(0) if self.p_dim else 0
+            _run(fn, error_string, self.f, x.device, x.data_ptr(), x_b, u.data_ptr(), u_b,
+                 u_k, p.data_ptr(), p_b, out.data_ptr(), batch, N, self.nx, self.nu,
+                 self.p_dim, defect, self.dt, self.rk4_steps)
+            self.launches += 1
+            return out
 
 
 def _prepare(f, device, kind, nx, nu):

@@ -16,8 +16,10 @@ gates and command) and its one fetch of the 4-float result. For each
 batch size: 5 warm-up ticks, then ``--ticks`` ticks under ``torch.profiler``
 (CPU and CUDA activities). Prints the device time per tick of each kernel
 (the port's three kernels and PyTorch's own), the tick's wall time after a
-``synchronize``, and the device's busy share of that window: summed kernel
-time over wall time (one stream, so kernels do not overlap).
+``synchronize``, the device's busy share of that window: summed kernel
+time over wall time (one stream, so kernels do not overlap), and the host
+time per tick of each of the port's spans (``utils.metrics.span``: the
+fleet's tick, the solver's phases, the kernel wrappers' host side).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ad_mpc_tpu_torch import fleet
 from ad_mpc_tpu_torch.experiments import quad_fleet
+from ad_mpc_tpu_torch.utils.metrics import SPAN_PREFIXES
 
 
 def device_us(evt):
@@ -85,6 +88,13 @@ FLEETS = {
 }
 
 
+def span_ms(averages, ticks):
+    """{span: (host ms per tick, calls per tick)} of the port's spans in a
+    profiler's ``key_averages()`` over ``ticks`` ticks."""
+    return {evt.key: (evt.cpu_time_total / 1e3 / ticks, evt.count / ticks)
+            for evt in averages if evt.key.startswith(SPAN_PREFIXES)}
+
+
 def profile_batch(batch, ticks, config="c2"):
     tick, init, _, _ = FLEETS[config]()
     carry = init(batch)
@@ -98,7 +108,8 @@ def profile_batch(batch, ticks, config="c2"):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - tic) / ticks
     kernels = {}
-    for evt in prof.key_averages():
+    averages = prof.key_averages()
+    for evt in averages:
         us = device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = (us / 1e3 / ticks, evt.count // ticks)
@@ -112,6 +123,8 @@ def profile_batch(batch, ticks, config="c2"):
         "kernels_launched_per_tick": sum(n for _, n in kernels.values()),
         "kernels": [{"name": k[:80], "ms_per_tick": ms, "launches_per_tick": n}
                     for k, (ms, n) in top],
+        "spans": [{"name": k, "host_ms_per_tick": ms, "calls_per_tick": n}
+                  for k, (ms, n) in sorted(span_ms(averages, ticks).items())],
     }
 
 
@@ -135,6 +148,9 @@ def main(argv=None):
               f"{torch.cuda.get_device_name(0)}")
         for k in r["kernels"][:8]:
             print(f"  {k['ms_per_tick']:9.4f} ms  x{k['launches_per_tick']:<3d} {k['name']}")
+        print("  host time per tick by span:")
+        for k in r["spans"]:
+            print(f"  {k['host_ms_per_tick']:9.4f} ms  x{k['calls_per_tick']:<3g} {k['name']}")
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(rows, fh, indent=1)

@@ -1,84 +1,36 @@
-"""Latency and throughput metrics and a profiler hook.
+"""Named spans on the profiler's clock, and a profiler hook.
 
-Port of ``ad_mpc_tpu/utils/metrics.py``: p50/p99 latency counters and a
-solves-per-second window, as they are, and :func:`profile_trace`, which
-wraps a region in ``torch.profiler`` (the JAX package's ``jax.profiler``
-trace) and writes a Chrome trace.
+:func:`span` names a region of the port's host code (the fleet's tick,
+the solver's phases, the kernel wrappers' host side) in a running
+``torch.profiler``, where it shares a clock with the device's kernels.
+With no profiler running it costs one check. :func:`profile_trace` wraps
+a region in ``torch.profiler`` (the JAX package's ``jax.profiler`` trace)
+and writes a Chrome trace, in which the spans appear on the host's rows.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
 
-import numpy as np
+import torch
+from torch._C._profiler import _RecordFunctionFast
 
+_profiling = torch.autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
 
-class LatencyTracker:
-    """Per-event latency accumulator with percentile reporting."""
-
-    def __init__(self, name: str = "solve", budget_ms: float | None = None):
-        self.name = name
-        self.budget_ms = budget_ms
-        self._samples_ms: list[float] = []
-
-    @contextlib.contextmanager
-    def measure(self):
-        tic = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._samples_ms.append(1e3 * (time.perf_counter() - tic))
-
-    def add(self, seconds: float):
-        self._samples_ms.append(1e3 * seconds)
-
-    def __len__(self):
-        return len(self._samples_ms)
-
-    def stats(self, skip_warmup: int = 0) -> dict:
-        a = np.asarray(self._samples_ms[skip_warmup:])
-        if len(a) == 0:
-            return {"name": self.name, "count": 0}
-        out = {
-            "name": self.name,
-            "count": int(len(a)),
-            "mean_ms": float(a.mean()),
-            "p50_ms": float(np.percentile(a, 50)),
-            "p99_ms": float(np.percentile(a, 99)),
-            "max_ms": float(a.max()),
-            "rate_hz": float(1e3 / a.mean()),
-        }
-        if self.budget_ms is not None:
-            out["budget_ms"] = self.budget_ms
-            out["overruns"] = int(np.sum(a > self.budget_ms))
-        return out
-
-    def reset(self):
-        self._samples_ms.clear()
+# The first words of the port's span names.
+SPAN_PREFIXES = ("fleet.", "solver.", "launch.")
 
 
-class ThroughputTracker:
-    """Batched-solve throughput (solves/s) over timed windows."""
+def span(name: str):
+    """A context that records ``name`` as a host event of the running
+    ``torch.profiler``, or the one shared no-op context when none runs.
 
-    def __init__(self):
-        self._windows: list[tuple[int, float]] = []
-
-    @contextlib.contextmanager
-    def window(self, n_items: int):
-        tic = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._windows.append((n_items, time.perf_counter() - tic))
-
-    def rate(self) -> float:
-        if not self._windows:
-            return 0.0
-        items = sum(n for n, _ in self._windows)
-        secs = sum(t for _, t in self._windows)
-        return items / max(secs, 1e-12)
+    The event is a plain record function, not a user annotation, so the
+    profiler copies nothing of it onto the device's timeline. A span's
+    parent is the span whose interval encloses it."""
+    return _RecordFunctionFast(name) if _profiling() else _OFF
 
 
 @contextlib.contextmanager
@@ -86,7 +38,6 @@ def profile_trace(log_dir: str):
     """Profile a region with ``torch.profiler`` (the CPU, and the card's
     kernels where there is one) and write ``trace.json`` (Chrome trace
     format) into ``log_dir``. Yields the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU]

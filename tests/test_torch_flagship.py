@@ -1,7 +1,7 @@
 """The port's learned-pipeline experiments and utilities on the CPU: a
 tiny comparative sweep and a tiny flagship run (record -> fit -> sweep) on
 the plain backend under a temporary results root, the model registry's
-``.npz`` round trip, the metrics, the result registry and the numbers of
+``.npz`` round trip, the result registry and the numbers of
 the GP plots (held to the JAX package's ensemble functions at 1e-9).
 
 Nothing here writes under the repository's ``results/``."""
@@ -19,7 +19,7 @@ from ad_mpc_tpu.learned import ensemble as je
 from ad_mpc_tpu_torch.experiments import comparative, gp_flagship, quad_fleet
 from ad_mpc_tpu_torch.experiments.gp_visualization import gp_bands
 from ad_mpc_tpu_torch.learned.ensemble import GPEnsemble
-from ad_mpc_tpu_torch.utils import io, metrics, visualization
+from ad_mpc_tpu_torch.utils import io, visualization
 from ad_mpc_tpu_torch.utils.live_viz import ExperimentRegistry
 from ad_mpc_tpu_torch.testing import one_thread  # noqa: F401 (autouse)
 
@@ -94,19 +94,6 @@ def test_model_registry_round_trip(root):
     with pytest.raises(FileNotFoundError):
         io.dataset_dir("flights", "train", {"seed": 4})
     assert io.git_hash()
-
-
-def test_metrics_trackers():
-    lat = metrics.LatencyTracker("solve", budget_ms=1.0)
-    for s in (0.0005, 0.002, 0.0001):
-        lat.add(s)
-    st = lat.stats()
-    assert st["count"] == 3 and st["overruns"] == 1
-    np.testing.assert_allclose(st["p50_ms"], 0.5)
-    tp = metrics.ThroughputTracker()
-    with tp.window(100):
-        pass
-    assert tp.rate() > 0
 
 
 def test_gp_plot_numbers_match_jax():

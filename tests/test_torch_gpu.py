@@ -35,6 +35,7 @@ from ad_mpc_tpu_torch.ops.integrators import discrete_step
 from ad_mpc_tpu_torch.testing import (
     BOUNDS, LQ_WEIGHTS, QUAD_LQ_WEIGHTS, anchored_hold, gp_bicycle_inputs, lq_case,
     pacejka_inputs, quad_traj, random_lq, random_traj)
+from ad_mpc_tpu_torch.utils.metrics import SPAN_PREFIXES
 
 pytestmark = pytest.mark.gpu
 
@@ -227,6 +228,53 @@ def test_fleet_tick_on_card_matches_plain(cuda):
     torch.testing.assert_close(x_g, x_c, atol=1e-4, rtol=1e-5)
     assert abs(lat_g - lat_c) < 1e-4
     assert float(kkt_g.max()) < 3e-5
+
+
+def test_tick_spans_on_card(cuda):
+    """One traced c2 tick at N=40, B=1024: the kernel wrappers' spans lie
+    inside the solver's (the sweep, the QP, the KKT defect) and the plant
+    step's, no event on the device's timeline carries a span's name, and
+    the benchmark's readers of the spans each read a number."""
+    import json
+    from pathlib import Path
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import trace
+    from benchmark.run import Context, metric_reader
+
+    tick, init, _, _ = fleet.build_fleet(
+        fleet.dynamic_bicycle, fleet.switch_on, n_nodes=40, device=cuda)
+    carry = init(1024)
+    carry, _ = tick(carry)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        carry, (kkt, _) = tick(carry)
+        kkt.cpu()
+    on_card = torch.autograd.DeviceType.CUDA
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type != on_card
+             and e.name.startswith(SPAN_PREFIXES)]
+    names = [s[0] for s in spans]
+    assert {n: names.count(n) for n in set(names)} == {
+        "fleet.tick": 1, "fleet.reference": 1, "solver.solve": 1, "solver.sweep": 1,
+        "solver.qp": 1, "solver.defect": 1, "fleet.plant": 1, "solver.shift": 1,
+        "launch.vde": 1, "launch.lq_ipm": 1, "launch.rk4": 2}
+
+    def within(name, parent):
+        return [s for s in spans if s[0] == name and any(
+            p[0] == parent and p[1] <= s[1] and s[2] <= p[2] for p in spans)]
+
+    assert within("launch.vde", "solver.sweep") and within("launch.lq_ipm", "solver.qp")
+    assert within("launch.rk4", "solver.defect") and within("launch.rk4", "fleet.plant")
+    device = {e.name for e in prof.events() if e.device_type == on_card}
+    assert device and not device & set(names)
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "benchmark" / "configs" / "c2.json").read_text())
+    ctx = Context(trace.reduce(prof, 1, 0.1), cfg, 1024, [])
+    for name in ("device.idle_in_tick_pct", "glue.host_ms_per_tick", "launch.host_us_p50",
+                 "tick.syncs_per_tick"):
+        assert metric_reader(name)(ctx) is not None, name
 
 
 def test_solver_checks_tf32(cuda):
